@@ -1,0 +1,136 @@
+"""Where the serving time goes on the card: granite-8b, the chip smoke's
+serving workload, under ``torch.profiler``.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--out DIR]
+
+Runs ``workload.granite_serve_workload()`` (the workload of
+``chip_smoke.py``'s serve phase) once to warm up, then once under the
+profiler, and prints one JSON line: wall time, device-busy time and idle share of the
+window, the device time of each kernel family, and the isolated times of
+one decode step (4 slots at 500 cached tokens) and one 128-token prefill
+chunk from CUDA events. The full operator table goes to ``DIR``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+
+def _self_device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def _family(name: str) -> str:
+    if "paged_decode" in name:
+        return "K5 paged_decode_kernel"
+    if "paged_prefill" in name:
+        return "K6 paged_prefill_kernel"
+    low = name.lower()
+    if any(k in low for k in ("gemm", "gemv", "nvjet", "cutlass", "splitkreduce")):
+        return "matmul (cuBLAS)"
+    if "index" in low or "scatter" in low:
+        return "index/scatter (KV writes, gathers)"
+    return "other elementwise/reduction"
+
+
+def _events_ms(fn, reps: int = 10) -> float:
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="profile_serve_out")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve measures the card; CUDA is not available")
+
+    from repro_torch.launch.workload import granite_serve_workload
+    from repro_torch.models import decode_step_paged, init_paged_state, prefill_chunk_paged
+    from repro_torch.serve import ServeEngine
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    wl = granite_serve_workload()
+    cfg, rt, ecfg = wl.cfg, wl.rt, wl.ecfg
+    params = wl.params("cuda")
+    eng = ServeEngine(cfg, params, rt, ecfg, device="cuda")
+    for p in wl.prompts:                               # warm-up run
+        eng.submit(p, wl.new_tokens)
+    eng.run()
+    for p in wl.prompts:
+        eng.submit(p, wl.new_tokens)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    stats = dict(eng.stats)
+    families: dict = {}
+    busy_us = 0.0
+    averages = prof.key_averages()          # slow on ~10^6 events: once
+    for evt in averages:
+        if getattr(evt, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        us = _self_device_us(evt)
+        busy_us += us
+        fam = families.setdefault(_family(evt.key), {"ms": 0.0, "calls": 0})
+        fam["ms"] += us / 1e3
+        fam["calls"] += evt.count
+    out = Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "key_averages.txt").write_text(averages.table(
+        sort_by="self_cuda_time_total", row_limit=60))
+
+    # isolated step times: 4 slots decoding at 500 cached tokens; one chunk
+    state = init_paged_state(cfg, 4, rt, num_pages=ecfg.num_pages, page_size=16,
+                             max_len=ecfg.max_len, device="cuda")
+    width = state["tables"].shape[1]
+    state["tables"].copy_(torch.arange(1, 1 + 4 * width, device="cuda").view(4, width)
+                          .clamp(max=ecfg.num_pages - 1).int())
+    state["lengths"].fill_(500)
+    tok = torch.zeros(4, dtype=torch.int32, device="cuda")
+    chunk = torch.zeros(128, dtype=torch.int32, device="cuda")
+
+    def decode():
+        decode_step_paged(cfg, params, state, tok, rt, ecfg.max_len)
+        state["lengths"].fill_(500)
+
+    def prefill():
+        prefill_chunk_paged(cfg, params, state["caches"], state["tables"][0], chunk,
+                            384, 128, rt, ecfg.max_len)
+
+    decode(), prefill()
+    print(json.dumps({
+        "card": card, "config": cfg.name, "wall_s": wall_s,
+        "device_busy_s": busy_us / 1e6, "idle_share": 1 - busy_us / 1e6 / wall_s,
+        "tokens_per_s": stats["tokens_per_s"],
+        "run_mean_ttft_s": stats["run_mean_ttft_s"],
+        "kernel_launches": stats["kernel_launches"],
+        "families": families,
+        "decode_step_ms": _events_ms(decode), "prefill_chunk_ms": _events_ms(prefill),
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

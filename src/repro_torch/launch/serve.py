@@ -1,0 +1,124 @@
+"""Serving launcher of the PyTorch port: the paged continuous-batching engine.
+
+    # full granite-8b on the card, random weights from --seed
+    PYTHONPATH=src python -m repro_torch.launch.serve --full --arch granite-8b \
+        --paged --prefill-chunk 128
+
+    # reduced config on the CPU (plain versions of the kernels)
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+        --paged --prefill-chunk 8 --device cpu
+
+Counterpart of the ``--paged`` branch of ``repro.launch.serve``. Requests of
+random length (uniform in ``[prompt_len // 2, prompt_len]``, after an
+optional shared system prompt) are admitted into ``--slots`` decode slots
+over the paged KV pool, prefilled in chunks and decoded together. It runs on
+CUDA unless ``--device cpu`` is given, and in bf16 at full size (``--full``),
+f32 when reduced. Modes of the JAX launcher that belong to later slices of
+the port exit with an error naming the slice.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+LATER = {
+    "kv_dtype": "--kv-dtype int8|fp8 (quantized KV)",
+    "spec": "--spec (speculative decoding)",
+    "mesh": "--mesh (memory techniques and multi-device)",
+    "trace": "--trace (the async front-end and its traces)",
+}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma3-1b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default: the hand kernels) or cpu")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--new-tokens", type=int, default=32)
+    ap.add_argument("--temperature", type=float, default=0.8)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--paged", action="store_true",
+                    help="continuous batching over the paged KV pool")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--prefix-cache", action="store_true")
+    ap.add_argument("--prefill-chunk", type=int, default=0)
+    ap.add_argument("--shared-prefix", type=int, default=0)
+    ap.add_argument("--max-queue", type=int, default=0)
+    ap.add_argument("--kv-dtype", default="bf16")
+    ap.add_argument("--spec", type=int, default=0)
+    ap.add_argument("--mesh", default="")
+    ap.add_argument("--trace", default="")
+    args = ap.parse_args(argv)
+
+    if not args.paged:
+        ap.error("the port serves only --paged so far; batched dense generation "
+                 "is ROADMAP queue 1, 'the dense fallback and the other families'")
+    if args.kv_dtype != "bf16":
+        ap.error(f"{LATER['kv_dtype']} is a later slice of the port (ROADMAP queue 1)")
+    for flag in ("spec", "mesh", "trace"):
+        if getattr(args, flag):
+            ap.error(f"{LATER[flag]} is a later slice of the port (ROADMAP queue 1)")
+    if args.prefill_chunk == 0 and not args.prefix_cache:
+        ap.error("--prefill-chunk 0 without --prefix-cache is whole-prompt "
+                 "admission, a later slice of the port (ROADMAP queue 1)")
+    if args.device == "cuda" and not torch.cuda.is_available():
+        ap.error("CUDA is not available; pass --device cpu to run on the CPU")
+
+    from repro_torch.configs import ASSIGNED, get_config, get_reduced
+    from repro_torch.models import Runtime, init_params
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    if args.arch not in ASSIGNED:
+        ap.error(f"--arch must be one of {ASSIGNED}")
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    dtype = torch.float32 if args.reduced else torch.bfloat16
+    params = init_params(cfg, seed=args.seed, device=args.device, dtype=dtype)
+    rng = np.random.RandomState(args.seed)
+    max_prompt = args.prompt_len + args.shared_prefix
+    ecfg = EngineConfig.capacity(
+        max_prompt, args.new_tokens, slots=args.slots, page_size=args.page_size,
+        headroom=2.0, cfg=cfg,
+    ).engine(
+        temperature=args.temperature, seed=args.seed,
+        prefill_bucket=args.page_size, prefix_cache=args.prefix_cache,
+        prefill_chunk=args.prefill_chunk, max_queue=args.max_queue,
+    )
+    eng = ServeEngine(cfg, params, Runtime(dtype=dtype), ecfg, device=args.device)
+    sys_prompt = rng.randint(0, cfg.vocab_size, (args.shared_prefix,)).astype(np.int32)
+    rids = []
+    for _ in range(args.requests):
+        plen = rng.randint(max(args.prompt_len // 2, 1), args.prompt_len + 1)
+        tokens = np.concatenate([
+            sys_prompt, rng.randint(0, cfg.vocab_size, (plen,)).astype(np.int32)
+        ])
+        rids.append(eng.submit(tokens, args.new_tokens))
+    out = eng.run()
+    s = eng.stats
+    where = (torch.cuda.get_device_name(0) if eng.device.type == "cuda"
+             else "cpu")
+    print(
+        f"{cfg.name} [{cfg.family}] on {where}: "
+        f"{sum(len(v) for v in out.values())} tokens, "
+        f"{s['tokens_per_s']:.1f} tok/s, mean TTFT "
+        f"{s['run_mean_ttft_s'] * 1e3:.0f}ms, evictions={s.get('evictions', 0)}, "
+        f"prefill_chunks={s.get('prefill_chunks', 0)}, "
+        f"kernel_launches={s['kernel_launches']}"
+    )
+    if args.prefix_cache:
+        print(
+            f"  prefix-cache: hits {s['prefix_hits']}/{s['prefix_lookups']}, "
+            f"cached tokens {s['prefix_cached_tokens']}/{s.get('prompt_tokens', 0)}"
+        )
+    for rid in rids[:2]:
+        print(f"  req[{rid}]: {out[rid][:12].tolist()}...")
+
+
+if __name__ == "__main__":
+    main()

@@ -5,8 +5,9 @@ Each library is one ``.cu`` file with a plain C interface, compiled for
 The file name carries a hash of the source and the flags, so an edited
 source is rebuilt and a stale library is never loaded. nvcc's output (the
 ``-Xptxas -v`` register and shared-memory report) lands beside the library
-as ``.log``. Nothing here runs at import time: the CPU tests import every
-module without ``nvcc``.
+as ``.log``. Each source has its own lock, so several sources build at once
+from several threads (``chip_smoke.py`` starts them together). Nothing here
+runs at import time: the CPU tests import every module without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -26,7 +27,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()                 # guards _LOCKS
+_LOCKS: Dict[str, threading.Lock] = {}
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
@@ -66,6 +68,8 @@ def _build(source: str, out: Path) -> None:
 def load(source: str) -> ctypes.CDLL:
     """The loaded library of ``source``, built first if needed."""
     with _LOCK:
+        lock = _LOCKS.setdefault(source, threading.Lock())
+    with lock:
         lib = _LOADED.get(source)
         if lib is None:
             out = library_path(source)

@@ -10,17 +10,12 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import on_cuda
 from repro_torch.kernels.paged_attention import cuda
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_plain,
     paged_prefill_attention_plain,
 )
-
-
-def _route(t: torch.Tensor) -> str:
-    if t.device.type in ("cuda", "cpu"):
-        return t.device.type
-    raise ValueError(f"paged attention runs on cuda or cpu, not {t.device}")
 
 
 def paged_attention(
@@ -33,7 +28,7 @@ def paged_attention(
     window: int = 0,
 ) -> torch.Tensor:
     """Decode attention. q (B, Kv, G, hd) pre-scaled -> (B, Kv, G, hd)."""
-    if _route(q) == "cuda":
+    if on_cuda(q, "paged attention"):
         return cuda.paged_decode_attention_cuda(
             q, k_pages, v_pages, tables, lengths, window=window
         )
@@ -51,7 +46,7 @@ def paged_prefill_attention(
     window: int = 0,
 ) -> torch.Tensor:
     """Chunked-prefill attention. q (B, T, Kv, G, hd) -> (B, T, Kv, G, hd)."""
-    if _route(q) == "cuda":
+    if on_cuda(q, "paged attention"):
         return cuda.paged_prefill_attention_cuda(
             q, k_pages, v_pages, tables, start, q_len, window=window
         )

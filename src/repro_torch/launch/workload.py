@@ -1,10 +1,16 @@
-"""The serving workload that ``chip_smoke.py``'s serve phase runs and
-``profile_serve.py`` profiles, defined once so the two cannot drift.
+"""The workloads that ``chip_smoke.py`` runs and ``profile_serve.py`` /
+``profile_train.py`` profile, each defined once so they cannot drift.
 
-granite-8b at full width and depth in bf16, random weights from seed 0;
-8 requests with prompts uniform in 128..512 tokens and 64 new tokens each,
-greedy; 4 slots, page 16, chunked prefill of 128 tokens, 8 decode steps per
-tick, a pool sized by ``EngineConfig.capacity(..., headroom=2.0)``.
+Serving: granite-8b at full width and depth in bf16, random weights from
+seed 0; 8 requests with prompts uniform in 128..512 tokens and 64 new tokens
+each, greedy; 4 slots, page 16, chunked prefill of 128 tokens, 8 decode
+steps per tick, a pool sized by ``EngineConfig.capacity(..., headroom=2.0)``.
+
+Training: gemma3-1b at full width and depth (26 layers, d 1152, 4 query
+heads over 1 kv head of hd 256, window 512 on 22 layers, tied vocabulary of
+262,144), bf16 compute over f32 masters, AdamW at lr 1e-3, the chunked-CE
+head, remat none, batch 4 x seq 2048 from ``DataPipeline(seed=0)``, random
+weights from seed 0.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ import torch
 from repro_torch.configs import ArchConfig, get_config
 from repro_torch.models import Runtime, init_params
 from repro_torch.serve import EngineConfig
+from repro_torch.train import TrainConfig
 
 
 @dataclass(frozen=True)
@@ -44,3 +51,27 @@ def granite_serve_workload(seed: int = 0) -> ServeWorkload:
                for n in rng.randint(128, 513, size=8)]
     return ServeWorkload(cfg, Runtime(dtype=torch.bfloat16), ecfg, prompts,
                          new_tokens, seed)
+
+
+@dataclass(frozen=True)
+class TrainWorkload:
+    cfg: ArchConfig
+    tc: TrainConfig
+    batch: int
+    seq: int
+    seed: int
+
+    @property
+    def tokens_per_step(self) -> int:
+        return self.batch * self.seq
+
+    def data(self):
+        from repro_torch.data import DataPipeline
+
+        return DataPipeline(self.cfg, self.batch, self.seq, seed=self.seed)
+
+
+def gemma_train_workload(seed: int = 0) -> TrainWorkload:
+    tc = TrainConfig(precision="bf16", remat="none", fused_backward=True, lr=1e-3,
+                     log_every=1)
+    return TrainWorkload(get_config("gemma3-1b"), tc, batch=4, seq=2048, seed=seed)

@@ -1,5 +1,11 @@
-"""GQA attention over the paged KV pool: the paged halves of
-``repro.models.attention``.
+"""GQA attention: the full-sequence training path and the paged serving
+halves of ``repro.models.attention``.
+
+``attention_apply`` is the self-attention half of the JAX function: q, k and
+v projections, RoPE, q pre-scaled by ``hd**-0.5``, then ``flash_attention``
+over the (B, S, Kv, G, hd) layout (K1/K2 on a CUDA tensor, the plain version
+on a CPU tensor). It computes the same function as the JAX banded
+query-chunk scan without copying it.
 
 The page pools are updated in place (JAX returned new pools and donated the
 old buffers; here the write lands in the caller's tensor). The order is the
@@ -9,9 +15,12 @@ causality and the cached prefix are the same absolute-position mask.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 
+from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (
     paged_attention,
     paged_prefill_attention,
@@ -38,6 +47,41 @@ class Attention(nn.Module):
 
 def _split_heads(x: torch.Tensor, n: int, hd: int) -> torch.Tensor:
     return x.reshape(x.shape[:-1] + (n, hd))
+
+
+def attention_apply(
+    p: Attention,
+    x: torch.Tensor,
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    theta: float,
+    window: int = 0,
+    causal: bool = True,
+    positions: Optional[torch.Tensor] = None,
+    memory: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Full-sequence self-attention (training). x: (B, S, d); positions
+    (B, S), default 0..S-1. Returns (B, S, d)."""
+    if memory is not None:
+        raise NotImplementedError(
+            "cross-attention (encoder-decoder) is ROADMAP queue 1 item 4, "
+            "'the other families'"
+        )
+    B, S, _ = x.shape
+    dtype = x.dtype
+    G = n_heads // n_kv
+    q = _split_heads(x @ p.wq.to(dtype), n_heads, head_dim)
+    k = _split_heads(x @ p.wk.to(dtype), n_kv, head_dim)
+    v = _split_heads(x @ p.wv.to(dtype), n_kv, head_dim)
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    q = rope_apply(q, positions, theta)
+    k = rope_apply(k, positions, theta)
+    q = q.reshape(B, S, n_kv, G, head_dim) * (head_dim ** -0.5)
+    out = flash_attention(q, k, v, causal, window)
+    return out.reshape(B, S, n_heads * head_dim) @ p.wo.to(dtype)
 
 
 def check_kv_dtype(kv_dtype: str) -> None:

@@ -1,17 +1,22 @@
 """Shared primitive layers: init helpers, norms, RoPE, MLPs, embeddings.
 
 Counterpart of ``repro.models.layers``. Parameters live in small
-``nn.Module``s whose tensors are frozen ``nn.Parameter``s (serving has no
-backward pass); the ``*_apply`` functions take a module plus activations and
-keep the JAX package's numerics:
+``nn.Module``s whose tensors are ``nn.Parameter``s, built frozen (serving
+has no backward pass); training turns ``requires_grad`` on over the whole
+tree (``train.loop.make_state``). The ``*_apply`` functions take a module
+plus activations and keep the JAX package's numerics:
 
-* norms compute in f32 and cast back; the scale multiplies in f32;
+* norms compute in f32 and cast back; the scale multiplies in f32. RMSNorm
+  goes through ``kernels.rmsnorm`` (K3/K4 on a CUDA tensor, the plain
+  version on a CPU tensor) on every path, serving included; LayerNorm stays
+  plain, as JAX has no fused LayerNorm;
 * RoPE is half-split with f32 angles;
 * logits are f32, from the f32 head (or the f32 embedding table when tied),
   while the embedding lookup uses the table cast to the compute dtype.
 
-Matmul weights may be stored once in the compute dtype: JAX casts them at
-every use, and a cast of an already-cast tensor is the identity.
+Matmul weights may be stored once in the compute dtype for serving: JAX
+casts them at every use, and a cast of an already-cast tensor is the
+identity. Training keeps f32 masters and casts at each use, as JAX does.
 """
 from __future__ import annotations
 
@@ -21,6 +26,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from repro_torch.kernels.rmsnorm import rmsnorm
 
 
 def frozen(t: torch.Tensor) -> nn.Parameter:
@@ -55,15 +62,13 @@ class Norm(nn.Module):
 
 def norm_apply(p: Norm, x: torch.Tensor, norm: str, eps: float = 1e-6) -> torch.Tensor:
     """RMSNorm / LayerNorm in f32, result cast back to x.dtype."""
+    if norm == "rmsnorm":
+        return rmsnorm(x, p.scale, eps)
     dtype = x.dtype
     x = x.float()
-    if norm == "rmsnorm":
-        x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    else:
-        mu = torch.mean(x, dim=-1, keepdim=True)
-        var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
-        x = (x - mu) * torch.rsqrt(var + eps)
-    out = x * p.scale
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x - mu), dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps) * p.scale
     if p.bias is not None:
         out = out + p.bias
     return out.to(dtype)

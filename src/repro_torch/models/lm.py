@@ -1,6 +1,8 @@
-"""Top-level model, serving half: embeddings -> decoder stack -> logits.
+"""Top-level model: embeddings -> decoder stack -> logits.
 
-Counterpart of the paged serving entry points of ``repro.models.lm``.
+Counterpart of the training forward and loss (``forward_hidden``,
+``forward``, ``masked_token_ce``, ``loss_fn``) and of the paged serving
+entry points of ``repro.models.lm``.
 Parameters are an :class:`LM` module holding the same tree as the JAX
 package (``embed/table``, the per-layer blocks, ``final_norm/scale``,
 ``head/w``); ``checkpoint.convert.params_from_jax`` carries a JAX tree
@@ -12,12 +14,13 @@ The paged state is updated in place: pool pages by the attention writes,
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.chunked_ce import chunked_ce
 from repro_torch.models import stack as stack_mod
 from repro_torch.models.layers import (
     Embed,
@@ -72,6 +75,66 @@ def _logits(cfg: ArchConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
     return logits_apply(params.head, params.embed, x, cfg.tie_embeddings)
 
 
+# ------------------------------------------------------------------ training
+def forward_hidden(
+    cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], rt: Runtime
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward up to (not including) the vocab projection.
+    Returns (hidden (B, S, d) after the final norm, aux)."""
+    x = embed_apply(params.embed, batch["tokens"], rt.dtype)
+    specs = layer_specs(cfg, seq_len=x.shape[1], long_variant=rt.long_variant)
+    x, aux, _ = stack_mod.stack_forward(cfg, params.stack, x, rt, specs)
+    return norm_apply(params.final_norm, x, cfg.norm), aux
+
+
+def forward(
+    cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], rt: Runtime
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training forward: f32 logits over the full sequence. Returns (logits, aux)."""
+    x, aux = forward_hidden(cfg, params, batch, rt)
+    return logits_apply(params.head, params.embed, x, cfg.tie_embeddings), aux
+
+
+Z_LOSS_DEFAULT = 1e-4
+
+
+def masked_token_ce(
+    ll: torch.Tensor, logz: torch.Tensor, labels: torch.Tensor,
+    z_loss: float = Z_LOSS_DEFAULT,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(xent, z_loss) from per-token (label log-lik, logZ); labels -1 masked."""
+    mask = (labels >= 0).float()
+    denom = torch.clamp(mask.sum(), min=1.0)
+    xent = -(ll * mask).sum() / denom
+    zl = z_loss * ((logz ** 2) * mask).sum() / denom
+    return xent, zl
+
+
+def loss_fn(
+    cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], rt: Runtime,
+    z_loss: float = Z_LOSS_DEFAULT,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Next-token cross entropy + z-loss (+ router aux, 0 for the dense
+    families). Labels -1 are masked. ``rt.fused_backward`` picks the
+    vocab-chunked CE head (same loss and grads, never (B, S, V) at once)
+    over the dense f32 logits head; kernels route by device either way."""
+    h, aux = forward_hidden(cfg, params, batch, rt)
+    labels = batch["labels"]
+    safe = torch.clamp(labels, min=0)
+    if rt.fused_backward:
+        w = params.embed.table if cfg.tie_embeddings else params.head.w.T
+        lab, logz = chunked_ce(h, w, safe, rt.ce_chunk)
+        ll = lab - logz
+    else:
+        logits = logits_apply(params.head, params.embed, h, cfg.tie_embeddings)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, safe.long()[..., None])[..., 0] - logz
+    xent, zl = masked_token_ce(ll, logz, labels, z_loss)
+    total = xent + zl + cfg.router_aux_coef * aux
+    return total, {"loss": total, "xent": xent, "aux": aux, "z_loss": zl}
+
+
+# ------------------------------------------------------------------- serving
 def init_paged_state(
     cfg: ArchConfig,
     B: int,
@@ -80,7 +143,7 @@ def init_paged_state(
     num_pages: int,
     page_size: int,
     max_len: int,
-    device="cpu",
+    device,
 ) -> Dict[str, Any]:
     """Paged decode state: the KV page pools shared by ``B`` slots, all-zero
     block tables (the null page) until the engine admits a request, and the

@@ -1,9 +1,14 @@
-"""Decoder stack, serving half: per-layer blocks over the paged KV pool.
+"""Decoder stack: the full-sequence training forward and the paged serving
+steps, over per-layer blocks.
 
-Counterpart of the paged parts of ``repro.models.stack``. JAX scanned over
-stacked ``(L, ...)`` parameter segments; here an ``nn.ModuleList`` holds one
-block per layer and a Python loop walks it. ``layer_specs`` gives each layer
-its mixer kind and window, exactly as in the JAX package.
+Counterpart of ``stack_forward`` and the paged parts of
+``repro.models.stack``. JAX scanned over stacked ``(L, ...)`` parameter
+segments; here an ``nn.ModuleList`` holds one block per layer and a Python
+loop walks it. ``layer_specs`` gives each layer its mixer kind and window,
+exactly as in the JAX package. Remat is ``torch.utils.checkpoint`` over
+groups of ``rt.remat_period`` layers: ``full`` saves only each group's
+input, ``dots`` also saves every matmul output (``aten.mm``), the
+counterpart of ``dots_with_no_batch_dims_saveable``.
 
 The KV pools stay one K tensor and one V tensor of shape
 ``(L, num_pages, page, Kv, hd)`` (``init_stack_pool``), so a copy-on-write
@@ -12,10 +17,12 @@ on the contiguous view ``pool[i]``.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn_mod
@@ -113,7 +120,8 @@ def init_stack_pool(
     specs: Tuple[LayerSpec, ...],
     num_pages: int,
     page_size: int,
-    device="cpu",
+    *,
+    device,
 ) -> Dict[str, torch.Tensor]:
     """Paged KV pools of every layer, ``{"k", "v"}`` each
     ``(L, num_pages, page, Kv, hd)`` — the JAX package's per-layer
@@ -137,6 +145,66 @@ def init_stack_pool(
 
 
 # --------------------------------------------------------------------- apply
+def _layer_apply(
+    cfg: ArchConfig, bp: Block, x: torch.Tensor, spec: LayerSpec,
+    positions: torch.Tensor, causal: bool,
+) -> torch.Tensor:
+    h = norm_apply(bp.norm1, x, cfg.norm)
+    x = x + attn_mod.attention_apply(
+        bp.mixer, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+        head_dim=cfg.head_dim, theta=cfg.rope_theta, window=spec.window,
+        causal=causal, positions=positions,
+    )
+    return _ffn_apply(cfg, bp, x)
+
+
+def _group_apply(cfg, blocks, specs, positions, causal, x):
+    for bp, spec in zip(blocks, specs):
+        x = _layer_apply(cfg, bp, x, spec, positions, causal)
+    return x
+
+
+def _save_matmuls():
+    return create_selective_checkpoint_contexts([torch.ops.aten.mm.default])
+
+
+def stack_forward(
+    cfg: ArchConfig,
+    stack: Stack,
+    x: torch.Tensor,
+    rt: Runtime,
+    specs: Tuple[LayerSpec, ...],
+    *,
+    positions: Optional[torch.Tensor] = None,
+    memory: Optional[torch.Tensor] = None,
+    causal: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, None]:
+    """Full-sequence forward. x: (B, S, d) embedded. Returns (x, aux, None):
+    the router aux loss is 0 for the dense families this slice covers, and
+    cache collection belongs to the whole-prompt prefill (ROADMAP queue 1)."""
+    check_served(cfg)
+    if memory is not None:
+        raise NotImplementedError(
+            "encoder memory (cross-attention) is ROADMAP queue 1 item 4, "
+            "'the other families'"
+        )
+    B, S = x.shape[0], x.shape[1]
+    if positions is None:
+        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    layers = list(stack.layers)
+    k = rt.remat_period
+    for i in range(0, len(layers), k):
+        fn = functools.partial(_group_apply, cfg, layers[i:i + k], specs[i:i + k],
+                               positions, causal)
+        if rt.remat == "none":
+            x = fn(x)
+        elif rt.remat == "full":
+            x = checkpoint(fn, x, use_reentrant=False)
+        else:
+            x = checkpoint(fn, x, use_reentrant=False, context_fn=_save_matmuls)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device), None
+
+
 def stack_prefill_paged(
     cfg: ArchConfig,
     stack: Stack,

@@ -18,8 +18,8 @@ last prompt chunk ends (its TTFT).
 
 Each request's sample stream depends only on (seed, rid, step), so engine
 output equals running the request alone. On a CUDA device every attention
-call goes through the hand-written paged kernels; ``stats["kernel_launches"]``
-counts their launches in the run window.
+call goes through the hand-written paged kernels and every RMSNorm through
+K3; ``stats["kernel_launches"]`` counts their launches in the run window.
 
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
 item): the dense fallback (``paged=False`` and the non-attention families),
@@ -39,6 +39,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention import cuda as pa_cuda
+from repro_torch.kernels.rmsnorm import cuda as rn_cuda
 from repro_torch.models import (
     LM,
     Runtime,
@@ -50,6 +51,11 @@ from repro_torch.serve.pool import PagePool, PoolExhausted, kv_page_bytes
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.sampling import SamplingPolicy
 from repro_torch.serve.scheduler import Request, Scheduler
+
+
+def _launches() -> Dict[str, int]:
+    """The launch counters of the serving path's kernels (K5, K6, K3)."""
+    return {**pa_cuda.LAUNCHES, "rmsnorm_fwd": rn_cuda.LAUNCHES["rmsnorm_fwd"]}
 
 
 def paged_supported(cfg: ArchConfig) -> bool:
@@ -292,7 +298,7 @@ class ServeEngine:
         self._run_evict0 = self.stats.get("evictions", 0)
         self._run_discard0 = self.stats.get("discarded_tokens", 0)
         self._run_decode_tokens = 0
-        self._run_launch0 = dict(pa_cuda.LAUNCHES)
+        self._run_launch0 = _launches()
 
     def step(self) -> Dict[str, Any]:
         """ONE engine tick: admit -> top-up -> prefill chunk + decode steps
@@ -328,7 +334,7 @@ class ServeEngine:
         ) / max(wall, 1e-9)
         self.stats["pool_high_water_pages"] = self.pool.high_water
         self.stats["kernel_launches"] = {
-            k: v - self._run_launch0.get(k, 0) for k, v in pa_cuda.LAUNCHES.items()
+            k: v - self._run_launch0.get(k, 0) for k, v in _launches().items()
         }
         if self.prefix is not None:
             self.stats.update(self.prefix.stats())

@@ -113,11 +113,12 @@ def _rel(a, b):
 def test_prefill_then_decode_logits_match_jax(name, over):
     cfg, tcfg = get_reduced(name, **over), t_get_reduced(name, **over)
     params = init_params(cfg, jax.random.PRNGKey(0))
-    tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg)
+    tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg, device="cpu")
     rt, trt = Runtime(dtype=jnp.float32), TRuntime(dtype=torch.float32)
     N, page, max_len, T, plen = 24, 8, 128, 16, 90     # 90 > gemma's window 64
     jst = jlm.init_paged_state(cfg, 2, rt, num_pages=N, page_size=page, max_len=max_len)
-    tst = init_paged_state(tcfg, 2, trt, num_pages=N, page_size=page, max_len=max_len)
+    tst = init_paged_state(tcfg, 2, trt, num_pages=N, page_size=page, max_len=max_len,
+                           device="cpu")
     row = np.zeros(max_len // page, np.int32)
     row[:13] = np.arange(1, 14)
     jst["tables"] = jst["tables"].at[0].set(row)
@@ -155,7 +156,8 @@ def test_params_from_jax_round_trips_nested_and_flat(name):
     nested = jax.tree.map(np.asarray, init_params(cfg, jax.random.PRNGKey(2)))
     flat = _flatten(nested)
     assert "stack/g0/p0/mixer/wq" in flat
-    a, b = params_from_jax(nested, tcfg), params_from_jax(flat, tcfg)
+    a = params_from_jax(nested, tcfg, device="cpu")
+    b = params_from_jax(flat, tcfg, device="cpu")
     back_a, back_b = _flatten(params_to_numpy(a)), _flatten(params_to_numpy(b))
     assert set(back_a) == set(flat) == set(back_b)
     for k, v in flat.items():
@@ -168,7 +170,7 @@ def test_params_from_jax_round_trips_nested_and_flat(name):
 def test_params_from_jax_stores_matmuls_in_compute_dtype():
     cfg, tcfg = get_reduced("granite-8b"), t_get_reduced("granite-8b")
     nested = jax.tree.map(np.asarray, init_params(cfg, jax.random.PRNGKey(2)))
-    p = params_from_jax(nested, tcfg, dtype=torch.bfloat16)
+    p = params_from_jax(nested, tcfg, device="cpu", dtype=torch.bfloat16)
     layer = p.stack.layers[0]
     assert layer.mixer.wq.dtype == torch.bfloat16
     assert layer.ffn.w_up.dtype == torch.bfloat16
@@ -205,7 +207,12 @@ def test_port_sources_import_neither_jax_nor_repro():
                 names = [node.module]
             bad += [f"{path.name}: {n}" for n in names
                     if n.split(".")[0] in ("jax", "jaxlib", "repro")]
-    assert len(_port_files()) > 20
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for sub in ("train/loop.py", "optim/optimizers.py", "core/precision.py",
+                "data/pipeline.py", "checkpoint/ckpt.py", "launch/train.py",
+                "kernels/flash_attention/ops.py", "kernels/rmsnorm/ops.py",
+                "kernels/chunked_ce/ops.py"):
+        assert f"src/repro_torch/{sub}" in files, sub
     assert not bad, bad
 
 
@@ -213,7 +220,11 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     code = (
         "import sys\n"
         "import repro_torch.serve, repro_torch.launch.serve, "
-        "repro_torch.checkpoint, repro_torch.configs\n"
+        "repro_torch.checkpoint, repro_torch.configs, repro_torch.train, "
+        "repro_torch.optim, repro_torch.core, repro_torch.data, "
+        "repro_torch.launch.train, repro_torch.launch.profile_train, "
+        "repro_torch.checkpoint.ckpt, repro_torch.kernels.flash_attention, "
+        "repro_torch.kernels.rmsnorm, repro_torch.kernels.chunked_ce\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"

@@ -52,7 +52,8 @@ def models():
         if key not in cache:
             cfg, tcfg = get_reduced(name, **over), t_get_reduced(name, **over)
             params = init_params(cfg, jax.random.PRNGKey(0))
-            tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg)
+            tparams = params_from_jax(jax.tree.map(np.asarray, params), tcfg,
+                                      device="cpu")
             cache[key] = (cfg, params, tcfg, tparams)
         return cache[key]
 

@@ -17,18 +17,29 @@ Phases, in order (any failure exits nonzero and prints no result line):
                plain versions: f32 on the JAX suites' shapes (forward 2e-5,
                gradients 1e-4), bf16 at gemma3-1b's training shapes and
                granite-8b's, with times, bounds and a library yardstick;
-  5. model   — reduced granite-8b on the card (kernels) against the same
+  5. quant kernels — K8a / K8b (blockwise dynamic 8-bit quantize,
+               dequantize) against their plain versions, bitwise (codes,
+               scales, dequantized values): the JAX suite's sizes and scales,
+               a zero input that needs padding, and every leaf size of the
+               adam8bit main path, with times and bounds there;
+  6. model   — reduced granite-8b on the card (kernels) against the same
                model on the CPU (plain versions), f32, rtol 1e-3;
-  6. train-parity — reduced gemma3-1b, f32 with TF32 off: three training
-               steps on the card against the same steps on the CPU, rtol 1e-3;
-  7. train   — gemma3-1b at full width and depth, bf16 over f32 masters,
+  7. train-parity — reduced gemma3-1b, f32 with TF32 off: three training
+               steps on the card against the same steps on the CPU, rtol 1e-3,
+               with AdamW, and with adam8bit and adam4bit on a 24-layer,
+               width-192 variant whose stacked norm scales are quantized
+               (K8 on the card, its plain version on the CPU);
+  8. train   — gemma3-1b at full width and depth, bf16 over f32 masters,
                AdamW, batch 4 x seq 2048, 10 steps through train.loop.fit;
                launch counters read around this run only;
-  8. serve   — launch/workload.py's granite-8b workload at full width and
+  9. train8  — the same with adam8bit (launch/workload.py's
+               gemma_train8_workload): exact K1-K4 and K8 launch counts, the
+               optimizer state's bytes against AdamW's;
+ 10. serve   — launch/workload.py's granite-8b workload at full width and
                depth, bf16, random weights from a seed: 8 requests through
                ServeEngine (chunked prefill 128, 4 slots, page 16), launch
                counters read around this run only;
-  9. alone   — 2 of the requests rerun alone in a fresh engine must give the
+ 11. alone   — 2 of the requests rerun alone in a fresh engine must give the
                same greedy tokens.
 The line before last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -57,6 +68,7 @@ BF16_TOL = 4e-3                   # ~1 bf16 ulp at |out| ~1; outputs here are < 
 PA_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 RN_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
+BQ_SOURCE = "src/repro_torch/kernels/blockwise_quant/csrc/blockwise_quant.cu"
 # each CUDA kernel: its source and the TPU kernel it replaces
 KERNELS = {
     "paged_decode_attention": (PA_SOURCE, "src/repro/kernels/paged_attention/kernel.py:262"),
@@ -69,6 +81,8 @@ KERNELS = {
                                 "src/repro/kernels/flash_attention/kernel_bwd.py:212"),
     "rmsnorm_fwd": (RN_SOURCE, "src/repro/kernels/rmsnorm/kernel.py:67"),
     "rmsnorm_bwd": (RN_SOURCE, "src/repro/kernels/rmsnorm/kernel.py:93"),
+    "blockwise_quantize": (BQ_SOURCE, "src/repro/kernels/blockwise_quant/kernel.py:56"),
+    "blockwise_dequantize": (BQ_SOURCE, "src/repro/kernels/blockwise_quant/kernel.py:87"),
 }
 
 
@@ -259,12 +273,13 @@ def phase_card() -> str:
 
 def phase_build() -> None:
     from repro_torch.kernels import build
+    from repro_torch.kernels.blockwise_quant import cuda as bq
     from repro_torch.kernels.flash_attention import cuda as fa
     from repro_torch.kernels.paged_attention import cuda as pa
     from repro_torch.kernels.rmsnorm import cuda as rn
 
     t0 = time.perf_counter()
-    mods = (pa, fa, rn)
+    mods = (pa, fa, rn, bq)
     with ThreadPoolExecutor(len(mods)) as ex:       # one nvcc per source, together
         list(ex.map(lambda m: m.library(), mods))
     ptxas = {}
@@ -607,80 +622,199 @@ def main_path_rows(results):
     return rows
 
 
+# ------------------------------------------------------- quant kernels (K8)
+# the adam8bit main path's quantized leaves of gemma3-1b, padded to 16,384
+# values as ops.quantize pads them: (padded size, leaves of that size); each
+# leaf's m and v go through K8b then K8a once per step
+K8_LEAVES = [
+    (301_989_888, 1),          # embed/table (262,144 x 1,152)
+    (207_028_224, 3),          # ffn w_up, w_down, w_gate (26 x 1,152 x 6,912)
+    (30_670_848, 2),           # mixer wq, wo (26 x 1,152 x 1,024)
+    (7_667_712, 2),            # mixer wk, wv (26 x 1,152 x 256)
+    (32_768, 2),               # norm1, norm2 scale (26 x 1,152 = 29,952)
+]
+K8_PER_STEP = 2 * sum(k for _, k in K8_LEAVES)     # (m, v) per quantized leaf
+
+
+def k8_bounds(n: int):
+    """(bytes, flops) of K8a and K8b over n values: each input read once,
+    each output written once (4 B values, 1 B codes, 4 B per 256-block
+    scale); K8a does |x|, a max, a division and 8 compares per value, K8b
+    one multiply."""
+    scales = 4 * (n // 256)
+    return {"blockwise_quantize": (5 * n + scales, 11 * n),
+            "blockwise_dequantize": (5 * n + scales, n)}
+
+
+def k8_check(tag, x):
+    """K8a / K8b on x against the plain versions on the same card tensor,
+    bitwise. Returns (codes, scales)."""
+    from repro_torch.kernels.blockwise_quant import cuda as bq
+    from repro_torch.kernels.blockwise_quant import ref as bqr
+
+    c, s = bq.quantize_cuda(x)
+    pc, ps = bqr.quantize_ref(x)
+    d = bq.dequantize_cuda(c, s)
+    pd = bqr.dequantize_ref(c, s)
+    torch.cuda.synchronize()
+    for name, a, b in (("codes", c, pc), ("scales", s, ps), ("dequantized", d, pd)):
+        if not torch.equal(a, b):
+            bad = int((a != b).sum())
+            raise AssertionError(f"K8 {tag}: {name} differ from the plain version in "
+                                 f"{bad} of {a.numel()} elements")
+    return c, s
+
+
+def phase_quant_kernels():
+    from repro_torch.kernels.blockwise_quant import cuda as bq
+    from repro_torch.kernels.blockwise_quant import ops as bqo
+    from repro_torch.kernels.blockwise_quant import ref as bqr
+
+    cases = 0
+    for n in (256 * 64, 256 * 64 * 4):          # tests/test_kernels_quant_norm.py
+        for scale in (1e-4, 1.0, 1e4):
+            x = torch.tensor(np.random.RandomState(0).randn(n), dtype=torch.float32)
+            k8_check(f"n {n} scale {scale}", (x * scale).to("cuda"))
+            cases += 1
+    x = torch.zeros(100, device="cuda")           # all-zero, padded to a tile
+    c, s, n = bqo.quantize(x)
+    k8_check("zeros", F.pad(x, (0, c.numel() - 100)))
+    if c.shape != (16384,) or float(bqo.dequantize(c, s, n, (100,)).abs().max()) != 0.0:
+        raise AssertionError("K8: a zero input does not come back as zeros")
+    emit(phase="quant_kernels_cases", cases=cases + 1, bitwise=True)
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    per_size = {}
+    for n, leaves in K8_LEAVES:
+        # Adam-moment-like values: normal, with a magnitude that varies by
+        # four decades from block to block
+        x = torch.randn(n, generator=gen, device="cuda")
+        x *= 10.0 ** (-4 * torch.rand(n // 256, generator=gen, device="cuda")).repeat_interleave(256)
+        c, s = k8_check(f"leaf {n}", x)
+        times = {
+            "blockwise_quantize": (time_ms(lambda: bq.quantize_cuda(x), flush),
+                                   time_ms(lambda: bqr.quantize_ref(x), flush, warmup=2, reps=5)),
+            "blockwise_dequantize": (time_ms(lambda: bq.dequantize_cuda(c, s), flush),
+                                     time_ms(lambda: bqr.dequantize_ref(c, s), flush,
+                                             warmup=2, reps=5)),
+        }
+        for name, (nbytes, flops) in k8_bounds(n).items():
+            bms, by = bound(nbytes, flops, torch.float32)
+            row = dict(kernel=name, n=n, leaves=leaves, kernel_ms=times[name][0],
+                       plain_ms=times[name][1], library_ms=None, bound_ms=bms,
+                       bound_by=by, bytes=nbytes, flops=flops, max_abs_err=0.0)
+            emit(phase="quant_kernels", library="none: no single PyTorch call computes "
+                 "the blockwise dynamic codec", **row)
+            per_size.setdefault(name, []).append(row)
+        del x, c, s
+    torch.cuda.empty_cache()
+    # one row per kernel: the mean per launch over one step's mix of leaves
+    rows = {}
+    total = sum(k for _, k in K8_LEAVES)
+    for name, rs in per_size.items():
+        mean = {k: sum(r[k] * r["leaves"] for r in rs) / total
+                for k in ("kernel_ms", "plain_ms", "bound_ms")}
+        by = max(rs, key=lambda r: r["bound_ms"] * r["leaves"])["bound_by"]
+        rows[name] = dict(mean, library_ms=None, bound_by=by, max_abs_err=0.0)
+    return rows
+
+
 def phase_train_parity() -> None:
-    """Reduced gemma3-1b (6 layers, window 64 < seq 128), f32: three steps of
-    fit on the card (kernels) against the same three on the CPU (plain)."""
+    """Three steps of fit on the card (kernels) against the same three on the
+    CPU (plain versions), f32 with TF32 off: reduced gemma3-1b (6 layers,
+    window 64 < seq 128) with AdamW; then adam8bit and adam4bit on a 24-layer,
+    width-192 variant, whose (24, 192) norm scales are quantized in blocks
+    that straddle layers, so K8 runs on every leaf kind of the main path."""
     from repro_torch.configs import get_reduced
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    train_parity_run("adamw", get_reduced("gemma3-1b"))
+    for name in ("adam8bit", "adam4bit"):
+        train_parity_run(name, get_reduced("gemma3-1b", n_layers=24, d_model=192))
+
+
+def train_parity_run(name, cfg) -> None:
     from repro_torch.data import DataPipeline
     from repro_torch.launch.train import kernel_launches, reset_kernel_launches
     from repro_torch.models import init_params
     from repro_torch.optim import get as get_opt
     from repro_torch.train import TrainConfig, fit, make_state
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = get_reduced("gemma3-1b")
-    tc = TrainConfig(precision="f32", lr=1e-4, log_every=1)
+    tc = TrainConfig(optimizer=name, precision="f32", lr=1e-4, log_every=1)
     runs = {}
     for dev in ("cpu", "cuda"):
         opt = get_opt(tc.optimizer, tc.lr)
         params = init_params(cfg, seed=7, device="cpu", dtype=torch.float32).to(dev)
-        state = make_state(cfg, opt, tc, device=dev, params=params)
         data = DataPipeline(cfg, 2, 128, seed=0)
         reset_kernel_launches()
         try:
+            state = make_state(cfg, opt, tc, device=dev, params=params)
             state, hist = fit(cfg, tc, data, 3, opt, state=state, log=lambda line: None)
         finally:
             data.close()
+        codes = [q["codes"].cpu() for slot in state["opt"].get("slots", [])
+                 for q in slot.values() if isinstance(q, dict)]
         runs[dev] = (hist, [p.detach().float().cpu() for p in state["params"].parameters()],
-                     kernel_launches())
-    (h_cpu, p_cpu, _), (h_gpu, p_gpu, launches) = runs["cpu"], runs["cuda"]
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"train-parity: a kernel was not launched: {launches}")
+                     kernel_launches(), codes)
+    (h_cpu, p_cpu, cpu_launches, c_cpu), (h_gpu, p_gpu, launches, c_gpu) = runs["cpu"], runs["cuda"]
+    need = [k for k in launches if not k.startswith("blockwise") or name != "adamw"]
+    if min(launches[k] for k in need) <= 0 or max(cpu_launches.values()) != 0:
+        raise AssertionError(f"train-parity {name}: a kernel was not launched on the card "
+                             f"({launches}), or one was on the CPU ({cpu_launches})")
     worst = {"loss": 0.0, "grad_norm": 0.0, "params": 0.0}
     for a, b in zip(h_gpu, h_cpu):
         for key in ("loss", "grad_norm"):
             if not np.isfinite(a[key]):
-                raise AssertionError(f"train-parity: non-finite {key} on the card")
+                raise AssertionError(f"train-parity {name}: non-finite {key} on the card")
             rel = abs(a[key] - b[key]) / abs(b[key])
             worst[key] = max(worst[key], rel)
     for a, b in zip(p_gpu, p_cpu):
         # per tensor, in norm: Adam moves an element whose gradient sits at
         # the roundoff level by up to lr either way, so single elements of
-        # near-zero gradient may differ by more than 1e-3 of their value
+        # near-zero gradient may differ by more than 1e-3 of their value;
+        # a moment code that flips at a bin edge moves one element by a code
+        # step
         worst["params"] = max(worst["params"], float((a - b).norm() / b.norm()))
     if max(worst.values()) > 1e-3:
-        raise AssertionError(f"train-parity: card vs CPU {worst} > rtol 1e-3")
-    emit(phase="train_parity", config=cfg.name,
-         allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        raise AssertionError(f"train-parity {name}: card vs CPU {worst} > rtol 1e-3")
+    differ = sum(int((a != b).sum()) for a, b in zip(c_gpu, c_cpu))
+    total = sum(a.numel() for a in c_cpu)
+    emit(phase="train_parity", optimizer=name, config=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, allow_tf32=torch.backends.cuda.matmul.allow_tf32,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32, steps=3, rtol=1e-3,
          max_rel_err=worst, losses_cuda=[h["loss"] for h in h_gpu],
-         losses_cpu=[h["loss"] for h in h_cpu], launches=launches)
+         losses_cpu=[h["loss"] for h in h_cpu], launches=launches,
+         codes_differing_card_vs_cpu=differ, codes=total,
+         codes_differing_share=differ / total if total else None)
 
 
-def phase_train():
-    """launch/workload.py's gemma3-1b training workload at full width and
-    depth: 10 steps of fit, bf16 over f32 masters, AdamW, the chunked-CE
-    head, remat none."""
-    from repro_torch.launch.train import kernel_launches, reset_kernel_launches
-    from repro_torch.launch.workload import gemma_train_workload
+def phase_train(wl, name: str):
+    """A gemma3-1b training workload of launch/workload.py at full width and
+    depth: 10 steps of fit, bf16 over f32 masters, the chunked-CE head, remat
+    none; AdamW (phase train) or adam8bit (phase train8). The launch
+    counters are read around make_state and fit only."""
+    from repro_torch.launch.train import (kernel_launches, optimizer_state_bytes,
+                                          reset_kernel_launches)
     from repro_torch.optim import get as get_opt
+    from repro_torch.optim import state_bytes
     from repro_torch.train import fit, make_state
 
-    wl = gemma_train_workload()
     cfg, tc = wl.cfg, wl.tc
     opt = get_opt(tc.optimizer, tc.lr)
+    if (wl.batch, wl.seq) != (TRAIN_B, TRAIN_S):
+        raise AssertionError(f"train workload {wl.batch} x {wl.seq} != the kernel "
+                             f"phase's {TRAIN_B} x {TRAIN_S}")
+    reset_kernel_launches()                 # counts of the main path only
     t0 = time.perf_counter()
     state = make_state(cfg, opt, tc, seed=wl.seed, device="cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in state["params"].parameters())
-    if (wl.batch, wl.seq) != (TRAIN_B, TRAIN_S):
-        raise AssertionError(f"train workload {wl.batch} x {wl.seq} != the kernel "
-                             f"phase's {TRAIN_B} x {TRAIN_S}")
+    opt_bytes, adamw_bytes = optimizer_state_bytes(state)
     data = wl.data()
     torch.cuda.reset_peak_memory_stats()
-    reset_kernel_launches()                 # counts of the main path only
     try:
         state, hist = fit(cfg, tc, data, TRAIN_STEPS, opt, state=state,
                           log=lambda line: None)
@@ -689,26 +823,40 @@ def phase_train():
     launches = kernel_launches()
     losses = [h["loss"] for h in hist]
     if len(losses) != TRAIN_STEPS or not all(np.isfinite(losses)):
-        raise AssertionError(f"train: losses {losses}")
+        raise AssertionError(f"{name}: losses {losses}")
     if not losses[-1] < losses[0]:
-        raise AssertionError(f"train: the loss did not fall: {losses}")
+        raise AssertionError(f"{name}: the loss did not fall: {losses}")
     L = cfg.n_layers
     per_step = {"flash_attention_fwd": L, "flash_attention_bwd_delta": L,
                 "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
                 "rmsnorm_fwd": 2 * L + 1, "rmsnorm_bwd": 2 * L + 1}
-    for name, n in per_step.items():
-        if launches[name] != n * TRAIN_STEPS:
-            raise AssertionError(f"train: {name} launched {launches[name]} times, "
-                                 f"not {n} x {TRAIN_STEPS} steps")
+    # 8-bit Adam: K8b then K8a on m and v of every quantized leaf per step,
+    # and K8a on the zero m and v of each at init
+    k8 = K8_PER_STEP if tc.optimizer == "adam8bit" else 0
+    want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+    want.update(blockwise_quantize=k8 * (TRAIN_STEPS + 1), blockwise_dequantize=k8 * TRAIN_STEPS)
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches} != {want}")
+    extra = {}
+    if tc.optimizer == "adam8bit":
+        slots = int(state_bytes(state["opt"]["slots"]))
+        # codes 2 x 999,817,216 padded values, scales 31,244,288 B, the
+        # final norm's f32 m and v 9,216 B; AdamW's f32 m and v 7,998,501,888 B
+        if (slots, adamw_bytes) != (2_030_887_936, 7_998_501_888):
+            raise AssertionError(f"{name}: optimizer state {slots} B, AdamW's "
+                                 f"{adamw_bytes} B, not as reckoned from the shapes")
+        extra = dict(opt_slots_bytes=slots, k8_per_step=k8, k8a_at_init=k8)
     step_ms = statistics.median(h["step_s"] for h in hist[2:]) * 1e3
-    emit(phase="train", config=cfg.name, params=n_params, dtype="bf16 over f32 masters",
-         optimizer="adamw", lr=tc.lr, batch=TRAIN_B, seq=TRAIN_S, remat=tc.remat,
+    emit(phase=name, config=cfg.name, params=n_params, dtype="bf16 over f32 masters",
+         optimizer=tc.optimizer, lr=tc.lr, batch=TRAIN_B, seq=TRAIN_S, remat=tc.remat,
          head="chunked CE", steps=TRAIN_STEPS, params_init_s=init_s,
          median_step_ms=step_ms, tokens_per_s=TRAIN_B * TRAIN_S / (step_ms / 1e3),
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         opt_state_bytes=opt_bytes, adamw_state_bytes=adamw_bytes,
+         opt_state_ratio=opt_bytes / adamw_bytes,
          first_loss=losses[0], last_loss=losses[-1], losses=losses,
          step_ms=[h["step_s"] * 1e3 for h in hist], launches=launches,
-         launches_per_step=per_step)
+         launches_per_step=per_step, **extra)
     del state
     torch.cuda.empty_cache()
     return launches
@@ -827,13 +975,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    from repro_torch.launch.workload import gemma_train8_workload, gemma_train_workload
+
     phase_card()
     phase_build()
     kern = phase_kernels()
     kern.update(phase_train_kernels())
+    kern.update(phase_quant_kernels())
     phase_model()
     phase_train_parity()
-    launches = phase_train()               # K1-K4: the training main path
+    launches = phase_train(gemma_train_workload(), "train")     # K1-K4
+    train8 = phase_train(gemma_train8_workload(), "train8")     # K1-K4 and K8
+    launches.update({k: v for k, v in train8.items() if k.startswith("blockwise")})
     wl, params, rids, out, serve_launches = phase_serve()
     phase_alone(wl, params, rids, out)
     launches.update(serve_launches)        # K5, K6: the serving main path

@@ -11,14 +11,19 @@ leaf stacked ``(L, ...)`` under ``stack/g0/p0``; layer ``i`` takes index
 The training state (``repro_torch.train.loop.make_state``) carries across
 whole with ``state_from_jax`` / ``state_to_numpy``: every optimizer entry
 that is a list aligned with ``LM.parameters()`` (AdamW's ``m`` and ``v``,
-SGD's ``mu``) is a tree shaped like the params in the JAX layout, and every
-scalar (``opt/step``, ``scale/scale``, ``scale/good_steps``, ``step``) a
-scalar. ``state_leaves`` lists the flat keys and the tensors behind them,
-for ``checkpoint.ckpt``.
+SGD's ``mu``, 1-bit Adam's ``m``, ``v`` and ``ef``) is a tree shaped like the
+params in the JAX layout, and every scalar (``opt/step``, ``scale/scale``,
+``scale/good_steps``, ``step``) a scalar. The low-bit optimizers' ``slots``,
+one per JAX leaf (``leaf_groups``), become ``opt/slots/<leaf key>/...``:
+``m/codes`` and ``m/scales`` (uint8 stays uint8) for a quantized leaf, f32
+``m`` and ``v`` in the leaf's stacked shape for a small one, ``gs`` for the
+4-bit optimizer. The optimizer's ``groups`` is not a tensor and is not
+saved: it is the LM's ``leaf_groups``. ``state_leaves`` lists the flat keys
+and the tensors behind them, for ``checkpoint.ckpt``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -99,6 +104,32 @@ def param_leaves(params: LM, tensors=None, prefix: str = "") -> List[Leaf]:
     return out
 
 
+class JaxLeaf(NamedTuple):
+    """One leaf of the JAX parameter tree: its key, the indices into
+    ``LM.parameters()`` of the tensors that form it (layer order), and its
+    shape — ``(L, ...)`` for a stacked per-layer leaf."""
+    key: str
+    members: Tuple[int, ...]
+    shape: Tuple[int, ...]
+
+
+def leaf_groups(params: LM) -> List[JaxLeaf]:
+    """The JAX leaves over ``params.parameters()``, in order of first
+    appearance: what the optimizers take as ``groups``."""
+    members: Dict[str, List[Tuple[int, int]]] = {}
+    shapes: Dict[str, Tuple[int, ...]] = {}
+    for idx, (key, t, i) in enumerate(param_leaves(params)):
+        members.setdefault(key, []).append((-1 if i is None else i, idx))
+        shapes[key] = tuple(t.shape)
+    out = []
+    for key, rows in members.items():
+        rows.sort()
+        stacked = rows[0][0] >= 0
+        shape = (len(rows), *shapes[key]) if stacked else shapes[key]
+        out.append(JaxLeaf(key, tuple(idx for _, idx in rows), shape))
+    return out
+
+
 def params_from_jax(
     tree: Mapping[str, Any], cfg: ArchConfig, *, device, dtype=torch.float32
 ) -> LM:
@@ -162,12 +193,39 @@ def tensors_from_tree(
     return out
 
 
+def _slot_leaves(slot: Mapping[str, Any], prefix: str, shape) -> List[Leaf]:
+    out = []
+    for k, v in slot.items():
+        if isinstance(v, Mapping):                          # {"codes", "scales"}
+            out += _slot_leaves(v, f"{prefix}{k}/", shape)
+        elif k in ("m", "v"):                               # a small leaf's f32 moment
+            out.append((f"{prefix}{k}", v.view(shape), None))
+        else:
+            out.append((f"{prefix}{k}", v, None))
+    return out
+
+
+def _subtree(tree: Mapping[str, Any], key: str) -> Mapping[str, Any]:
+    for part in key.split("/"):
+        tree = tree[part]
+    return tree
+
+
 def state_leaves(state: Mapping[str, Any]) -> List[Leaf]:
     """Every tensor of a port training state under its JAX state key."""
     params = state["params"]
     out = param_leaves(params, prefix="params/")
     for k, v in state["opt"].items():
-        if isinstance(v, (list, tuple)):
+        if k == "groups":
+            continue
+        if k == "slots":
+            leaves = leaf_groups(params)
+            if tuple(state["opt"]["groups"]) != tuple(lf.members for lf in leaves):
+                raise ValueError("optimizer slots are not grouped by the LM's JAX "
+                                 "leaves: initialise it with leaf_groups(params)")
+            for lf, slot in zip(leaves, v):
+                out += _slot_leaves(slot, f"opt/slots/{lf.key}/", lf.shape)
+        elif isinstance(v, (list, tuple)):
             out += param_leaves(params, v, prefix=f"opt/{k}/")
         else:
             out.append((f"opt/{k}", v, None))
@@ -196,8 +254,21 @@ def state_from_jax(
     def scalar(a):
         return torch.tensor(np.asarray(a), device=device)
 
-    opt = {k: (tensors_from_tree(params, v, device=device) if isinstance(v, Mapping)
-               else scalar(v)) for k, v in tree["opt"].items()}
+    def slot(node):
+        return {k: slot(v) if isinstance(v, Mapping)
+                else scalar(v).reshape(-1) if k in ("m", "v") else scalar(v)
+                for k, v in node.items()}
+
+    leaves = leaf_groups(params)
+    opt: Dict[str, Any] = {}
+    for k, v in tree["opt"].items():
+        if k == "slots":
+            opt[k] = [slot(_subtree(v, lf.key)) for lf in leaves]
+        elif isinstance(v, Mapping):
+            opt[k] = tensors_from_tree(params, v, device=device)
+        else:
+            opt[k] = scalar(v)
+    opt["groups"] = tuple(lf.members for lf in leaves)
     return {
         "params": params,
         "opt": opt,

@@ -1,15 +1,18 @@
 """Where the training time goes on the card: gemma3-1b, the chip smoke's
 training workload, under ``torch.profiler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_train [--out DIR]
+    PYTHONPATH=src python -m repro_torch.launch.profile_train [--out DIR] \
+        [--optimizer adamw|adam8bit]
 
 Runs ``workload.gemma_train_workload()`` (the workload of ``chip_smoke.py``'s
-train phase): two warm-up steps, three timed steps without the profiler,
-then three steps under it. Prints one JSON line: the card, the median step
-time, tokens/s and peak memory of the unprofiled steps, and for the
-profiled window its wall time, device-busy time, idle share and the device
-time of each kernel family — K1 to K4 by kernel, the matmuls, the rest. The
-full operator table goes to ``DIR``.
+train phase; with ``--optimizer adam8bit``, ``gemma_train8_workload()``, its
+train8 phase): two warm-up steps, three timed steps without the profiler,
+then three steps under it. Prints one JSON line: the card, the optimizer
+and its state's bytes, the median step time, tokens/s and peak memory of
+the unprofiled steps, and for the profiled window its wall time,
+device-busy time, idle share and the device time of each kernel family —
+K1 to K4 and K8 by kernel, the matmuls, the rest. The full operator table
+goes to ``DIR``.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ FAMILIES = (
     ("rmsnorm_fwd", "K3 rmsnorm_fwd"),
     ("rmsnorm_bwd", "K4 rmsnorm_bwd"),
     ("rmsnorm_dscale", "K4 rmsnorm_bwd"),
+    ("dequantize_kernel", "K8b blockwise_dequantize"),   # before its substring
+    ("quantize_kernel", "K8a blockwise_quantize"),
 )
 
 
@@ -68,11 +73,13 @@ def _steps(step_fn, state, data, n, dev):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_train_out")
+    ap.add_argument("--optimizer", default="adamw", choices=("adamw", "adam8bit"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures the card; CUDA is not available")
 
-    from repro_torch.launch.workload import gemma_train_workload
+    from repro_torch.launch.train import optimizer_state_bytes
+    from repro_torch.launch.workload import gemma_train8_workload, gemma_train_workload
     from repro_torch.optim import get as get_opt
     from repro_torch.train import make_state, make_train_step
 
@@ -80,9 +87,10 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    wl = gemma_train_workload()
+    wl = {"adamw": gemma_train_workload, "adam8bit": gemma_train8_workload}[args.optimizer]()
     opt = get_opt(wl.tc.optimizer, wl.tc.lr)
     state = make_state(wl.cfg, opt, wl.tc, seed=wl.seed, device="cuda")
+    opt_bytes, adamw_bytes = optimizer_state_bytes(state)
     step_fn = make_train_step(wl.cfg, opt, wl.tc)
     data = wl.data()
     try:
@@ -114,6 +122,8 @@ def main(argv=None) -> None:
     step_s = statistics.median(times)
     print(json.dumps({
         "card": card, "config": wl.cfg.name, "batch": wl.batch, "seq": wl.seq,
+        "optimizer": wl.tc.optimizer, "opt_state_bytes": opt_bytes,
+        "adamw_state_bytes": adamw_bytes,
         "step_ms": step_s * 1e3, "tokens_per_s": wl.tokens_per_step / step_s,
         "peak_mem_gb": peak, "profiled_steps": 3, "wall_s": wall_s,
         "device_busy_s": busy_us / 1e6, "idle_share": 1 - busy_us / 1e6 / wall_s,

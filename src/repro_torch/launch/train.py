@@ -8,11 +8,16 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
         --reduced --device cpu --steps 3 --batch 2 --seq 128
 
+    # 8-bit Adam (the K8 codec on the card; adam4bit, onebit_adam likewise)
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \
+        --reduced --device cpu --steps 3 --batch 2 --seq 128 --optimizer adam8bit
+
 Counterpart of the single-device path of ``repro.launch.train``: random
 weights from ``--seed``, batches from ``data.DataPipeline(seed=--seed)``,
 ``train.loop.fit`` with AdamW (or ``--optimizer``). It prints each step's
-loss, step time, tokens/s, the peak device memory and the launches of the
-flash-attention (K1, K2) and RMSNorm (K3, K4) kernels. It runs on CUDA
+loss, step time, tokens/s, the peak device memory, the optimizer state's
+bytes beside AdamW's, and the launches of the flash-attention (K1, K2),
+RMSNorm (K3, K4) and blockwise-quantization (K8) kernels. It runs on CUDA
 unless ``--device cpu`` is given. The JAX launcher's mesh, ZeRO, pipeline
 and stash flags belong to later slices of the port and are not here.
 """
@@ -24,20 +29,34 @@ import time
 import torch
 
 
-def kernel_launches() -> dict:
-    """The K1-K4 launch counters of this process."""
+OPTIMIZERS = ("adamw", "adam", "sgd", "lars", "lamb", "adam8bit", "adam4bit", "onebit_adam")
+
+
+def _counted():
+    from repro_torch.kernels.blockwise_quant import cuda as bq
     from repro_torch.kernels.flash_attention import cuda as fa
     from repro_torch.kernels.rmsnorm import cuda as rn
 
-    return {**fa.LAUNCHES, **rn.LAUNCHES}
+    return fa, rn, bq
+
+
+def kernel_launches() -> dict:
+    """The K1-K4 and K8 launch counters of this process."""
+    return {k: v for m in _counted() for k, v in m.LAUNCHES.items()}
 
 
 def reset_kernel_launches() -> None:
-    from repro_torch.kernels.flash_attention import cuda as fa
-    from repro_torch.kernels.rmsnorm import cuda as rn
+    for m in _counted():
+        m.reset_launches()
 
-    fa.reset_launches()
-    rn.reset_launches()
+
+def optimizer_state_bytes(state) -> tuple:
+    """(bytes of the optimizer state's tensors, bytes of AdamW's f32 m and v
+    for the same params)."""
+    from repro_torch.optim import state_bytes
+
+    n = sum(p.numel() for p in state["params"].parameters())
+    return int(state_bytes(state["opt"])), 2 * 4 * n
 
 
 def main(argv=None) -> None:
@@ -52,7 +71,7 @@ def main(argv=None) -> None:
     ap.add_argument("--remat", default="none", choices=("none", "full", "dots"))
     ap.add_argument("--fused-backward", action="store_true",
                     help="the vocab-chunked CE head (never holds (B, S, V) logits)")
-    ap.add_argument("--optimizer", default="adamw")
+    ap.add_argument("--optimizer", default="adamw", choices=OPTIMIZERS)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default=None)
@@ -83,6 +102,9 @@ def main(argv=None) -> None:
     print(f"{cfg.name} [{cfg.family}] on {where}: {n_params / 1e6:.1f}M params, "
           f"batch {args.batch} x seq {args.seq}, {args.precision}, "
           f"remat={args.remat}, fused_backward={args.fused_backward}")
+    opt_bytes, adamw_bytes = optimizer_state_bytes(state)
+    print(f"optimizer state {tc.optimizer}: {opt_bytes:,} B "
+          f"(AdamW's f32 m and v: {adamw_bytes:,} B, ratio {opt_bytes / adamw_bytes:.3f})")
     data = DataPipeline(cfg, args.batch, args.seq, seed=args.seed)
     if on_card:
         torch.cuda.reset_peak_memory_stats()

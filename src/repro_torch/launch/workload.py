@@ -10,11 +10,13 @@ Training: gemma3-1b at full width and depth (26 layers, d 1152, 4 query
 heads over 1 kv head of hd 256, window 512 on 22 layers, tied vocabulary of
 262,144), bf16 compute over f32 masters, AdamW at lr 1e-3, the chunked-CE
 head, remat none, batch 4 x seq 2048 from ``DataPipeline(seed=0)``, random
-weights from seed 0.
+weights from seed 0. ``gemma_train8_workload`` is the same workload with
+8-bit Adam (``optimizer="adam8bit"``), whose moments go through the K8
+codec every step.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import List
 
 import numpy as np
@@ -75,3 +77,8 @@ def gemma_train_workload(seed: int = 0) -> TrainWorkload:
     tc = TrainConfig(precision="bf16", remat="none", fused_backward=True, lr=1e-3,
                      log_every=1)
     return TrainWorkload(get_config("gemma3-1b"), tc, batch=4, seq=2048, seed=seed)
+
+
+def gemma_train8_workload(seed: int = 0) -> TrainWorkload:
+    wl = gemma_train_workload(seed)
+    return replace(wl, tc=replace(wl.tc, optimizer="adam8bit"))

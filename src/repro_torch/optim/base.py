@@ -8,9 +8,22 @@ An Optimizer is (init, update), as in the JAX package:
 
 ``params`` is a list of tensors (``list(LM.parameters())``); per-parameter
 state entries are lists aligned with it, so ``checkpoint.convert`` carries
-them to and from the JAX trees. ``update`` may change the state's tensors in
-place: the training step calls it only on finite grads (the JAX step's
-``where(finite, new, old)``), so nothing needs the old values afterwards.
+them to and from the JAX trees.
+
+``init(params, groups=None)`` also takes the JAX leaves: ``groups`` lists,
+for each leaf of the JAX parameter tree, the indices of the tensors that
+form it, in layer order (``checkpoint.convert.leaf_groups``). The JAX stack
+keeps each per-layer weight as one stacked ``(L, ...)`` leaf, and an
+optimizer whose arithmetic is not elementwise works per leaf: the low-bit
+optimizers' size threshold, quantization blocks and scales, and 1-bit
+Adam's compression scale. Such an optimizer sees a leaf as the row-major
+flat of its tensors, layer 0's elements first. Without ``groups`` each
+tensor is its own leaf, which is right for a plain list of tensors. The
+state keeps the grouping under ``"groups"``.
+
+``update`` may change the state's tensors in place: the training step calls
+it only on finite grads (the JAX step's ``where(finite, new, old)``), so
+nothing needs the old values afterwards.
 ``torch.optim.AdamW`` and ``clip_grad_norm_`` are not used: they read the
 learning rate after the step increment and clip with 1e-6 in the
 denominator, where the reference reads it before and uses 1e-9.
@@ -19,13 +32,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable, List, NamedTuple, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+Groups = Tuple[Tuple[int, ...], ...]
+
 
 class Optimizer(NamedTuple):
-    init: Callable[[List[torch.Tensor]], Any]
+    init: Callable[..., Any]                     # (params, groups=None) -> state
     update: Callable[..., Tuple[List[torch.Tensor], Any]]
 
 
@@ -34,6 +49,32 @@ def apply_updates(params: List[torch.Tensor], updates: List[torch.Tensor]) -> No
     """params += updates, in place (JAX: ``(p + u).astype(p.dtype)``)."""
     for p, u in zip(params, updates):
         p.copy_((p + u).to(p.dtype))
+
+
+def check_groups(n: int, groups: Optional[Sequence[Sequence[int]]] = None) -> Groups:
+    """``groups`` checked to cover the ``n`` tensors once each; each tensor
+    alone when ``groups`` is None."""
+    if groups is None:
+        return tuple((i,) for i in range(n))
+    out = tuple(tuple(int(i) for i in g) for g in groups)
+    if sorted(i for g in out for i in g) != list(range(n)) or not all(out):
+        raise ValueError(f"groups {out} do not cover {n} tensors once each")
+    return out
+
+
+def gather(tensors: List[torch.Tensor], group: Sequence[int]) -> torch.Tensor:
+    """The f32 flat of one leaf: its tensors' elements in order (a view when
+    the leaf is one contiguous f32 tensor)."""
+    if len(group) == 1:
+        return tensors[group[0]].reshape(-1).float()
+    return torch.cat([tensors[i].reshape(-1).float() for i in group])
+
+
+def scatter(flat: torch.Tensor, params: List[torch.Tensor],
+            group: Sequence[int]) -> List[torch.Tensor]:
+    """Views of ``flat`` shaped like the leaf's tensors, in order."""
+    sizes = [params[i].numel() for i in group]
+    return [t.view(params[i].shape) for t, i in zip(flat.split(sizes), group)]
 
 
 def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:

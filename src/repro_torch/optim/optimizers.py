@@ -4,16 +4,19 @@
 The arithmetic is the JAX package's, op for op in f32: AdamW reads the
 learning rate at the pre-increment step, and bias corrections are
 ``1 - b ** step`` in f32. LARS and LAMB apply the per-layer trust ratio
-``||w|| / ||update||`` (1 when either norm is 0). The low-bit and 1-bit
-optimizers belong to a later slice.
+``||w|| / ||update||`` (1 when either norm is 0), with the norms taken over
+each JAX leaf (``init``'s ``groups``): for the stacked ``(L, ...)`` leaves,
+over all L layers, as the reference takes them. The low-bit and 1-bit
+optimizers live in ``lowbit``, ``lowbit4`` and ``onebit``; ``get`` names
+them all.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Union
+from typing import Callable, List, Sequence, Union
 
 import torch
 
-from repro_torch.optim.base import Optimizer
+from repro_torch.optim.base import Optimizer, check_groups
 
 LR = Union[float, Callable]
 
@@ -23,11 +26,13 @@ def _lr_at(lr: LR, step: torch.Tensor) -> torch.Tensor:
                                                       device=step.device)
 
 
-def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.square(x.float())))
+def _norm(xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The 2-norm of one leaf, given as its tensors."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in xs))
 
 
-def _trust_ratio(p: torch.Tensor, u: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
+def _trust_ratio(p: Sequence[torch.Tensor], u: Sequence[torch.Tensor],
+                 eps: float = 1e-9) -> torch.Tensor:
     pn, un = _norm(p), _norm(u)
     return torch.where((pn > 0) & (un > 0), pn / (un + eps), 1.0)
 
@@ -41,15 +46,17 @@ def _step0(params: List[torch.Tensor]) -> torch.Tensor:
 
 
 def sgd(lr: LR = 1e-2, momentum: float = 0.9, nesterov: bool = False) -> Optimizer:
-    def init(params):
-        return {"mu": _zeros(params), "step": _step0(params)}
+    def init(params, groups=None):
+        return {"mu": _zeros(params), "step": _step0(params),
+                "groups": check_groups(len(params), groups)}
 
     def update(grads, state, params=None):
         step = state["step"]
         mu = [momentum * m + g.float() for m, g in zip(state["mu"], grads)]
         upd = [momentum * m + g.float() for m, g in zip(mu, grads)] if nesterov else mu
         lr_t = _lr_at(lr, step)
-        return [-lr_t * u for u in upd], {"mu": mu, "step": step + 1}
+        return [-lr_t * u for u in upd], {"mu": mu, "step": step + 1,
+                                          "groups": state["groups"]}
 
     return Optimizer(init, update)
 
@@ -61,8 +68,9 @@ def adamw(
     eps: float = 1e-8,
     weight_decay: float = 0.0,
 ) -> Optimizer:
-    def init(params):
-        return {"m": _zeros(params), "v": _zeros(params), "step": _step0(params)}
+    def init(params, groups=None):
+        return {"m": _zeros(params), "v": _zeros(params), "step": _step0(params),
+                "groups": check_groups(len(params), groups)}
 
     @torch.no_grad()
     def update(grads, state, params=None):
@@ -80,7 +88,8 @@ def adamw(
             if weight_decay and params is not None:
                 u = u + weight_decay * params[i].float()
             updates.append(-lr_t * u)
-        return updates, {"m": state["m"], "v": state["v"], "step": step}
+        return updates, {"m": state["m"], "v": state["v"], "step": step,
+                         "groups": state["groups"]}
 
     return Optimizer(init, update)
 
@@ -92,20 +101,23 @@ def lars(
     trust_coef: float = 1e-3,
 ) -> Optimizer:
     """Layer-wise Adaptive Rate Scaling over SGD-momentum."""
-    def init(params):
-        return {"mu": _zeros(params), "step": _step0(params)}
+    def init(params, groups=None):
+        return {"mu": _zeros(params), "step": _step0(params),
+                "groups": check_groups(len(params), groups)}
 
     @torch.no_grad()
     def update(grads, state, params):
         step = state["step"]
         lr_t = _lr_at(lr, step)
-        mu, updates = [], []
-        for m, g, p in zip(state["mu"], grads, params):
-            g = g.float() + weight_decay * p.float()
-            m_new = momentum * m + trust_coef * _trust_ratio(p, g) * g
-            mu.append(m_new)
-            updates.append(-lr_t * m_new)
-        return updates, {"mu": mu, "step": step + 1}
+        mu: List[torch.Tensor] = [None] * len(params)
+        updates: List[torch.Tensor] = [None] * len(params)
+        for group in state["groups"]:
+            g = [grads[i].float() + weight_decay * params[i].float() for i in group]
+            local = trust_coef * _trust_ratio([params[i] for i in group], g)
+            for i, gi in zip(group, g):
+                mu[i] = momentum * state["mu"][i] + local * gi
+                updates[i] = -lr_t * mu[i]
+        return updates, {"mu": mu, "step": step + 1, "groups": state["groups"]}
 
     return Optimizer(init, update)
 
@@ -123,22 +135,31 @@ def lamb(
     def update(grads, state, params):
         lr_t = _lr_at(lr, state["step"])
         dirs, new_state = inner.update(grads, state, params)
-        updates = []
-        for u, p in zip(dirs, params):
-            r = -u  # inner returned -1.0 * direction
+        updates: List[torch.Tensor] = [None] * len(params)
+        for group in state["groups"]:
+            r = [-dirs[i] for i in group]  # inner returned -1.0 * direction
             if weight_decay:
-                r = r + weight_decay * p.float()
-            updates.append(-lr_t * _trust_ratio(p, r) * r)
+                r = [ri + weight_decay * params[i].float() for ri, i in zip(r, group)]
+            ratio = _trust_ratio([params[i] for i in group], r)
+            for i, ri in zip(group, r):
+                updates[i] = -lr_t * ratio * ri
         return updates, new_state
 
     return Optimizer(inner.init, update)
 
 
 def get(name: str, lr: LR, **kw) -> Optimizer:
-    if name in ("adam8bit", "adam4bit", "onebit_adam"):
-        raise NotImplementedError(
-            f"optimizer {name!r} is ROADMAP queue 1 item 6, 'memory techniques "
-            "and multi-device' (adam8bit also needs K8)"
-        )
     table = {"sgd": sgd, "adamw": adamw, "adam": adamw, "lars": lars, "lamb": lamb}
+    if name == "adam8bit":
+        from repro_torch.optim.lowbit import adam8bit
+
+        return adam8bit(lr, **kw)
+    if name == "adam4bit":
+        from repro_torch.optim.lowbit4 import adam4bit
+
+        return adam4bit(lr, **kw)
+    if name == "onebit_adam":
+        from repro_torch.optim.onebit import onebit_adam
+
+        return onebit_adam(lr, **kw)
     return table[name](lr, **kw)

@@ -6,7 +6,11 @@ dict as in the JAX package — ``params`` (an :class:`LM` of f32 masters with
 step), ``scale`` (the dynamic loss scale) and ``step`` — and one step
 updates it in place: gradients come from ``torch.autograd.grad`` (nothing
 accumulates in ``.grad``), the optimizer runs only on finite grads (the JAX
-step's ``where(finite, new, old)``), and the params change in place.
+step's ``where(finite, new, old)``), and the params change in place. The
+optimizer is initialised with the LM's JAX leaves
+(``checkpoint.convert.leaf_groups``), so the optimizers that work per leaf
+(low-bit, 1-bit, LARS, LAMB) see the stacked ``(L, ...)`` leaves the JAX
+step sees.
 
 Other execution modes (``dp_compressed``, the distributed trainer),
 gradient compression, ZeRO and the pipeline belong to later slices
@@ -20,6 +24,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
+from repro_torch.checkpoint.convert import leaf_groups
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.precision import (
     PrecisionPolicy,
@@ -73,14 +78,16 @@ def make_state(
     device="cuda", params: Optional[LM] = None,
 ) -> Dict[str, Any]:
     """Fresh state: ``params`` (default: ``init_params(cfg, seed=seed)`` in
-    f32 on ``device``), the optimizer's initial state, the loss scale."""
+    f32 on ``device``), the optimizer's initial state over the LM's JAX
+    leaves, the loss scale."""
     if params is None:
         params = init_params(cfg, seed=seed, device=device, dtype=torch.float32)
     params.requires_grad_(True)
     dev = next(params.parameters()).device
     return {
         "params": params,
-        "opt": opt.init(list(params.parameters())),
+        "opt": opt.init(list(params.parameters()),
+                        groups=[lf.members for lf in leaf_groups(params)]),
         "scale": init_scale_state(_policy(tc), device=dev),
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }

@@ -422,6 +422,17 @@ def test_launcher_trains_on_the_cpu():
     assert "train main OK" in text and "step    2 loss=" in text, text
 
 
+def test_launcher_trains_adam8bit_on_the_cpu():
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch_train.main(["--arch", "gemma3-1b", "--reduced", "--device", "cpu",
+                           "--steps", "2", "--batch", "2", "--seq", "32",
+                           "--optimizer", "adam8bit"])
+    text = out.getvalue()
+    assert "train main OK" in text and "step    2 loss=" in text, text
+    assert "optimizer state adam8bit" in text, text
+
+
 def test_launcher_refuses_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit):
@@ -437,7 +448,7 @@ REJECTED = [
     ("mode", lambda: make_train_step(t_get_reduced("granite-8b"), get("adamw", LR),
                                      TrainConfig(), mode="dp_compressed")),
     ("offload", lambda: TRuntime(remat="offload")),
-    ("adam8bit", lambda: get("adam8bit", LR)),
+    ("onebit_adam_data_axis", lambda: get("onebit_adam", LR, axis_name="data")),
     ("resharded", lambda: ckpt.restore_resharded("x", None)),
 ]
 

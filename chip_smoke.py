@@ -22,24 +22,42 @@ Phases, in order (any failure exits nonzero and prints no result line):
                scales, dequantized values): the JAX suite's sizes and scales,
                a zero input that needs padding, and every leaf size of the
                adam8bit main path, with times and bounds there;
-  6. model   — reduced granite-8b on the card (kernels) against the same
+  6. stash kernels — K7a / K7b (the activation stash's symmetric int8 / fp8
+               codec) against the plain version, bitwise, int8 / fp8 x f32 /
+               bf16: the JAX suite's shapes, padding, zero blocks, values on
+               int8 and fp8 rounding ties, and the pipe phase's slot, with
+               times, bounds and ptxas registers and spills;
+  7. model   — reduced granite-8b on the card (kernels) against the same
                model on the CPU (plain versions), f32, rtol 1e-3;
-  7. train-parity — reduced gemma3-1b, f32 with TF32 off: three training
+  8. train-parity — reduced gemma3-1b, f32 with TF32 off: three training
                steps on the card against the same steps on the CPU, rtol 1e-3,
                with AdamW, and with adam8bit and adam4bit on a 24-layer,
                width-192 variant whose stacked norm scales are quantized
                (K8 on the card, its plain version on the CPU);
-  8. train   — gemma3-1b at full width and depth, bf16 over f32 masters,
+  9. pipe-parity — reduced granite-8b (4 layers), f32 with TF32 off, P = 2,
+               M = 4: three pipeline steps on the card against the same on
+               the CPU, raw and int8 stash, rtol 1e-3, and the share of stash
+               codes that differ card vs CPU;
+ 10. train   — gemma3-1b at full width and depth, bf16 over f32 masters,
                AdamW, batch 4 x seq 2048, 10 steps through train.loop.fit;
                launch counters read around this run only;
-  9. train8  — the same with adam8bit (launch/workload.py's
+ 11. train8  — the same with adam8bit (launch/workload.py's
                gemma_train8_workload): exact K1-K4 and K8 launch counts, the
                optimizer state's bytes against AdamW's;
- 10. serve   — launch/workload.py's granite-8b workload at full width and
+ 12. pipe    — launch/workload.py's granite_pipe_workload: granite-8b at full
+               width, 8 layers, bf16 over f32 masters, batch 8 x seq 2048,
+               P = 4 stages, M = 8, 1F1B, int8 stash, through
+               build_train_pipeline_host: 2 warm-up and 3 timed steps; exact
+               K1-K4 and K7 launch counts read around the timed steps, the
+               stash report;
+ 13. pipe-host — the same workload with the raw and with the host stash
+               (window 2, lookahead 2), 2 steps each: bitwise-equal losses,
+               the overlap counters;
+ 14. serve   — launch/workload.py's granite-8b workload at full width and
                depth, bf16, random weights from a seed: 8 requests through
                ServeEngine (chunked prefill 128, 4 slots, page 16), launch
                counters read around this run only;
- 11. alone   — 2 of the requests rerun alone in a fresh engine must give the
+ 15. alone   — 2 of the requests rerun alone in a fresh engine must give the
                same greedy tokens.
 The line before last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -83,6 +101,8 @@ KERNELS = {
     "rmsnorm_bwd": (RN_SOURCE, "src/repro/kernels/rmsnorm/kernel.py:93"),
     "blockwise_quantize": (BQ_SOURCE, "src/repro/kernels/blockwise_quant/kernel.py:56"),
     "blockwise_dequantize": (BQ_SOURCE, "src/repro/kernels/blockwise_quant/kernel.py:87"),
+    "stash_quantize": (BQ_SOURCE, "src/repro/kernels/blockwise_quant/kernel.py:147"),
+    "stash_dequantize": (BQ_SOURCE, "src/repro/kernels/blockwise_quant/kernel.py:181"),
 }
 
 
@@ -176,14 +196,22 @@ def check(name, out, ref, tol, qlens=None) -> float:
 
 
 # ----------------------------------------------------------------- timing
+SPIN_CYCLES = 2_000_000     # ~1 ms of the card's clock
+
+
 def time_ms(fn, flush, warmup=5, reps=30) -> float:
-    """Median of ``reps`` CUDA-event timings, the L2 flushed before each."""
+    """Median of ``reps`` CUDA-event timings, the L2 flushed before each. A
+    spin kernel keeps the card busy while the host enqueues the first event
+    and ``fn``'s launches, so that the time between the events is the card's
+    alone: an idle card would wait for the host's launch latency between
+    them (tens of µs, the whole time of a small kernel)."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -759,7 +787,8 @@ def train_parity_run(name, cfg) -> None:
         runs[dev] = (hist, [p.detach().float().cpu() for p in state["params"].parameters()],
                      kernel_launches(), codes)
     (h_cpu, p_cpu, cpu_launches, c_cpu), (h_gpu, p_gpu, launches, c_gpu) = runs["cpu"], runs["cuda"]
-    need = [k for k in launches if not k.startswith("blockwise") or name != "adamw"]
+    need = [k for k in launches
+            if not k.startswith("stash") and (not k.startswith("blockwise") or name != "adamw")]
     if min(launches[k] for k in need) <= 0 or max(cpu_launches.values()) != 0:
         raise AssertionError(f"train-parity {name}: a kernel was not launched on the card "
                              f"({launches}), or one was on the CPU ({cpu_launches})")
@@ -834,7 +863,8 @@ def phase_train(wl, name: str):
     # and K8a on the zero m and v of each at init
     k8 = K8_PER_STEP if tc.optimizer == "adam8bit" else 0
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
-    want.update(blockwise_quantize=k8 * (TRAIN_STEPS + 1), blockwise_dequantize=k8 * TRAIN_STEPS)
+    want.update(blockwise_quantize=k8 * (TRAIN_STEPS + 1), blockwise_dequantize=k8 * TRAIN_STEPS,
+                stash_quantize=0, stash_dequantize=0)
     if launches != want:
         raise AssertionError(f"{name}: launches {launches} != {want}")
     extra = {}
@@ -860,6 +890,353 @@ def phase_train(wl, name: str):
     del state
     torch.cuda.empty_cache()
     return launches
+
+
+# ------------------------------------------------------- stash kernels (K7)
+# tests/test_kernels_quant.py SHAPES, and the pipe phase's slot: one
+# microbatch (1 x 2048) of granite-8b's d_model 4096
+STASH_SHAPES = [(3, 7), (257,), (2, 2, 130), (64, 256), (33, 77)]
+STASH_SLOT = (1, 2048, 4096)
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """A tensor's raw bytes: -0 against +0, or one fp8 code against its
+    neighbour, must not compare equal."""
+    return t.contiguous().view(torch.uint8)
+
+
+def stash_mixed(shape, seed):
+    """Normal values whose magnitude moves by eight decades from 256-value
+    block to block, on the card."""
+    rng = np.random.RandomState(seed)
+    n = int(np.prod(shape))
+    mag = 10.0 ** rng.uniform(-4, 4, -(-n // 256)).repeat(256)[:n]
+    return torch.tensor((rng.randn(n) * mag).reshape(shape), dtype=torch.float32,
+                        device="cuda")
+
+
+def stash_ties():
+    """Four blocks of values on rounding ties. Block 0's absmax is 448, so its
+    fp8 scale is 1 and x / scale is x: midpoints of neighbouring e4m3 values,
+    normal and subnormal, both signs, and -0. Block 1's absmax is 127, its
+    int8 scale 1: k + 0.5 for round-half-even. Block 2 is zeros (scale 0),
+    block 3 zeros but one -0."""
+    fp8 = [448.0, 17.0, 19.0, 1.0625, 432.0, 0.015625 * 1.0625, 2.0**-10, 3 * 2.0**-10,
+           5 * 2.0**-10, -17.0, -1.0625, -(2.0**-10), -432.0, -0.0, 0.0]
+    int8 = [127.0, 0.5, 1.5, 2.5, -0.5, -1.5, -2.5, 126.5, -126.5, 63.5, -0.0, 0.0]
+    blocks = [np.resize(fp8, 256), np.resize(int8, 256), np.zeros(256), np.zeros(256)]
+    blocks[3][7] = -0.0
+    return torch.tensor(np.concatenate(blocks), dtype=torch.float32, device="cuda")
+
+
+def stash_check(tag, x, storage):
+    """K7a / K7b (through the ops, as the stash calls them) against the plain
+    version on the same card tensor, bitwise. Returns (codes, scales)."""
+    from repro_torch.kernels.blockwise_quant import ops as bqo
+    from repro_torch.kernels.paged_attention import quant
+
+    c, s = bqo.stash_quantize(x, storage)
+    flat = x.reshape(-1)
+    n = flat.numel()
+    pc, ps = quant.kv_quantize(F.pad(flat, (0, (-n) % 256)).view(-1, 256),
+                               quant._QUANT[storage][0])
+    d = bqo.stash_dequantize(c, s, tuple(x.shape), x.dtype)
+    pd = quant.kv_dequantize(c, s, x.dtype).reshape(-1)[:n].view(x.shape)
+    torch.cuda.synchronize()
+    for name, a, b in (("codes", c, pc), ("scales", s, ps), ("dequantized", d, pd)):
+        if not torch.equal(bits(a), bits(b)):
+            bad = int((bits(a) != bits(b)).sum())
+            raise AssertionError(f"K7 {tag}: {name} differ from the plain version in "
+                                 f"{bad} of {bits(a).numel()} bytes")
+    return c, s
+
+
+def ptxas_of(source: str, key: str) -> dict:
+    """Registers and spills of the entry functions of ``source`` whose
+    mangled names hold ``key``, from nvcc's -Xptxas -v log."""
+    from repro_torch.kernels import build
+
+    out, name = {}, None
+    for ln in build.library_path(source).with_suffix(".log").read_text().splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and key in name and "registers" in ln and "Used " in ln:
+            out.setdefault(name, {})["registers"] = int(ln.split("Used ")[1].split()[0])
+        elif name and key in name and "spill" in ln:
+            out.setdefault(name, {})["spills"] = ln.strip()
+    return out
+
+
+def stash_bounds(n: int, in_size: int, out_size: int):
+    """(bytes, flops) of K7a (values of in_size bytes -> 1-byte codes and a
+    4-byte scale per 256) and K7b (codes and scales -> values of out_size
+    bytes): each input read once, each output written once; K7a does |x|, a
+    max, a division, two clamps and a rounding per value, K7b a conversion
+    and a multiply."""
+    scales = 4 * (n // 256)
+    return {"stash_quantize": (n * in_size + n + scales, 6 * n),
+            "stash_dequantize": (n + scales + n * out_size, 2 * n)}
+
+
+def phase_stash_kernels():
+    from repro_torch.kernels.blockwise_quant import cuda as bq
+    from repro_torch.kernels.blockwise_quant import ops as bqo
+    from repro_torch.kernels.paged_attention import quant
+
+    cases = 0
+    for storage in ("int8", "fp8"):
+        for dt in (torch.float32, torch.bfloat16):
+            for i, shape in enumerate(STASH_SHAPES + [(100,), STASH_SLOT]):
+                stash_check(f"{storage} {dt} {shape}", stash_mixed(shape, i).to(dt), storage)
+                cases += 1
+            stash_check(f"{storage} {dt} ties", stash_ties().to(dt), storage)
+            c, s = stash_check(f"{storage} {dt} 100 zeros", torch.zeros(100, dtype=dt,
+                                                                        device="cuda"), storage)
+            if c.shape != (1, 256) or float(s[0]) != 0.0:
+                raise AssertionError("K7: a zero input does not pad to one block of scale 0")
+            cases += 2
+    # the main path's call: K7a writes into a slot's rows, K7b reads them
+    x = torch.tensor(np.random.RandomState(1).randn(*STASH_SLOT), dtype=torch.float32,
+                     device="cuda").to(torch.bfloat16)
+    codes = torch.zeros((3,) + (x.numel() // 256, 256), dtype=torch.int8, device="cuda")
+    scales = torch.zeros((3, x.numel() // 256), device="cuda")
+    bqo.stash_quantize(x, "int8", out=(codes[1], scales[1]))
+    pc, ps = quant.kv_quantize(x.view(-1, 256), torch.int8)
+    torch.cuda.synchronize()
+    if not (torch.equal(codes[1], pc) and torch.equal(bits(scales[1]), bits(ps))
+            and not codes[0].any() and not codes[2].any()):
+        raise AssertionError("K7a into a slot's rows differs from the plain version")
+    emit(phase="stash_kernels_cases", cases=cases + 1, bitwise=True,
+         ptxas=ptxas_of(bq.SOURCE, "stash"))
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    rows = {}
+    n = x.numel()
+    for storage in ("int8", "fp8"):
+        sdt = quant._QUANT[storage][0]
+        c, s = bqo.stash_quantize(x, storage)
+        times = {
+            "stash_quantize": (
+                time_ms(lambda: bqo.stash_quantize(x, storage, out=(c, s)), flush),
+                time_ms(lambda: quant.kv_quantize(x.view(-1, 256), sdt), flush, warmup=2, reps=10)),
+            "stash_dequantize": (
+                time_ms(lambda: bqo.stash_dequantize(c, s, STASH_SLOT, torch.bfloat16), flush),
+                time_ms(lambda: quant.kv_dequantize(c, s, torch.bfloat16), flush, warmup=2,
+                        reps=10)),
+        }
+        for name, (nbytes, flops) in stash_bounds(n, 2, 2).items():
+            bms, by = bound(nbytes, flops, torch.float32)
+            row = dict(kernel=name, storage=storage, shape=STASH_SLOT, dtype="bf16",
+                       kernel_ms=times[name][0], plain_ms=times[name][1], library_ms=None,
+                       bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops, max_abs_err=0.0)
+            emit(phase="stash_kernels", library="none: no single PyTorch call computes "
+                 "the blockwise symmetric codec", **row)
+            if storage == "int8":          # the pipe phase's stash
+                rows[name] = row
+    return rows
+
+
+def phase_pipe_parity() -> None:
+    """Three pipeline steps (build_train_pipeline_host, 1F1B, P = 2, M = 4)
+    on the card against the same three on the CPU, f32 with TF32 off, on
+    reduced granite-8b with 4 layers, with the raw and the int8 stash."""
+    from repro_torch.configs import get_reduced
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_reduced("granite-8b", n_layers=4)
+    for stash in ("raw", "int8"):
+        pipe_parity_run(cfg, stash)
+
+
+def pipe_parity_run(cfg, stash) -> None:
+    from repro_torch.core.partitioner import ParallelPlan
+    from repro_torch.core.stash import get_backend
+    from repro_torch.data import DataPipeline
+    from repro_torch.kernels.blockwise_quant import ops as bqo
+    from repro_torch.launch.train import (build_train_pipeline_host, kernel_launches,
+                                          reset_kernel_launches)
+    from repro_torch.models import Runtime, init_params, pipeline_fns, pipeline_shared
+    from repro_torch.optim import get as get_opt
+    from repro_torch.train import TrainConfig, fit, make_state
+
+    plan = ParallelPlan(pp=2, microbatches=4, stash=stash)
+    tc = TrainConfig(precision="f32", lr=1e-4, log_every=1, pipe=2, microbatches=4,
+                     stash=stash)
+    first_fn, stage_fn, _ = pipeline_fns(cfg, Runtime(dtype=torch.float32))
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        opt = get_opt(tc.optimizer, tc.lr)
+        params = init_params(cfg, seed=7, device="cpu", dtype=torch.float32).to(dev)
+        step_fn, _ = build_train_pipeline_host(cfg, plan, tc)
+        data = DataPipeline(cfg, 8, 128, seed=0)
+        reset_kernel_launches()
+        try:
+            state = make_state(cfg, opt, tc, device=dev, params=params)
+            state, hist = fit(cfg, tc, data, 3, opt, state=state, step_fn=step_fn,
+                              log=lambda line: None)
+            launches = kernel_launches()
+            batch = next(data)
+        finally:
+            data.close()
+        # the int8 codes of stage 1's input (microbatch 0 of a fourth batch)
+        # from the trained params, as the stash would store them
+        lm = state["params"]
+        with torch.no_grad():
+            mb = {k: torch.as_tensor(v[:2]).to(dev) for k, v in batch.items()}
+            x0 = get_backend(stash).roundtrip(first_fn(pipeline_shared(lm), mb))
+            y, _ = stage_fn(list(lm.stack.layers)[:2], x0)
+            codes, _ = bqo.stash_quantize(y, "int8")
+        runs[dev] = (hist, [p.detach().float().cpu() for p in lm.parameters()], launches,
+                     codes.view(torch.uint8).cpu())
+    (h_cpu, p_cpu, cpu_launches, c_cpu), (h_gpu, p_gpu, launches, c_gpu) = runs["cpu"], runs["cuda"]
+    need = [k for k in launches if not k.startswith("blockwise")
+            and (stash == "int8" or not k.startswith("stash"))]
+    if (min(launches[k] for k in need) <= 0 or max(cpu_launches.values()) != 0
+            or launches["blockwise_quantize"] or launches["blockwise_dequantize"]):
+        raise AssertionError(f"pipe-parity {stash}: launches on the card {launches}, "
+                             f"on the CPU {cpu_launches}")
+    if stash == "raw" and (launches["stash_quantize"] or launches["stash_dequantize"]):
+        raise AssertionError(f"pipe-parity raw: K7 launched {launches}")
+    worst = {"loss": 0.0, "grad_norm": 0.0, "params": 0.0}
+    for a, b in zip(h_gpu, h_cpu):
+        for key in ("loss", "grad_norm"):
+            if not np.isfinite(a[key]):
+                raise AssertionError(f"pipe-parity {stash}: non-finite {key} on the card")
+            worst[key] = max(worst[key], abs(a[key] - b[key]) / abs(b[key]))
+    for a, b in zip(p_gpu, p_cpu):
+        # per tensor, in norm, as train-parity: Adam's step moves elements of
+        # roundoff-level gradient by up to lr either way
+        worst["params"] = max(worst["params"], float((a - b).norm() / b.norm()))
+    if max(worst.values()) > 1e-3:
+        raise AssertionError(f"pipe-parity {stash}: card vs CPU {worst} > rtol 1e-3")
+    differ = int((c_gpu != c_cpu).sum())
+    emit(phase="pipe_parity", stash=stash, config=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, plan=plan.describe(),
+         allow_tf32=torch.backends.cuda.matmul.allow_tf32, steps=3, rtol=1e-3,
+         max_rel_err=worst, losses_cuda=[h["loss"] for h in h_gpu],
+         losses_cpu=[h["loss"] for h in h_cpu], launches=launches,
+         stage1_int8_codes_differing=differ, codes=c_cpu.numel(),
+         codes_differing_share=differ / c_cpu.numel())
+
+
+def pipe_launches_per_step(cfg, plan) -> dict:
+    """Launches per step of the pipe workload that its tick tables fix (L
+    layers, P stages, M microbatches, stash int8, cotangents raw): every
+    layer runs forward in its F op and again in its B op's recompute, and
+    backward once; the final norm runs only in the last stage's B op; K7a
+    quantizes every put (each forward arrival, and stage 0's own) and stage
+    0's roundtrip, K7b dequantizes each F get, each B get and the
+    roundtrip."""
+    L, P, M = cfg.n_layers, plan.pp, plan.microbatches
+    return {"flash_attention_fwd": 2 * L * M, "flash_attention_bwd_delta": L * M,
+            "flash_attention_bwd_dq": L * M, "flash_attention_bwd_dkv": L * M,
+            "rmsnorm_fwd": 4 * L * M + M, "rmsnorm_bwd": 2 * L * M + M,
+            "blockwise_quantize": 0, "blockwise_dequantize": 0,
+            "stash_quantize": P * M + M, "stash_dequantize": 2 * P * M + M}
+
+
+PIPE_WARMUP, PIPE_STEPS = 2, 3
+
+
+def pipe_run(wl, stash, steps_before, steps, host_window=2, lookahead=2):
+    """``steps_before`` then ``steps`` steps of the pipe workload with
+    ``stash``, from its seed; the launch counters and the peak memory are
+    reset between the two. Returns the history of the second run, its
+    launches and peak GB, the stash backend, the seconds to make the state
+    and the count of parameters."""
+    import dataclasses
+
+    from repro_torch.launch.train import (build_train_pipeline_host, kernel_launches,
+                                          reset_kernel_launches)
+    from repro_torch.optim import get as get_opt
+    from repro_torch.train import fit, make_state
+
+    plan = dataclasses.replace(wl.plan, stash=stash)
+    tc = dataclasses.replace(wl.tc, stash=stash)
+    opt = get_opt(tc.optimizer, tc.lr)
+    t0 = time.perf_counter()
+    state = make_state(wl.cfg, opt, tc, seed=wl.seed, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    step_fn, backend = build_train_pipeline_host(wl.cfg, plan, tc, host_window=host_window,
+                                                 lookahead=lookahead)
+    data = wl.data()
+    try:
+        if steps_before:
+            state, _ = fit(wl.cfg, tc, data, steps_before, opt, state=state,
+                           step_fn=step_fn, log=lambda line: None)
+        reset_kernel_launches()
+        torch.cuda.reset_peak_memory_stats()
+        state, hist = fit(wl.cfg, tc, data, steps, opt, state=state, step_fn=step_fn,
+                          log=lambda line: None)
+    finally:
+        data.close()
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    torch.cuda.empty_cache()
+    return dict(hist=hist, launches=launches, peak=peak, backend=backend, init_s=init_s,
+                params=n_params)
+
+
+def phase_pipe(wl):
+    """granite_pipe_workload: 2 warm-up and 3 timed steps with the int8
+    stash; the counters read around the timed steps only."""
+    from repro_torch.core.stash import SlotSpec, get_backend
+
+    cfg, plan = wl.cfg, wl.plan
+    run = pipe_run(wl, plan.stash, PIPE_WARMUP, PIPE_STEPS)
+    hist, launches = run["hist"], run["launches"]
+    losses = [h["loss"] for h in hist]
+    if len(losses) != PIPE_STEPS or not all(np.isfinite(losses)):
+        raise AssertionError(f"pipe: losses {losses}")
+    per_step = pipe_launches_per_step(cfg, plan)
+    want = {k: v * PIPE_STEPS for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"pipe: launches {launches} != {want}")
+    rep = plan.stash_report(cfg, global_batch=wl.batch, seq_len=wl.seq, itemsize=2)
+    spec = SlotSpec((wl.batch // plan.microbatches, wl.seq, cfg.d_model), torch.bfloat16,
+                    torch.device("cuda"))
+    slot = get_backend(plan.stash).slot_bytes(spec)
+    # one slot holds n bf16 values: int8 codes n B + a 4 B scale per 256 (at
+    # 1 x 2048 x 4096: 8,519,680 B), raw 2n B (16,777,216 B)
+    n = spec.numel
+    if (rep["bytes_per_slot"], rep["raw_bytes_per_slot"], slot) != (n + n // 64, 2 * n,
+                                                                    n + n // 64):
+        raise AssertionError(f"pipe: stash report {rep}, slot bytes {slot}")
+    step_ms = statistics.median(h["step_s"] for h in hist) * 1e3
+    emit(phase="pipe", config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         params=run["params"], dtype="bf16 over f32 masters", optimizer=wl.tc.optimizer,
+         lr=wl.tc.lr, batch=wl.batch, seq=wl.seq, plan=plan.describe(), head="dense",
+         warmup_steps=PIPE_WARMUP, steps=PIPE_STEPS, params_init_s=run["init_s"],
+         median_step_ms=step_ms, tokens_per_s=wl.tokens_per_step / (step_ms / 1e3),
+         peak_mem_gb=run["peak"], losses=losses, step_ms=[h["step_s"] * 1e3 for h in hist],
+         launches=launches, launches_per_step=per_step, stash_report=rep)
+    return launches
+
+
+def phase_pipe_host(wl) -> None:
+    """The pipe workload with the raw stash and with the host stash (window
+    2, lookahead 2), 2 steps each from the same seed: the same bits."""
+    raw, host = (pipe_run(wl, stash, 0, 2) for stash in ("raw", "host"))
+    h_raw, h_host, backend = raw["hist"], host["hist"], host["backend"]
+    for key in ("loss", "grad_norm"):
+        a, b = [h[key] for h in h_raw], [h[key] for h in h_host]
+        if a != b:
+            raise AssertionError(f"pipe-host: {key} with the host stash {b} != raw {a}")
+    stats = backend.stats()
+    if not (stats["evictions"] and stats["host_hits"]):
+        raise AssertionError(f"pipe-host: the host stash never left the device: {stats}")
+    host_hits = max(stats["host_hits"], 1)
+    emit(phase="pipe_host", losses=[h["loss"] for h in h_raw], bitwise_equal=True,
+         window=2, lookahead=2, stats=stats,
+         stall_fraction=stats["stalled_gets"] / host_hits,
+         prefetch_hit_rate=stats["prefetch_hits"] / host_hits,
+         step_ms_raw=[h["step_s"] * 1e3 for h in h_raw],
+         step_ms_host=[h["step_s"] * 1e3 for h in h_host],
+         peak_mem_gb_raw=raw["peak"], peak_mem_gb_host=host["peak"])
 
 
 def phase_model() -> None:
@@ -975,18 +1352,25 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from repro_torch.launch.workload import gemma_train8_workload, gemma_train_workload
+    from repro_torch.launch.workload import (gemma_train8_workload, gemma_train_workload,
+                                             granite_pipe_workload)
 
     phase_card()
     phase_build()
     kern = phase_kernels()
     kern.update(phase_train_kernels())
     kern.update(phase_quant_kernels())
+    kern.update(phase_stash_kernels())
     phase_model()
     phase_train_parity()
+    phase_pipe_parity()
     launches = phase_train(gemma_train_workload(), "train")     # K1-K4
     train8 = phase_train(gemma_train8_workload(), "train8")     # K1-K4 and K8
     launches.update({k: v for k, v in train8.items() if k.startswith("blockwise")})
+    pipe = granite_pipe_workload()
+    pipe_launches = phase_pipe(pipe)                            # K1-K4 and K7
+    launches.update({k: v for k, v in pipe_launches.items() if k.startswith("stash")})
+    phase_pipe_host(pipe)
     wl, params, rids, out, serve_launches = phase_serve()
     phase_alone(wl, params, rids, out)
     launches.update(serve_launches)        # K5, K6: the serving main path

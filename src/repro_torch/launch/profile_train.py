@@ -1,18 +1,20 @@
-"""Where the training time goes on the card: gemma3-1b, the chip smoke's
-training workload, under ``torch.profiler``.
+"""Where the training time goes on the card: a training workload of
+``chip_smoke.py`` under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train [--out DIR] \
-        [--optimizer adamw|adam8bit]
+        [--optimizer adamw|adam8bit] [--workload gemma|pipe]
 
-Runs ``workload.gemma_train_workload()`` (the workload of ``chip_smoke.py``'s
-train phase; with ``--optimizer adam8bit``, ``gemma_train8_workload()``, its
-train8 phase): two warm-up steps, three timed steps without the profiler,
-then three steps under it. Prints one JSON line: the card, the optimizer
-and its state's bytes, the median step time, tokens/s and peak memory of
-the unprofiled steps, and for the profiled window its wall time,
-device-busy time, idle share and the device time of each kernel family —
-K1 to K4 and K8 by kernel, the matmuls, the rest. The full operator table
-goes to ``DIR``.
+``--workload gemma`` (the default) runs ``workload.gemma_train_workload()``
+(``chip_smoke.py``'s train phase; with ``--optimizer adam8bit``,
+``gemma_train8_workload()``, its train8 phase); ``--workload pipe`` runs
+``granite_pipe_workload()``, the pipe phase: granite-8b at full width, 8
+layers, through the host-driven 1F1B runner with the int8 stash. Two
+warm-up steps, three timed steps without the profiler, then three steps
+under it. Prints one JSON line: the card, the optimizer and its state's
+bytes, the median step time, tokens/s and peak memory of the unprofiled
+steps, and for the profiled window its wall time, device-busy time, idle
+share and the device time of each kernel family — K1 to K4, K7 and K8 by
+kernel, the matmuls, the rest. The full operator table goes to ``DIR``.
 """
 from __future__ import annotations
 
@@ -34,6 +36,8 @@ FAMILIES = (
     ("rmsnorm_fwd", "K3 rmsnorm_fwd"),
     ("rmsnorm_bwd", "K4 rmsnorm_bwd"),
     ("rmsnorm_dscale", "K4 rmsnorm_bwd"),
+    ("stash_dequantize", "K7b stash_dequantize"),       # before the substrings
+    ("stash_quantize", "K7a stash_quantize"),           # of K8's names
     ("dequantize_kernel", "K8b blockwise_dequantize"),   # before its substring
     ("quantize_kernel", "K8a blockwise_quantize"),
 )
@@ -74,12 +78,14 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_train_out")
     ap.add_argument("--optimizer", default="adamw", choices=("adamw", "adam8bit"))
+    ap.add_argument("--workload", default="gemma", choices=("gemma", "pipe"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_train measures the card; CUDA is not available")
 
-    from repro_torch.launch.train import optimizer_state_bytes
-    from repro_torch.launch.workload import gemma_train8_workload, gemma_train_workload
+    from repro_torch.launch.train import build_train_pipeline_host, optimizer_state_bytes
+    from repro_torch.launch.workload import (gemma_train8_workload, gemma_train_workload,
+                                             granite_pipe_workload)
     from repro_torch.optim import get as get_opt
     from repro_torch.train import make_state, make_train_step
 
@@ -87,11 +93,17 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    wl = {"adamw": gemma_train_workload, "adam8bit": gemma_train8_workload}[args.optimizer]()
+    if args.workload == "pipe":
+        wl = granite_pipe_workload()
+    else:
+        wl = {"adamw": gemma_train_workload, "adam8bit": gemma_train8_workload}[args.optimizer]()
     opt = get_opt(wl.tc.optimizer, wl.tc.lr)
     state = make_state(wl.cfg, opt, wl.tc, seed=wl.seed, device="cuda")
     opt_bytes, adamw_bytes = optimizer_state_bytes(state)
-    step_fn = make_train_step(wl.cfg, opt, wl.tc)
+    if wl.plan is not None:
+        step_fn, _ = build_train_pipeline_host(wl.cfg, wl.plan, wl.tc)
+    else:
+        step_fn = make_train_step(wl.cfg, opt, wl.tc)
     data = wl.data()
     try:
         state, _ = _steps(step_fn, state, data, 2, "cuda")            # warm-up
@@ -121,7 +133,8 @@ def main(argv=None) -> None:
         sort_by="self_cuda_time_total", row_limit=60))
     step_s = statistics.median(times)
     print(json.dumps({
-        "card": card, "config": wl.cfg.name, "batch": wl.batch, "seq": wl.seq,
+        "card": card, "config": wl.cfg.name, "layers": wl.cfg.n_layers,
+        "plan": wl.plan.describe() if wl.plan else None, "batch": wl.batch, "seq": wl.seq,
         "optimizer": wl.tc.optimizer, "opt_state_bytes": opt_bytes,
         "adamw_state_bytes": adamw_bytes,
         "step_ms": step_s * 1e3, "tokens_per_s": wl.tokens_per_step / step_s,

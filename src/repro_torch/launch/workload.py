@@ -13,16 +13,26 @@ head, remat none, batch 4 x seq 2048 from ``DataPipeline(seed=0)``, random
 weights from seed 0. ``gemma_train8_workload`` is the same workload with
 8-bit Adam (``optimizer="adam8bit"``), whose moments go through the K8
 codec every step.
+
+Pipeline training (``granite_pipe_workload``): granite-8b at full width (d
+4096, 32 query heads over 8 kv heads of hd 128, d_ff 14,336, untied vocabulary
+of 49,152) and 8 of its 36 layers (``dataclasses.replace``; the 36 layers'
+f32 masters, AdamW moments and grads do not fit one 80 GB card), bf16 over
+f32 masters, AdamW at lr 1e-3, remat none, the dense head, batch 8 x seq 2048
+from ``DataPipeline(seed=0)``, random weights from seed 0; P = 4 stages of
+2 layers, M = 8 microbatches of 1 x 2048, 1F1B, int8 activation stash,
+through ``launch.train.build_train_pipeline_host``.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs import ArchConfig, get_config
+from repro_torch.core.partitioner import ParallelPlan
 from repro_torch.models import Runtime, init_params
 from repro_torch.serve import EngineConfig
 from repro_torch.train import TrainConfig
@@ -62,6 +72,7 @@ class TrainWorkload:
     batch: int
     seq: int
     seed: int
+    plan: Optional[ParallelPlan] = None      # set: the pipeline trainer
 
     @property
     def tokens_per_step(self) -> int:
@@ -82,3 +93,12 @@ def gemma_train_workload(seed: int = 0) -> TrainWorkload:
 def gemma_train8_workload(seed: int = 0) -> TrainWorkload:
     wl = gemma_train_workload(seed)
     return replace(wl, tc=replace(wl.tc, optimizer="adam8bit"))
+
+
+def granite_pipe_workload(seed: int = 0) -> TrainWorkload:
+    plan = ParallelPlan(pp=4, microbatches=8, schedule="1f1b", stash="int8")
+    tc = TrainConfig(precision="bf16", remat="none", lr=1e-3, log_every=1,
+                     pipe=plan.pp, microbatches=plan.microbatches,
+                     schedule=plan.schedule, stash=plan.stash)
+    cfg = replace(get_config("granite-8b"), n_layers=8)
+    return TrainWorkload(cfg, tc, batch=8, seq=2048, seed=seed, plan=plan)

@@ -7,6 +7,8 @@ from repro_torch.models.lm import (  # noqa: F401
     init_params,
     loss_fn,
     masked_token_ce,
+    pipeline_fns,
+    pipeline_shared,
     prefill_chunk_paged,
 )
 from repro_torch.models.runtime import Runtime  # noqa: F401

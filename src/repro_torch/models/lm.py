@@ -1,8 +1,9 @@
 """Top-level model: embeddings -> decoder stack -> logits.
 
 Counterpart of the training forward and loss (``forward_hidden``,
-``forward``, ``masked_token_ce``, ``loss_fn``) and of the paged serving
-entry points of ``repro.models.lm``.
+``forward``, ``masked_token_ce``, ``loss_fn``), the pipeline's stage
+functions (``pipeline_fns``) and the paged serving entry points of
+``repro.models.lm``.
 Parameters are an :class:`LM` module holding the same tree as the JAX
 package (``embed/table``, the per-layer blocks, ``final_norm/scale``,
 ``head/w``); ``checkpoint.convert.params_from_jax`` carries a JAX tree
@@ -32,7 +33,7 @@ from repro_torch.models.layers import (
     norm_apply,
 )
 from repro_torch.models.runtime import Runtime
-from repro_torch.models.stack import layer_specs
+from repro_torch.models.stack import LayerSpec, layer_specs
 
 
 class LM(nn.Module):
@@ -132,6 +133,54 @@ def loss_fn(
     xent, zl = masked_token_ce(ll, logz, labels, z_loss)
     total = xent + zl + cfg.router_aux_coef * aux
     return total, {"loss": total, "xent": xent, "aux": aux, "z_loss": zl}
+
+
+# ---------------------------------------------------------------- pipeline
+def pipeline_shared(params: LM) -> Dict[str, Any]:
+    """The parameters every pipeline stage may read: the embedding, the final
+    norm and the head (None when tied), as ``pipeline_fns`` takes them."""
+    return {"embed": params.embed, "final_norm": params.final_norm, "head": params.head}
+
+
+def pipeline_fns(cfg: ArchConfig, rt: Runtime, tp: int = 1):
+    """(first_fn, stage_fn, last_fn) for ``core.pipeline.pipeline_grads_host``.
+
+    first_fn(shared, mb) embeds the microbatch's tokens; stage_fn(layers, x)
+    applies a stage's slice of ``Stack.layers`` (``stack_stage_apply``) and
+    returns the router-aux term (0 for the dense families); last_fn(shared,
+    y, mb) is the final norm, the dense f32 logits head and the masked cross
+    entropy with z-loss, per microbatch as ``loss_fn``'s dense path. The
+    chunked-CE head is not a pipeline head, in JAX either. ``shared`` is
+    :func:`pipeline_shared`'s dict.
+
+    The step's loss is the mean of the microbatches' masked means (each
+    microbatch weighs the same, whatever its count of valid labels), as in
+    JAX.
+    """
+    why = stack_mod.pipeline_incompatibility(cfg, tp)
+    if why is not None:
+        raise ValueError(f"{cfg.name}: {why}")
+    kind = cfg.pattern[0]
+    spec = LayerSpec(kind, cfg.sliding_window if kind == "local" else 0, 0)
+
+    def first_fn(shared: Dict[str, Any], mb: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return embed_apply(shared["embed"], mb["tokens"], rt.dtype)
+
+    def stage_fn(layers, x: torch.Tensor):
+        y, aux = stack_mod.stack_stage_apply(cfg, layers, x, rt, spec, tp=tp)
+        return y, cfg.router_aux_coef * aux
+
+    def last_fn(shared: Dict[str, Any], y: torch.Tensor, mb: Dict[str, torch.Tensor]):
+        h = norm_apply(shared["final_norm"], y, cfg.norm)
+        logits = logits_apply(shared["head"], shared["embed"], h, cfg.tie_embeddings)
+        labels = mb["labels"]
+        safe = torch.clamp(labels, min=0)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, safe.long()[..., None])[..., 0] - logz
+        xent, zl = masked_token_ce(ll, logz, labels)
+        return xent + zl, {"xent": xent, "z_loss": zl}
+
+    return first_fn, stage_fn, last_fn
 
 
 # ------------------------------------------------------------------- serving

@@ -1,7 +1,7 @@
 """Decoder stack: the full-sequence training forward and the paged serving
 steps, over per-layer blocks.
 
-Counterpart of ``stack_forward`` and the paged parts of
+Counterpart of ``stack_forward``, the paged parts and the pipeline stage of
 ``repro.models.stack``. JAX scanned over stacked ``(L, ...)`` parameter
 segments; here an ``nn.ModuleList`` holds one block per layer and a Python
 loop walks it. ``layer_specs`` gives each layer its mixer kind and window,
@@ -14,11 +14,15 @@ The KV pools stay one K tensor and one V tensor of shape
 ``(L, num_pages, page, Kv, hd)`` (``init_stack_pool``), so a copy-on-write
 page copy is a single ``pool[:, dst] = pool[:, src]`` and layer ``i`` works
 on the contiguous view ``pool[i]``.
+
+A pipeline stage is a slice of ``Stack.layers`` (the counterpart of
+``stage_layer_params`` slicing the stacked leaves), applied by
+``stack_stage_apply`` with the same per-layer remat as ``stack_forward``.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -59,6 +63,24 @@ def layer_specs(
         else:
             out.append(LayerSpec(k, 0, 0))
     return tuple(out)
+
+
+def param_kind(kind: str) -> str:
+    return "attn" if kind == "local" else kind
+
+
+def param_groups(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    """[(unit param-kind pattern, repeats)]: the JAX package's stacked
+    parameter storage, which the pipeline's stage slicing needs uniform."""
+    kinds = tuple(param_kind(k) for k in cfg.pattern)
+    if len(set(kinds)) == 1:
+        return [((kinds[0],), cfg.n_layers)]
+    u = len(kinds)
+    n, rem = divmod(cfg.n_layers, u)
+    groups = [(kinds, n)]
+    if rem:
+        groups.append((kinds[:rem], 1))
+    return groups
 
 
 def check_served(cfg: ArchConfig) -> None:
@@ -255,3 +277,62 @@ def stack_decode(
         )
         x = _ffn_apply(cfg, bp, x)
     return x
+
+
+# ------------------------------------------------------------ pipeline stage
+def pipeline_incompatibility(cfg: ArchConfig, tp: int = 1) -> Optional[str]:
+    """Why ``cfg`` cannot run the executable pipeline (None = it can): the
+    JAX package's rule. Stages slice the layer stack, which needs one
+    homogeneous parameter group and a single mixer kind; tp > 1 needs
+    Megatron-divisible heads and FFN."""
+    groups = param_groups(cfg)
+    if len(groups) != 1 or len(groups[0][0]) != 1:
+        return "patterned parameter storage (multi-kind layer unit)"
+    if len(set(cfg.pattern)) != 1:
+        return "mixed mixer kinds in the layer pattern"
+    if cfg.is_encdec or cfg.frontend is not None:
+        return "encoder-decoder / frontend architectures"
+    if tp > 1:
+        kind = param_kind(cfg.pattern[0])
+        if kind != "attn":
+            return f"tensor parallelism over {kind!r} mixers (attention only)"
+        if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+            return f"heads ({cfg.n_heads}/{cfg.n_kv_heads}) not divisible by tp={tp}"
+        if cfg.ffn_kind == "dense" and cfg.d_ff % tp:
+            return f"d_ff={cfg.d_ff} not divisible by tp={tp}"
+        if cfg.ffn_kind == "moe":
+            return "MoE with tp > 1 (expert parallelism stays on the 2D path)"
+    return None
+
+
+def stack_stage_apply(
+    cfg: ArchConfig,
+    layers: Sequence[Block],
+    x: torch.Tensor,
+    rt: Runtime,
+    spec: LayerSpec,
+    *,
+    tp: int = 1,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Apply one pipeline stage's contiguous layers (a slice of
+    ``Stack.layers``) to x (B, S, d). Returns (y, aux); aux is 0 for the
+    dense families. ``rt.remat`` checkpoints each layer, as JAX's
+    ``policy_for(rt.remat)`` wraps its scan body. Manual tensor parallelism
+    inside a stage (tp > 1) raises: ROADMAP queue 1 item 6."""
+    if tp > 1:
+        raise NotImplementedError(
+            f"tp={tp} inside a pipeline stage (manual Megatron TP) is ROADMAP "
+            "queue 1 item 6, 'memory techniques and multi-device'"
+        )
+    check_served(cfg)
+    B, S = x.shape[0], x.shape[1]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+    for bp in layers:
+        fn = functools.partial(_group_apply, cfg, [bp], [spec], positions, True)
+        if rt.remat == "none":
+            x = fn(x)
+        elif rt.remat == "full":
+            x = checkpoint(fn, x, use_reentrant=False)
+        else:
+            x = checkpoint(fn, x, use_reentrant=False, context_fn=_save_matmuls)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)

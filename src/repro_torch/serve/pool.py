@@ -42,21 +42,6 @@ class PoolExhausted(RuntimeError):
     """Raised when an alloc/append cannot be served from the free list."""
 
 
-# storage bytes per code of the quantized pool dtypes, and of their scales
-# (the port's copy of repro.kernels.paged_attention.quant's pricing)
-_QUANT_ITEMSIZE = {"int8": 1, "fp8": 1}
-SCALE_BYTES = 4
-
-
-def kv_token_bytes(n_kv: int, head_dim: int, kv_dtype: str,
-                   native_itemsize: int = 2) -> int:
-    """Pool bytes per cached token (K + V + scales) at ``kv_dtype``;
-    ``native_itemsize`` prices the unquantized baseline (2 = bf16)."""
-    if kv_dtype in _QUANT_ITEMSIZE:
-        return 2 * n_kv * (head_dim * _QUANT_ITEMSIZE[kv_dtype] + SCALE_BYTES)
-    return 2 * n_kv * head_dim * native_itemsize
-
-
 def kv_page_bytes(
     page_size: int, n_kv: int, head_dim: int, n_layers: int,
     kv_dtype: str = "", native_itemsize: int = 2,
@@ -66,6 +51,8 @@ def kv_page_bytes(
     The single byte-accounting rule shared by the engine's per-request
     stats, ``EngineConfig.capacity``, the serve CLI, and the
     quantized-pool bench — page metadata here is host-side and free."""
+    from repro_torch.kernels.paged_attention.quant import kv_token_bytes
+
     return page_size * n_layers * kv_token_bytes(
         n_kv, head_dim, kv_dtype, native_itemsize
     )

@@ -12,9 +12,12 @@ optimizer is initialised with the LM's JAX leaves
 (low-bit, 1-bit, LARS, LAMB) see the stacked ``(L, ...)`` leaves the JAX
 step sees.
 
-Other execution modes (``dp_compressed``, the distributed trainer),
-gradient compression, ZeRO and the pipeline belong to later slices
-(ROADMAP queue 1 items 6 and 7) and raise.
+The pipeline fields (``pipe``, ``microbatches``, ``schedule``, ``stash``,
+``stash_cot``) configure the single-device pipeline step, which
+``launch.train.build_train_pipeline_host`` builds and which ends in the same
+``finish_step``. Other execution modes (``dp_compressed``, the distributed
+trainer), gradient compression and ZeRO belong to later slices (ROADMAP
+queue 1 item 6) and raise.
 """
 from __future__ import annotations
 
@@ -49,8 +52,13 @@ class TrainConfig:
     fused_backward: bool = False      # chunked-CE head instead of dense logits
     compression: Any = None           # later slice: must stay None
     zero_stage: int = 0               # later slice: must stay 0
-    pipe: int = 1                     # later slice: must stay 1
-    microbatches: int = 1             # later slice: must stay 1
+    # the pipeline (launch.train.build_train_pipeline_host): pipe > 1 runs
+    # the 1F1B/GPipe tick tables over `microbatches` per step, on one card
+    pipe: int = 1                     # pipeline stages
+    microbatches: int = 1             # microbatches per step (pipeline)
+    schedule: str = "1f1b"            # executable schedule: 1f1b | gpipe
+    stash: str = "raw"                # activation slots: raw | int8 | fp8 | host
+    stash_cot: bool = False           # cotangents through the codec too (int8/fp8)
     log_every: int = 10
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 0
@@ -60,11 +68,6 @@ class TrainConfig:
             raise NotImplementedError(f"gradient compression is {LATER}")
         if self.zero_stage:
             raise NotImplementedError(f"ZeRO (zero_stage={self.zero_stage}) is {LATER}")
-        if self.pipe > 1 or self.microbatches > 1:
-            raise NotImplementedError(
-                f"pipe={self.pipe}, microbatches={self.microbatches}: the pipeline "
-                f"needs {LATER}, then queue 1 item 7"
-            )
         if self.precision not in ("f32", "bf16", "fp16"):
             raise ValueError(f"precision {self.precision!r} not in f32|bf16|fp16")
 
@@ -139,6 +142,9 @@ def make_train_step(
     if mode != "single":
         raise NotImplementedError(f"mode={mode!r}: only 'single' is ported; "
                                   f"the others are {LATER}")
+    if tc.pipe > 1:
+        raise ValueError(f"pipe={tc.pipe}: the pipeline step comes from "
+                         "launch.train.build_train_pipeline_host")
     policy = _policy(tc)
     rt = rt if rt is not None else _runtime(tc)
 

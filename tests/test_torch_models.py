@@ -211,7 +211,9 @@ def test_port_sources_import_neither_jax_nor_repro():
     for sub in ("train/loop.py", "optim/optimizers.py", "core/precision.py",
                 "data/pipeline.py", "checkpoint/ckpt.py", "launch/train.py",
                 "kernels/flash_attention/ops.py", "kernels/rmsnorm/ops.py",
-                "kernels/chunked_ce/ops.py"):
+                "kernels/chunked_ce/ops.py", "kernels/paged_attention/quant.py",
+                "core/stash.py", "core/pipeline.py", "core/partitioner.py",
+                "roofline/analysis.py"):
         assert f"src/repro_torch/{sub}" in files, sub
     assert not bad, bad
 
@@ -224,7 +226,10 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.optim, repro_torch.core, repro_torch.data, "
         "repro_torch.launch.train, repro_torch.launch.profile_train, "
         "repro_torch.checkpoint.ckpt, repro_torch.kernels.flash_attention, "
-        "repro_torch.kernels.rmsnorm, repro_torch.kernels.chunked_ce\n"
+        "repro_torch.kernels.rmsnorm, repro_torch.kernels.chunked_ce, "
+        "repro_torch.kernels.blockwise_quant, repro_torch.core.stash, "
+        "repro_torch.core.pipeline, repro_torch.core.partitioner, "
+        "repro_torch.roofline.analysis, repro_torch.launch.workload\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"

@@ -44,6 +44,7 @@ from repro.train.loop import make_train_step as jmake_train_step
 from repro_torch.checkpoint import ckpt, params_from_jax, state_from_jax, state_to_numpy
 from repro_torch.configs import get_reduced as t_get_reduced
 from repro_torch.core import precision as tprec
+from repro_torch.core.pipeline import pipeline_apply, pipeline_grads
 from repro_torch.data import DataPipeline
 from repro_torch.kernels.chunked_ce import chunked_ce, chunked_ce_plain
 from repro_torch.launch import train as launch_train
@@ -443,8 +444,9 @@ def test_launcher_refuses_cuda_without_a_card(monkeypatch):
 REJECTED = [
     ("compression", lambda: TrainConfig(compression="topk")),
     ("zero", lambda: TrainConfig(zero_stage=1)),
-    ("pipe", lambda: TrainConfig(pipe=2)),
-    ("microbatches", lambda: TrainConfig(microbatches=4)),
+    # the P-device pipeline runners (the single-device one is ported)
+    ("pipe", lambda: pipeline_grads()),
+    ("microbatches", lambda: pipeline_apply()),
     ("mode", lambda: make_train_step(t_get_reduced("granite-8b"), get("adamw", LR),
                                      TrainConfig(), mode="dp_compressed")),
     ("offload", lambda: TRuntime(remat="offload")),

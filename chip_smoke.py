@@ -52,7 +52,11 @@ Phases, in order (any failure exits nonzero and prints no result line):
                stash report;
  13. pipe-host — the same workload with the raw and with the host stash
                (window 2, lookahead 2), 2 steps each: bitwise-equal losses,
-               the overlap counters;
+               the overlap counters; the memory peak across
+               pipeline_grads_host alone, over what was allocated before it,
+               for raw, int8 (from pipe) and host: int8 and host at most raw,
+               raw at most its grad accumulators, slots, wires and one
+               backward op measured alone;
  14. serve   — launch/workload.py's granite-8b workload at full width and
                depth, bf16, random weights from a seed: 8 requests through
                ServeEngine (chunked prefill 128, 4 slots, page 16), launch
@@ -199,25 +203,58 @@ def check(name, out, ref, tol, qlens=None) -> float:
 SPIN_CYCLES = 2_000_000     # ~1 ms of the card's clock
 
 
+def spin_ms(cycles: int) -> float:
+    """CUDA-event time of one spin kernel of ``cycles`` alone."""
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    a.record()
+    torch.cuda._sleep(cycles)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
 def time_ms(fn, flush, warmup=5, reps=30) -> float:
     """Median of ``reps`` CUDA-event timings, the L2 flushed before each. A
     spin kernel keeps the card busy while the host enqueues the first event
     and ``fn``'s launches, so that the time between the events is the card's
     alone: an idle card would wait for the host's launch latency between
-    them (tens of µs, the whole time of a small kernel)."""
+    them (tens of µs, the whole time of a small kernel). The spin is checked
+    to outlast every enqueue (host time from the first event's record to the
+    second's), and lengthened fourfold until it does. A ``fn`` that waits on
+    the card inside (its enqueue grows with the spin) cannot be covered so:
+    its time keeps the host's part after the wait, as it does in use."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    cycles, before = SPIN_CYCLES, None
+    while True:
+        spin = spin_ms(cycles)
+        times, enqueue = [], []
+        for _ in range(reps):
+            flush.zero_()
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(cycles)
+            t0 = time.perf_counter()
+            a.record()
+            fn()
+            b.record()
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        took = max(enqueue)
+        if took < spin:
+            return statistics.median(times)
+        if before is not None and took - before[0] > (spin - before[1]) / 2:
+            print(f"time_ms: the enqueue grows with the spin ({before[0]:.3f} ms at a "
+                  f"{before[1]:.3f} ms spin, {took:.3f} at {spin:.3f}): the function "
+                  "waits on the card", file=sys.stderr)
+            return statistics.median(times)
+        if cycles >= 64 * SPIN_CYCLES:
+            raise AssertionError(f"time_ms: an enqueue took {took:.3f} ms, "
+                                 f"longer than a {spin:.3f} ms spin")
+        print(f"time_ms: an enqueue took {took:.3f} ms, longer than a "
+              f"{spin:.3f} ms spin: spinning 4x longer", file=sys.stderr)
+        cycles, before = cycles * 4, (took, spin)
 
 
 def visible_keys(qpos: int, window: int) -> int:
@@ -1058,11 +1095,10 @@ def pipe_parity_run(cfg, stash) -> None:
                                           reset_kernel_launches)
     from repro_torch.models import Runtime, init_params, pipeline_fns, pipeline_shared
     from repro_torch.optim import get as get_opt
-    from repro_torch.train import TrainConfig, fit, make_state
+    from repro_torch.train import TrainConfig, fit, make_state, plan_fields
 
     plan = ParallelPlan(pp=2, microbatches=4, stash=stash)
-    tc = TrainConfig(precision="f32", lr=1e-4, log_every=1, pipe=2, microbatches=4,
-                     stash=stash)
+    tc = TrainConfig(precision="f32", lr=1e-4, log_every=1, **plan_fields(plan))
     first_fn, stage_fn, _ = pipeline_fns(cfg, Runtime(dtype=torch.float32))
     runs = {}
     for dev in ("cpu", "cuda"):
@@ -1139,14 +1175,73 @@ def pipe_launches_per_step(cfg, plan) -> dict:
 PIPE_WARMUP, PIPE_STEPS = 2, 3
 
 
-def pipe_run(wl, stash, steps_before, steps, host_window=2, lookahead=2):
+def grads_peaks(fn, peaks: list):
+    """``fn`` (pipeline_grads_host) recording, per call, the bytes allocated
+    before it and the peak across it alone (the optimizer step after it is
+    not in the window)."""
+    def wrapped(*args, **kw):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        peaks.append((base, torch.cuda.max_memory_allocated()))
+        return out
+    return wrapped
+
+
+def b_op_bytes(wl, plan, state, batch) -> int:
+    """The most bytes any stage's backward op takes above what was allocated
+    before it, each op alone on one microbatch: the stage's forward recorded
+    for autograd, its loss on the last stage, and ``autograd.grad`` into its
+    and the shared params' f32 grads, as the runner's B op does."""
+    from repro_torch.core.pipeline import parameters_of
+    from repro_torch.models import Runtime, pipeline_fns, pipeline_shared
+
+    first_fn, stage_fn, last_fn = pipeline_fns(wl.cfg, Runtime(dtype=torch.bfloat16,
+                                                                remat=plan.remat))
+    lm = state["params"]
+    shared, layers = pipeline_shared(lm), list(lm.stack.layers)
+    k, P = len(layers) // plan.pp, plan.pp
+    mb = {key: torch.as_tensor(v[:wl.batch // plan.microbatches]).to("cuda")
+          for key, v in batch.items()}
+    worst = 0
+    for s in range(P):
+        with torch.no_grad():
+            x0 = first_fn(shared, mb).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        with torch.enable_grad():
+            x = first_fn(shared, mb).to(torch.bfloat16) if s == 0 else x0.requires_grad_(True)
+            y, aux = stage_fn(layers[s * k:(s + 1) * k], x)
+            loss = aux.float()
+            if s == P - 1:
+                loss = loss + last_fn(shared, y, mb)[0]
+            outs, cots = ([y], [torch.ones_like(y)]) if s < P - 1 else ([], [])
+            if loss.requires_grad:
+                outs.append(loss)
+                cots.append(torch.ones((), device="cuda"))
+            leaves = parameters_of(layers[s * k:(s + 1) * k]) + parameters_of(shared)
+            grads = torch.autograd.grad(outs, leaves + ([x] if s else []), cots,
+                                        allow_unused=True)
+        torch.cuda.synchronize()
+        worst = max(worst, torch.cuda.max_memory_allocated() - base)
+        del x0, x, y, aux, loss, outs, cots, grads
+    return worst
+
+
+def pipe_run(wl, stash, steps_before, steps, host_window=2, lookahead=2, probe=None):
     """``steps_before`` then ``steps`` steps of the pipe workload with
-    ``stash``, from its seed; the launch counters and the peak memory are
-    reset between the two. Returns the history of the second run, its
-    launches and peak GB, the stash backend, the seconds to make the state
-    and the count of parameters."""
+    ``stash``, from its seed; the launch counters are reset between the two.
+    Returns the history of the second run, its launches, its peak GB over
+    whole steps and, across pipeline_grads_host alone, the bytes allocated
+    before the call and its peak (the most over the steps), the stash backend,
+    the seconds to make the state, the count of parameters and what
+    ``probe(state, batch)`` returns after the steps."""
     import dataclasses
 
+    import repro_torch.core.pipeline as pipeline
     from repro_torch.launch.train import (build_train_pipeline_host, kernel_launches,
                                           reset_kernel_launches)
     from repro_torch.optim import get as get_opt
@@ -1160,30 +1255,41 @@ def pipe_run(wl, stash, steps_before, steps, host_window=2, lookahead=2):
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in state["params"].parameters())
-    step_fn, backend = build_train_pipeline_host(wl.cfg, plan, tc, host_window=host_window,
-                                                 lookahead=lookahead)
+    peaks, plain_runner = [], pipeline.pipeline_grads_host
+    pipeline.pipeline_grads_host = grads_peaks(plain_runner, peaks)   # bound at build
+    try:
+        step_fn, backend = build_train_pipeline_host(wl.cfg, plan, tc,
+                                                     host_window=host_window,
+                                                     lookahead=lookahead)
+    finally:
+        pipeline.pipeline_grads_host = plain_runner
     data = wl.data()
     try:
         if steps_before:
             state, _ = fit(wl.cfg, tc, data, steps_before, opt, state=state,
                            step_fn=step_fn, log=lambda line: None)
         reset_kernel_launches()
-        torch.cuda.reset_peak_memory_stats()
+        peaks.clear()
         state, hist = fit(wl.cfg, tc, data, steps, opt, state=state, step_fn=step_fn,
                           log=lambda line: None)
+        launches = kernel_launches()
+        grads_base = max(b for b, _ in peaks)
+        grads_peak = max(p for _, p in peaks)
+        peak = max(grads_peak, torch.cuda.max_memory_allocated()) / 1e9
+        probed = probe(state, next(data)) if probe else None
     finally:
         data.close()
-    launches = kernel_launches()
-    peak = torch.cuda.max_memory_allocated() / 1e9
     del state
     torch.cuda.empty_cache()
-    return dict(hist=hist, launches=launches, peak=peak, backend=backend, init_s=init_s,
-                params=n_params)
+    return dict(hist=hist, launches=launches, peak=peak, grads_base=grads_base,
+                grads_peak=grads_peak, backend=backend, init_s=init_s, params=n_params,
+                probed=probed)
 
 
 def phase_pipe(wl):
     """granite_pipe_workload: 2 warm-up and 3 timed steps with the int8
-    stash; the counters read around the timed steps only."""
+    stash; the counters read around the timed steps only. Returns the
+    launches and the run."""
     from repro_torch.core.stash import SlotSpec, get_backend
 
     cfg, plan = wl.cfg, wl.plan
@@ -1212,15 +1318,30 @@ def phase_pipe(wl):
          lr=wl.tc.lr, batch=wl.batch, seq=wl.seq, plan=plan.describe(), head="dense",
          warmup_steps=PIPE_WARMUP, steps=PIPE_STEPS, params_init_s=run["init_s"],
          median_step_ms=step_ms, tokens_per_s=wl.tokens_per_step / (step_ms / 1e3),
-         peak_mem_gb=run["peak"], losses=losses, step_ms=[h["step_s"] * 1e3 for h in hist],
+         peak_mem_gb=run["peak"], grads_peak_gb=run["grads_peak"] / 1e9,
+         grads_base_gb=run["grads_base"] / 1e9, losses=losses,
+         step_ms=[h["step_s"] * 1e3 for h in hist],
          launches=launches, launches_per_step=per_step, stash_report=rep)
-    return launches
+    return launches, run
 
 
-def phase_pipe_host(wl) -> None:
-    """The pipe workload with the raw stash and with the host stash (window
-    2, lookahead 2), 2 steps each from the same seed: the same bits."""
-    raw, host = (pipe_run(wl, stash, 0, 2) for stash in ("raw", "host"))
+def phase_pipe_host(wl, int8) -> None:
+    """The pipe workload with the raw and with the host stash (window 2,
+    lookahead 2), 2 steps each from the same seed: the same bits. Then the
+    runner's memory point, across pipeline_grads_host alone, as the rise of
+    its peak over what was allocated before the call: the int8 run (``int8``,
+    phase_pipe's) and the host run rise no more than the raw run, whose rise
+    is at
+    most its f32 grad accumulators, its raw slots, the in-flight wires and
+    cotangent slots, and one backward op's working set measured alone (F ops
+    that recorded graphs would keep a stage's activations per microbatch in
+    flight on top)."""
+    from repro_torch.core.pipeline import tick_table
+
+    plan = wl.plan
+    raw = pipe_run(wl, "raw", 0, 2,
+                   probe=lambda state, batch: b_op_bytes(wl, plan, state, batch))
+    host = pipe_run(wl, "host", 0, 2)
     h_raw, h_host, backend = raw["hist"], host["hist"], host["backend"]
     for key in ("loss", "grad_norm"):
         a, b = [h[key] for h in h_raw], [h[key] for h in h_host]
@@ -1229,6 +1350,20 @@ def phase_pipe_host(wl) -> None:
     stats = backend.stats()
     if not (stats["evictions"] and stats["host_hits"]):
         raise AssertionError(f"pipe-host: the host stash never left the device: {stats}")
+    table = tick_table(plan.schedule, plan.pp, plan.microbatches)
+    slot = 2 * (wl.batch // plan.microbatches) * wl.seq * wl.cfg.d_model   # raw bf16
+    accum = 4 * raw["params"]
+    slots = plan.pp * table.n_act_slots * slot
+    wires = (2 * plan.pp + plan.pp * table.n_cot_slots) * slot
+    b_op = raw["probed"]
+    rise = {name: r["grads_peak"] - r["grads_base"]
+            for name, r in (("raw", raw), ("int8", int8), ("host", host))}
+    limit = accum + slots + wires + b_op
+    if not (rise["int8"] <= rise["raw"] and rise["host"] <= rise["raw"] <= limit):
+        raise AssertionError(
+            f"pipe-host: peak rises across pipeline_grads_host {rise} B; the raw one's "
+            f"limit: accumulators {accum} + slots {slots} + wires {wires} + one B op "
+            f"{b_op} = {limit}")
     host_hits = max(stats["host_hits"], 1)
     emit(phase="pipe_host", losses=[h["loss"] for h in h_raw], bitwise_equal=True,
          window=2, lookahead=2, stats=stats,
@@ -1236,7 +1371,12 @@ def phase_pipe_host(wl) -> None:
          prefetch_hit_rate=stats["prefetch_hits"] / host_hits,
          step_ms_raw=[h["step_s"] * 1e3 for h in h_raw],
          step_ms_host=[h["step_s"] * 1e3 for h in h_host],
-         peak_mem_gb_raw=raw["peak"], peak_mem_gb_host=host["peak"])
+         peak_mem_gb_raw=raw["peak"], peak_mem_gb_host=host["peak"],
+         grads_peak_gb={k: r["grads_peak"] / 1e9 for k, r in
+                        (("raw", raw), ("int8", int8), ("host", host))},
+         grads_rise_bytes=rise, rise_limit_bytes=limit,
+         rise_limit_parts={"accumulators": accum, "raw_slots": slots, "wires": wires,
+                           "one_b_op": b_op})
 
 
 def phase_model() -> None:
@@ -1368,9 +1508,9 @@ def main() -> int:
     train8 = phase_train(gemma_train8_workload(), "train8")     # K1-K4 and K8
     launches.update({k: v for k, v in train8.items() if k.startswith("blockwise")})
     pipe = granite_pipe_workload()
-    pipe_launches = phase_pipe(pipe)                            # K1-K4 and K7
+    pipe_launches, pipe_int8 = phase_pipe(pipe)                 # K1-K4 and K7
     launches.update({k: v for k, v in pipe_launches.items() if k.startswith("stash")})
-    phase_pipe_host(pipe)
+    phase_pipe_host(pipe, pipe_int8)
     wl, params, rids, out, serve_launches = phase_serve()
     phase_alone(wl, params, rids, out)
     launches.update(serve_launches)        # K5, K6: the serving main path

@@ -87,7 +87,7 @@ class ParallelPlan:
         sizes = {b[i + 1] - b[i] for i in range(len(b) - 1)}
         if len(b) != self.pp + 1 or len(sizes) != 1:
             raise ValueError(f"non-uniform stage boundaries {b} for pp={self.pp}")
-        why = pipeline_incompatibility(cfg, self.tp)
+        why = pipeline_incompatibility(cfg)
         if why is not None:
             raise ValueError(f"plan incompatible with {cfg.name}: {why}")
         if act_budget is not None:

@@ -613,8 +613,23 @@ def pipeline_grads_host(
     fwd_wire: List[Any] = [None] * P
     bwd_wire: List[Any] = [None] * P
 
-    def backward_op(s: int, m: int, x_saved: torch.Tensor, y_cot: Any):
-        """Recompute stage s on microbatch m and pull (y_cot, seed) back."""
+    def forward_op(s: int, m: int, slot: int) -> torch.Tensor:
+        """Stage s on microbatch m from its slot, recording no graph."""
+        with torch.no_grad():
+            if s == 0:
+                x0 = first_fn(shared_params, _index(microbatches, m))
+                acts[0] = backend.put(acts[0], slot, x0.to(x_struct.dtype))
+            return stage_fn(layers[s], backend.get(acts[s], slot, x_struct))[0]
+
+    def backward_op(s: int, m: int, slot: int, cot: int) -> Optional[torch.Tensor]:
+        """Recompute stage s on microbatch m from its slot, pull (the
+        cotangent in cot slot ``cot``, seed) back, and add the grads into
+        the accumulators. Returns the input's cotangent (None on stage 0).
+        The op's grads die on return: held to the next op, they would sit
+        beside its own (a stage's parameters in f32)."""
+        nonlocal lacc
+        x_saved = backend.get(acts[s], slot, x_struct)
+        y_cot = cots[s][cot] if s < P - 1 else None
         mb = _index(microbatches, m)
         with torch.enable_grad():
             x_leaf = None
@@ -638,8 +653,14 @@ def pipeline_grads_host(
             inputs = stage_leaves[s] + shared_leaves + ([x_leaf] if x_leaf is not None else [])
             grads = torch.autograd.grad(outs, inputs, outs_cot, allow_unused=True)
         n_sp = len(stage_leaves[s])
-        dx = grads[-1] if x_leaf is not None else None
-        return grads[:n_sp], grads[n_sp:n_sp + len(shared_leaves)], dx, loss.detach(), metrics
+        with torch.no_grad():
+            for g, d in zip(gacc[s] + sacc, grads[:n_sp + len(shared_leaves)]):
+                if d is not None:
+                    g.add_(d)
+            for name, v in metrics.items():
+                macc[name] += v.detach()
+            lacc += loss.detach()
+        return grads[-1] if x_leaf is not None else None
 
     for t in range(table.n_ticks):
         # arrivals land before this tick's ops read the buffers
@@ -668,30 +689,14 @@ def pipeline_grads_host(
         for s in range(P):
             fm, bm = int(table.f_mb[t, s]), int(table.b_mb[t, s])
             if fm >= 0:
-                slot = int(table.f_slot[t, s])
-                with torch.no_grad():
-                    if s == 0:
-                        x0 = first_fn(shared_params, _index(microbatches, fm))
-                        acts[0] = backend.put(acts[0], slot, x0.to(x_struct.dtype))
-                    x_in = backend.get(acts[s], slot, x_struct)
-                    y, _ = stage_fn(layers[s], x_in)
+                y = forward_op(s, fm, int(table.f_slot[t, s]))
                 if s + 1 < P:
                     next_fwd[s + 1] = y
+                del y
             elif bm >= 0:
-                x_saved = backend.get(acts[s], int(table.b_slot[t, s]), x_struct)
-                y_cot = cots[s][int(table.b_cot[t, s])] if s < P - 1 else None
-                d_sp, d_sh, dx, loss, metrics = backward_op(s, bm, x_saved, y_cot)
-                with torch.no_grad():
-                    for g, d in zip(gacc[s], d_sp):
-                        if d is not None:
-                            g.add_(d)
-                    for g, d in zip(sacc, d_sh):
-                        if d is not None:
-                            g.add_(d)
-                    for name, v in metrics.items():
-                        macc[name] += v.detach()
-                    lacc += loss
+                dx = backward_op(s, bm, int(table.b_slot[t, s]), int(table.b_cot[t, s]))
                 if s > 0:
                     next_bwd[s - 1] = dx
+                del dx
         fwd_wire, bwd_wire = next_fwd, next_bwd
     return lacc, macc, [g for gs in gacc for g in gs], sacc

@@ -77,17 +77,26 @@ def build_train_pipeline_host(arch, plan, tc=None, host_window: int = 2,
     and batches are those of ``fit``, so JAX's ShapeDtypeStructs (and its
     ``shape`` argument) have no counterpart. ``host_window`` sizes a host
     stash's device window; ``lookahead`` is how many ticks ahead its
-    prefetch reads the table (0 = eager; the result is the same bits)."""
+    prefetch reads the table (0 = eager; the result is the same bits).
+
+    The plan decides the pipeline: ``tc``'s pipeline fields and ``remat``
+    must equal it (``train.plan_fields``), else this raises; ``tc`` defaults
+    to bf16 with the plan's fields."""
     from repro_torch.configs import ArchConfig, get_config
     from repro_torch.core.pipeline import parameters_of, pipeline_grads_host, tick_table
     from repro_torch.core.precision import PrecisionPolicy
     from repro_torch.core.stash import SlotSpec, get_backend
     from repro_torch.models import Runtime, pipeline_fns, pipeline_shared
     from repro_torch.optim import get as get_opt
-    from repro_torch.train import TrainConfig, finish_step
+    from repro_torch.train import TrainConfig, finish_step, plan_fields
 
     cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
-    tc = tc or TrainConfig(precision="bf16")
+    fields = plan_fields(plan)
+    tc = tc or TrainConfig(precision="bf16", **fields)
+    differ = {k: (getattr(tc, k), v) for k, v in fields.items() if getattr(tc, k) != v}
+    if differ:
+        raise ValueError(f"TrainConfig disagrees with the plan on {differ} "
+                         "(config, plan): build it with train.plan_fields(plan)")
     plan.validate(cfg)
     if (plan.dp, plan.tp) != (1, 1):
         raise NotImplementedError(
@@ -98,10 +107,9 @@ def build_train_pipeline_host(arch, plan, tc=None, host_window: int = 2,
     policy = getattr(PrecisionPolicy, tc.precision)()
     rt = Runtime(dtype=policy.compute_dtype, remat=plan.remat)
     table = tick_table(plan.schedule, plan.pp, plan.microbatches)
-    first_fn, stage_fn, last_fn = pipeline_fns(cfg, rt, 1)
+    first_fn, stage_fn, last_fn = pipeline_fns(cfg, rt)
     M = plan.microbatches
-    backend = get_backend(plan.stash, host_window=host_window,
-                          cotangents=plan.stash_cot or tc.stash_cot)
+    backend = get_backend(plan.stash, host_window=host_window, cotangents=plan.stash_cot)
 
     def step(state, batch):
         lm = state["params"]
@@ -199,7 +207,7 @@ def main(argv=None) -> None:
     from repro_torch.configs import ASSIGNED, get_config, get_reduced
     from repro_torch.data import DataPipeline
     from repro_torch.optim import get as get_opt
-    from repro_torch.train import TrainConfig, fit, make_state
+    from repro_torch.train import TrainConfig, fit, make_state, plan_fields
 
     if args.arch not in ASSIGNED:
         ap.error(f"--arch must be one of {ASSIGNED}")
@@ -207,8 +215,10 @@ def main(argv=None) -> None:
     if args.plan == "auto":
         raise NotImplementedError("--plan auto (the partition search and auto_plan) "
                                   "is ROADMAP queue 1 item 7, 'the pipeline'")
-    if args.stash == "host" and args.pipe <= 1:
-        ap.error("--stash host needs the pipeline trainer (--pipe P)")
+    if args.pipe <= 1 and (args.stash != "raw" or args.stash_cot or args.microbatches
+                           or args.schedule != "1f1b"):
+        ap.error("--stash, --stash-cot, --microbatches and --schedule configure the "
+                 "pipeline trainer: give --pipe P")
     plan = None
     if args.pipe > 1:
         from repro_torch.core.partitioner import ParallelPlan
@@ -227,11 +237,9 @@ def main(argv=None) -> None:
             ap.error("the pipeline's head is the dense one; drop --fused-backward")
     tc = TrainConfig(
         optimizer=args.optimizer, lr=args.lr, precision=args.precision,
-        remat=args.remat, fused_backward=args.fused_backward, log_every=1,
+        fused_backward=args.fused_backward, log_every=1,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.steps if args.ckpt_dir else 0,
-        pipe=plan.pp if plan else 1, microbatches=plan.microbatches if plan else 1,
-        schedule=args.schedule, stash=args.stash if plan else "raw",
-        stash_cot=args.stash_cot,
+        **(plan_fields(plan) if plan else {"remat": args.remat}),
     )
     opt = get_opt(tc.optimizer, tc.lr)
     on_card = args.device == "cuda"

@@ -35,7 +35,7 @@ from repro_torch.configs import ArchConfig, get_config
 from repro_torch.core.partitioner import ParallelPlan
 from repro_torch.models import Runtime, init_params
 from repro_torch.serve import EngineConfig
-from repro_torch.train import TrainConfig
+from repro_torch.train import TrainConfig, plan_fields
 
 
 @dataclass(frozen=True)
@@ -97,8 +97,6 @@ def gemma_train8_workload(seed: int = 0) -> TrainWorkload:
 
 def granite_pipe_workload(seed: int = 0) -> TrainWorkload:
     plan = ParallelPlan(pp=4, microbatches=8, schedule="1f1b", stash="int8")
-    tc = TrainConfig(precision="bf16", remat="none", lr=1e-3, log_every=1,
-                     pipe=plan.pp, microbatches=plan.microbatches,
-                     schedule=plan.schedule, stash=plan.stash)
+    tc = TrainConfig(precision="bf16", lr=1e-3, log_every=1, **plan_fields(plan))
     cfg = replace(get_config("granite-8b"), n_layers=8)
     return TrainWorkload(cfg, tc, batch=8, seq=2048, seed=seed, plan=plan)

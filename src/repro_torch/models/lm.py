@@ -142,7 +142,7 @@ def pipeline_shared(params: LM) -> Dict[str, Any]:
     return {"embed": params.embed, "final_norm": params.final_norm, "head": params.head}
 
 
-def pipeline_fns(cfg: ArchConfig, rt: Runtime, tp: int = 1):
+def pipeline_fns(cfg: ArchConfig, rt: Runtime):
     """(first_fn, stage_fn, last_fn) for ``core.pipeline.pipeline_grads_host``.
 
     first_fn(shared, mb) embeds the microbatch's tokens; stage_fn(layers, x)
@@ -157,7 +157,7 @@ def pipeline_fns(cfg: ArchConfig, rt: Runtime, tp: int = 1):
     microbatch weighs the same, whatever its count of valid labels), as in
     JAX.
     """
-    why = stack_mod.pipeline_incompatibility(cfg, tp)
+    why = stack_mod.pipeline_incompatibility(cfg)
     if why is not None:
         raise ValueError(f"{cfg.name}: {why}")
     kind = cfg.pattern[0]
@@ -167,7 +167,7 @@ def pipeline_fns(cfg: ArchConfig, rt: Runtime, tp: int = 1):
         return embed_apply(shared["embed"], mb["tokens"], rt.dtype)
 
     def stage_fn(layers, x: torch.Tensor):
-        y, aux = stack_mod.stack_stage_apply(cfg, layers, x, rt, spec, tp=tp)
+        y, aux = stack_mod.stack_stage_apply(cfg, layers, x, rt, spec)
         return y, cfg.router_aux_coef * aux
 
     def last_fn(shared: Dict[str, Any], y: torch.Tensor, mb: Dict[str, torch.Tensor]):

@@ -65,24 +65,6 @@ def layer_specs(
     return tuple(out)
 
 
-def param_kind(kind: str) -> str:
-    return "attn" if kind == "local" else kind
-
-
-def param_groups(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
-    """[(unit param-kind pattern, repeats)]: the JAX package's stacked
-    parameter storage, which the pipeline's stage slicing needs uniform."""
-    kinds = tuple(param_kind(k) for k in cfg.pattern)
-    if len(set(kinds)) == 1:
-        return [((kinds[0],), cfg.n_layers)]
-    u = len(kinds)
-    n, rem = divmod(cfg.n_layers, u)
-    groups = [(kinds, n)]
-    if rem:
-        groups.append((kinds[:rem], 1))
-    return groups
-
-
 def check_served(cfg: ArchConfig) -> None:
     """Raise for what this slice does not serve: non-attention mixers,
     MoE or no FFN, encoder-decoder and modality-prefix configs."""
@@ -280,28 +262,18 @@ def stack_decode(
 
 
 # ------------------------------------------------------------ pipeline stage
-def pipeline_incompatibility(cfg: ArchConfig, tp: int = 1) -> Optional[str]:
+def pipeline_incompatibility(cfg: ArchConfig) -> Optional[str]:
     """Why ``cfg`` cannot run the executable pipeline (None = it can): the
-    JAX package's rule. Stages slice the layer stack, which needs one
-    homogeneous parameter group and a single mixer kind; tp > 1 needs
-    Megatron-divisible heads and FFN."""
-    groups = param_groups(cfg)
-    if len(groups) != 1 or len(groups[0][0]) != 1:
+    JAX package's rule at tp = 1. Stages slice the layer stack, which needs
+    one homogeneous parameter group and a single mixer kind. JAX's tp > 1
+    rules come with tensor parallelism inside a stage (ROADMAP queue 1 item
+    6); ``launch.train.build_train_pipeline_host`` refuses tp > 1."""
+    if len({"attn" if k == "local" else k for k in cfg.pattern}) != 1:
         return "patterned parameter storage (multi-kind layer unit)"
     if len(set(cfg.pattern)) != 1:
         return "mixed mixer kinds in the layer pattern"
     if cfg.is_encdec or cfg.frontend is not None:
         return "encoder-decoder / frontend architectures"
-    if tp > 1:
-        kind = param_kind(cfg.pattern[0])
-        if kind != "attn":
-            return f"tensor parallelism over {kind!r} mixers (attention only)"
-        if cfg.n_heads % tp or cfg.n_kv_heads % tp:
-            return f"heads ({cfg.n_heads}/{cfg.n_kv_heads}) not divisible by tp={tp}"
-        if cfg.ffn_kind == "dense" and cfg.d_ff % tp:
-            return f"d_ff={cfg.d_ff} not divisible by tp={tp}"
-        if cfg.ffn_kind == "moe":
-            return "MoE with tp > 1 (expert parallelism stays on the 2D path)"
     return None
 
 
@@ -311,19 +283,11 @@ def stack_stage_apply(
     x: torch.Tensor,
     rt: Runtime,
     spec: LayerSpec,
-    *,
-    tp: int = 1,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Apply one pipeline stage's contiguous layers (a slice of
-    ``Stack.layers``) to x (B, S, d). Returns (y, aux); aux is 0 for the
-    dense families. ``rt.remat`` checkpoints each layer, as JAX's
-    ``policy_for(rt.remat)`` wraps its scan body. Manual tensor parallelism
-    inside a stage (tp > 1) raises: ROADMAP queue 1 item 6."""
-    if tp > 1:
-        raise NotImplementedError(
-            f"tp={tp} inside a pipeline stage (manual Megatron TP) is ROADMAP "
-            "queue 1 item 6, 'memory techniques and multi-device'"
-        )
+    ``Stack.layers``) to x (B, S, d), at tp = 1. Returns (y, aux); aux is 0
+    for the dense families. ``rt.remat`` checkpoints each layer, as JAX's
+    ``policy_for(rt.remat)`` wraps its scan body."""
     check_served(cfg)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)

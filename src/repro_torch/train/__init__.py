@@ -4,4 +4,5 @@ from repro_torch.train.loop import (  # noqa: F401
     fit,
     make_state,
     make_train_step,
+    plan_fields,
 )

@@ -13,8 +13,10 @@ optimizer is initialised with the LM's JAX leaves
 step sees.
 
 The pipeline fields (``pipe``, ``microbatches``, ``schedule``, ``stash``,
-``stash_cot``) configure the single-device pipeline step, which
-``launch.train.build_train_pipeline_host`` builds and which ends in the same
+``stash_cot``, with ``remat``) are those of the pipeline plan
+(``core.partitioner.ParallelPlan``), which ``plan_fields`` copies over:
+``launch.train.build_train_pipeline_host`` builds its step from the plan,
+refuses a config that disagrees with it, and ends in the same
 ``finish_step``. Other execution modes (``dp_compressed``, the distributed
 trainer), gradient compression and ZeRO belong to later slices (ROADMAP
 queue 1 item 6) and raise.
@@ -53,7 +55,8 @@ class TrainConfig:
     compression: Any = None           # later slice: must stay None
     zero_stage: int = 0               # later slice: must stay 0
     # the pipeline (launch.train.build_train_pipeline_host): pipe > 1 runs
-    # the 1F1B/GPipe tick tables over `microbatches` per step, on one card
+    # the 1F1B/GPipe tick tables over `microbatches` per step, on one card;
+    # these fields and `remat` must equal the plan's (plan_fields)
     pipe: int = 1                     # pipeline stages
     microbatches: int = 1             # microbatches per step (pipeline)
     schedule: str = "1f1b"            # executable schedule: 1f1b | gpipe
@@ -70,6 +73,12 @@ class TrainConfig:
             raise NotImplementedError(f"ZeRO (zero_stage={self.zero_stage}) is {LATER}")
         if self.precision not in ("f32", "bf16", "fp16"):
             raise ValueError(f"precision {self.precision!r} not in f32|bf16|fp16")
+
+
+def plan_fields(plan) -> Dict[str, Any]:
+    """The TrainConfig fields that a pipeline ``plan`` (a ParallelPlan) fixes."""
+    return {"pipe": plan.pp, "microbatches": plan.microbatches, "schedule": plan.schedule,
+            "stash": plan.stash, "stash_cot": plan.stash_cot, "remat": plan.remat}
 
 
 def _policy(tc: TrainConfig) -> PrecisionPolicy:

@@ -37,7 +37,7 @@ from repro_torch.checkpoint import state_from_jax, state_to_numpy
 from repro_torch.configs import get_reduced as t_get_reduced
 from repro_torch.core.partitioner import ParallelPlan
 from repro_torch.launch.train import build_train_pipeline_host
-from repro_torch.train import TrainConfig
+from repro_torch.train import TrainConfig, plan_fields
 
 SMALL = dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
              vocab_size=256)
@@ -108,10 +108,9 @@ PARAM_REL = {"raw": 1e-4, "int8": 1e-3}
 def test_pipeline_steps_match_jax(jax_runs, stash):
     init, want = jax_runs(stash)
     tcfg = replace(t_get_reduced("granite-8b", **SMALL), name=NAME)
-    tc = TrainConfig(precision="f32", lr=LR, log_every=1, pipe=2, microbatches=M,
-                     stash=stash)
-    step, backend = build_train_pipeline_host(
-        tcfg, ParallelPlan(pp=2, microbatches=M, stash=stash), tc)
+    plan = ParallelPlan(pp=2, microbatches=M, stash=stash)
+    tc = TrainConfig(precision="f32", lr=LR, log_every=1, **plan_fields(plan))
+    step, backend = build_train_pipeline_host(tcfg, plan, tc)
     state = state_from_jax(init, tcfg, device="cpu")
     for i, (b, (jloss, jparams)) in enumerate(zip(batches(), want)):
         state, m = step(state, {k: torch.from_numpy(v) for k, v in b.items()})
@@ -139,9 +138,9 @@ def test_pipeline_loss_equals_plain_step_at_raw():
     b = {k: torch.from_numpy(v) for k, v in batches()[0].items()}
     losses = {}
     for schedule in ("1f1b", "gpipe"):
-        tc = TrainConfig(precision="f32", lr=LR, pipe=2, microbatches=M, schedule=schedule)
-        step, _ = build_train_pipeline_host(
-            tcfg, ParallelPlan(pp=2, microbatches=M, schedule=schedule), tc)
+        plan = ParallelPlan(pp=2, microbatches=M, schedule=schedule)
+        tc = TrainConfig(precision="f32", lr=LR, **plan_fields(plan))
+        step, _ = build_train_pipeline_host(tcfg, plan, tc)
         state = make_state(tcfg, get("adamw", LR), tc, seed=1, device="cpu")
         _, m = step(state, b)
         losses[schedule] = float(m["loss"])
@@ -151,3 +150,19 @@ def test_pipeline_loss_equals_plain_step_at_raw():
                                 Runtime(dtype=torch.float32))[0]) for i in range(M)]
     assert losses["1f1b"] == losses["gpipe"]
     np.testing.assert_allclose(losses["1f1b"], np.mean(per_mb), rtol=1e-6)
+
+
+@pytest.mark.parametrize("field", ["pipe", "microbatches", "schedule", "stash", "stash_cot",
+                                   "remat"])
+def test_pipeline_refuses_a_config_that_disagrees_with_the_plan(field):
+    """The plan is the one source of the pipeline's settings: a TrainConfig
+    whose pipeline field differs from it is refused, not ignored."""
+    tcfg = replace(t_get_reduced("granite-8b", **SMALL), name=NAME)
+    plan = ParallelPlan(pp=2, microbatches=M, stash="int8")
+    other = {"pipe": 4, "microbatches": 2, "schedule": "gpipe", "stash": "raw",
+             "stash_cot": True, "remat": "full"}[field]
+    tc = replace(TrainConfig(precision="f32", **plan_fields(plan)), **{field: other})
+    with pytest.raises(ValueError, match=field):
+        build_train_pipeline_host(tcfg, plan, tc)
+    step, backend = build_train_pipeline_host(tcfg, plan)     # tc from the plan
+    assert backend.name == "int8"

@@ -488,3 +488,11 @@ def test_launcher_trains_the_pipeline_on_the_cpu():
 def test_launcher_plan_auto_raises():
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
         launch_train.main(["--arch", "granite-8b", "--device", "cpu", "--plan", "auto"])
+
+
+@pytest.mark.parametrize("flags", [["--stash", "int8"], ["--stash", "host"], ["--stash-cot"],
+                                   ["--microbatches", "4"], ["--schedule", "gpipe"]])
+def test_launcher_refuses_pipeline_flags_without_pipe(flags, capsys):
+    with pytest.raises(SystemExit):
+        launch_train.main(["--arch", "granite-8b", "--reduced", "--device", "cpu"] + flags)
+    assert "give --pipe P" in capsys.readouterr().err

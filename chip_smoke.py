@@ -7,11 +7,15 @@ Phases, in order (any failure exits nonzero and prints no result line):
   2. build   — nvcc builds every kernel source from the checkout, one nvcc per
                source, all started together;
   3. kernels — K5 (paged decode) and K6 (paged prefill) against their plain
-               PyTorch versions: f32 cases of the JAX package's kernel tests
-               plus multi-tile K6 chunks (atol/rtol 2e-5), and bf16 cases at
-               the serving path's shapes (atol/rtol 4e-3: both sides compute
-               in f32 and round once to bf16), with times, bounds and a
-               library yardstick;
+               PyTorch versions, in f32 (atol/rtol 2e-5) and in bf16 (4e-3:
+               both sides compute in f32 and round once to bf16): the JAX
+               package's cases, multi-tile K6 chunks, decode lengths at and
+               around a 64-key split boundary, K6 chunks off a page across a
+               64-key tile and a 128-key split, windows 0, 6 and 64, the
+               poisoned null page, K6 at T = 1 against K5, inactive slots
+               (a read past the table would fault), and batched == alone
+               bitwise; then bf16 at the serving path's shapes with times,
+               bounds and a library yardstick;
   4. train kernels — K1 (flash forward), K2 (its delta, dq and dk/dv
                launches), K3 and K4 (RMSNorm forward, backward) against their
                plain versions: f32 on the JAX suites' shapes (forward 2e-5,
@@ -165,13 +169,15 @@ PREFILL_CASES = [
     (1, 8, 1, 4, 32, 4, 24, 12, [13], [6]),
     (3, 4, 2, 4, 16, 8, 32, 4, [0, 9, 17], [4, 2, 1]),
 ]
-# K6 chunks of more than one 32-row tile (T*G > 32), at nonzero starts, so
-# that the tile offset and, at window 6, the page skip below a later tile's
-# window are checked at 2e-5. G=3 puts a tile edge inside a position's rows.
+# K6 chunks of T*G > 32 rows at nonzero starts (more than one 32-row tile
+# of the first CUDA design), and of more than one 64-row tile of the
+# tensor-core kernel: T 24 x G 3 puts a tile edge inside a position's rows.
 MULTI_TILE_CASES = [
     (2, 16, 2, 4, 32, 4, 16, 8, [5, 13], [16, 11]),
     (1, 12, 1, 3, 64, 8, 8, 4, [9], [12]),
     (1, 16, 2, 4, 128, 16, 8, 6, [40], [16]),
+    (1, 24, 1, 3, 64, 8, 16, 6, [9], [24]),
+    (2, 32, 2, 4, 128, 16, 16, 8, [5, 40], [32, 25]),
 ]
 
 
@@ -356,45 +362,99 @@ def phase_build() -> None:
     emit(phase="build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
 
 
+# K5 decode lengths at a split boundary (cuda.DECODE_SPLIT = 64 keys), one
+# token either side of it, at one token, and across two boundaries; page 16
+EDGE_DECODE = (6, 2, 4, 128, 16, 40, 16, [64, 63, 65, 1, 128, 129])
+# K6 chunks whose start is not page-aligned: across a 64-key tile (57..72),
+# and across a 256-key bf16 split (250..265); q_len ragged in the second
+EDGE_PREFILL = (2, 16, 2, 4, 128, 16, 40, 20, [57, 250], [16, 11])
+# batched == alone: slots of other lengths / starts around each other
+ALONE_DECODE = (4, 2, 4, 128, 16, 60, 16, [200, 37, 129, 64])
+ALONE_PREFILL = (3, 32, 2, 4, 128, 16, 60, 24, [0, 100, 250], [32, 17, 30])
+
+
+def inactive_decode_case(dtype):
+    """Two active slots and two inactive ones, as the engine leaves them: a
+    zeroed table row at length 1, and a table row at a length past its P *
+    page keys. The tables are the first B*P entries of a buffer whose next
+    entry names a page far past the pool, so a read of entry P of the last
+    row faults (a synchronize reports it)."""
+    B, Kv, G, hd, page, N, P = 4, 2, 4, 128, 16, 24, 6
+    q, kp, vp, tables, _ = make_decode_case(B, Kv, G, hd, page, N, P, [70, 33, 1, 1],
+                                            dtype, seed=21)
+    buf = torch.full((B * P + 1,), 1 << 28, dtype=torch.int32, device="cuda")
+    buf[:B * P] = tables.flatten()
+    tables = buf[:B * P].view(B, P)
+    tables[2] = 0
+    tables[3] = torch.arange(N - P, N, dtype=torch.int32, device="cuda")
+    lengths = torch.tensor([70, 33, 1, P * page + 9], dtype=torch.int32, device="cuda")
+    return q, kp, vp, tables, lengths
+
+
+def assert_batched_equals_alone(name, fn, args, qlens=None):
+    """fn on the batch == fn on each slot alone (its own table row), bitwise."""
+    q, kp, vp, tables, *ints = args
+    out = fn(*args)
+    for b in range(q.shape[0]):
+        alone = fn(q[b:b + 1].contiguous(), kp, vp, tables[b:b + 1].contiguous(),
+                   *[t[b:b + 1].contiguous() for t in ints])
+        rows = slice(None) if qlens is None else slice(0, int(qlens[b]))
+        if not torch.equal(out[b:b + 1, rows], alone[:, rows]):
+            raise AssertionError(f"{name}: slot {b} batched != alone")
+
+
 def phase_kernels():
     from repro_torch.kernels.paged_attention import cuda, ref
 
     dec, pre = cuda.paged_decode_attention_cuda, cuda.paged_prefill_attention_cuda
-    f32 = torch.float32
-    n_checked = 0
-    # f32: the JAX package's cases, windows 0 and 6, 2e-5
-    for case in DECODE_CASES:
-        for window in (0, 6):
-            args = make_decode_case(*case, f32)
-            check(f"K5 f32 {case[:4]} w{window}", dec(*args, window=window),
-                  ref.paged_attention_plain(*args, window=window), 2e-5)
-            n_checked += 1
-    for case in PREFILL_CASES + MULTI_TILE_CASES:
-        for window in (0, 6):
-            args = make_prefill_case(*case, f32)
-            check(f"K6 f32 {case[:4]} w{window}", pre(*args, window=window),
-                  ref.paged_prefill_attention_plain(*args, window=window), 2e-5,
-                  args[5])
-            n_checked += 1
-    # poisoned null page: 1e3 / -1e3 never leaks into valid rows
-    q, kp, vp, tb, ln = make_decode_case(2, 2, 2, 16, 8, 16, 4, [9, 12], f32, seed=1)
-    clean = ref.paged_attention_plain(q, kp, vp, tb, ln)
-    kp[0], vp[0] = 1e3, -1e3
-    check("K5 poisoned null page", dec(q, kp, vp, tb, ln), clean, 2e-5)
-    q, kp, vp, tb, st, ql = make_prefill_case(2, 4, 2, 2, 32, 8, 16, 4, [3, 11], [4, 2],
-                                              f32, seed=3)
-    clean = ref.paged_prefill_attention_plain(q, kp, vp, tb, st, ql)
-    kp[0], vp[0] = 1e3, -1e3
-    check("K6 poisoned null page", pre(q, kp, vp, tb, st, ql), clean, 2e-5, ql)
-    # T=1 prefill == decode at length start + 1
-    q, kp, vp, tb, st, ql = make_prefill_case(2, 1, 2, 2, 16, 8, 16, 4, [6, 11], [1, 1],
-                                              f32, seed=7)
-    check("K6 T=1 vs K5", pre(q, kp, vp, tb, st, ql)[:, 0],
-          dec(q[:, 0].contiguous(), kp, vp, tb, st + 1), 2e-5)
-    n_checked += 3
-    emit(phase="kernels_f32", cases=n_checked, tol=2e-5)
+    f32, bf = torch.float32, torch.bfloat16
+    for dtype, tol in ((f32, 2e-5), (bf, BF16_TOL)):
+        tag = "f32" if dtype == f32 else "bf16"
+        n_checked = 0
+        # the JAX package's cases, windows 0 and 6, and the edges of the splits
+        for case in DECODE_CASES + [EDGE_DECODE]:
+            for window in (0, 6, 64):
+                args = make_decode_case(*case, dtype)
+                check(f"K5 {tag} {case[:4]} {case[-1]} w{window}", dec(*args, window=window),
+                      ref.paged_attention_plain(*args, window=window), tol)
+                n_checked += 1
+        for case in PREFILL_CASES + MULTI_TILE_CASES + [EDGE_PREFILL]:
+            for window in (0, 6, 64):
+                args = make_prefill_case(*case, dtype)
+                check(f"K6 {tag} {case[:4]} {case[-2]} w{window}", pre(*args, window=window),
+                      ref.paged_prefill_attention_plain(*args, window=window), tol, args[5])
+                n_checked += 1
+        # poisoned null page: 1e3 / -1e3 never leaks into valid rows
+        q, kp, vp, tb, ln = make_decode_case(2, 2, 2, 16, 8, 16, 4, [9, 12], dtype, seed=1)
+        clean = ref.paged_attention_plain(q, kp, vp, tb, ln)
+        kp[0], vp[0] = 1e3, -1e3
+        check(f"K5 {tag} poisoned null page", dec(q, kp, vp, tb, ln), clean, tol)
+        q, kp, vp, tb, st, ql = make_prefill_case(2, 4, 2, 2, 32, 8, 16, 4, [3, 11], [4, 2],
+                                                  dtype, seed=3)
+        clean = ref.paged_prefill_attention_plain(q, kp, vp, tb, st, ql)
+        kp[0], vp[0] = 1e3, -1e3
+        check(f"K6 {tag} poisoned null page", pre(q, kp, vp, tb, st, ql), clean, tol, ql)
+        # T=1 prefill == decode at length start + 1
+        q, kp, vp, tb, st, ql = make_prefill_case(2, 1, 2, 2, 16, 8, 16, 4, [6, 11], [1, 1],
+                                                  dtype, seed=7)
+        check(f"K6 {tag} T=1 vs K5", pre(q, kp, vp, tb, st, ql)[:, 0],
+              dec(q[:, 0].contiguous(), kp, vp, tb, st + 1), tol)
+        # inactive slots stay in bounds and finite; every row holds the plain
+        args = inactive_decode_case(dtype)
+        check(f"K5 {tag} inactive slots", dec(*args), ref.paged_attention_plain(*args), tol)
+        n_checked += 4
+        # batched == alone, bitwise
+        for window in (0, 64):
+            assert_batched_equals_alone(
+                f"K5 {tag} w{window}", lambda *a, w=window: dec(*a, window=w),
+                make_decode_case(*ALONE_DECODE, dtype, seed=31))
+            args = make_prefill_case(*ALONE_PREFILL, dtype, seed=32)
+            assert_batched_equals_alone(
+                f"K6 {tag} w{window}", lambda *a, w=window: pre(*a, window=w), args,
+                args[5].tolist())
+        torch.cuda.synchronize()
+        emit(phase="kernels_cases", dtype=tag, cases=n_checked, tol=tol, batched_equals_alone=4)
 
-    bf = torch.bfloat16
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
     # bf16 at the serving path's shapes; the granite rows are the main path
@@ -420,6 +480,9 @@ def phase_kernels():
             plain = lambda a=args, w=w: ref.paged_attention_plain(*a, window=w)  # noqa: E731
             err = check(f"K5 bf16 {model}", kern(), plain(), BF16_TOL)
             nbytes, flops = decode_bound(args[0], args[1], args[3], args[4], w)
+            s["split_blocks_with_work"] = s["Kv"] * sum(
+                cuda.splits_of(*cuda.decode_keys(L, w, s["page"], s["P"]),
+                               cuda.DECODE_SPLIT)[1] for L in s["lengths"])
             qpos = (args[4].long() - 1)[:, None]
             sd = sdpa_inputs(args[0][:, None], args[1], args[2], args[3], qpos, w)
             name = "paged_decode_attention"

@@ -7,25 +7,91 @@
 //
 // What they compute (as the Pallas bodies do): each (slot, kv head) walks its
 // block-table pages tables[b, j] with an online softmax in f32. Scores of
-// masked positions are set to -1e30, p is chosen by a select (never by a
-// multiply with the mask), so masked positions add exact zeros; the
-// denominator is clamped at 1e-30. Decode row g sits at position L-1; prefill
-// row (t, g) is flattened as r = t*G + g and sits at start + t, with
-// kpos <= qpos and, with a window, kpos > qpos - window. Pages at or past the
-// extent are skipped, and so are pages wholly below the window (exact: they
-// would add zeros and leave m unchanged).
+// masked keys are set to -1e30 and p is chosen by a select (never by a
+// multiply with the mask), so masked keys add exact zeros; the denominator
+// is clamped at 1e-30. Decode row g sits at position L-1; prefill row (t, g)
+// is flattened as r = t*G + g and sits at start + t, with kpos <= qpos and,
+// with a window, kpos > qpos - window. Keys at or past the extent (and past
+// P*page) are never read, nor are keys wholly below the window: both are
+// exact skips (they would add zeros and leave m unchanged).
 //
-// What bounds them on the H100: bytes. Decode reads every cached K/V byte of
-// the slot once per step (G*hd*4 flops per K/V row of 2*hd elements, far
-// below the ~295 flop/byte ridge); a 128-row prefill chunk is still at most
-// a few tens of flops per byte. So the design only has to stream K/V pages
-// once: each (page, hd) K and V tile is read from the pool with coalesced
-// 16-byte loads into shared memory and shared by all rows of the block (the
-// G query heads of a kv head, and for prefill up to `rows` flattened rows),
-// and the running m, l and (rows, hd) accumulator stay in shared memory.
-// This first design does its two small products on the CUDA cores in f32;
-// tensor cores, a TMA ring and split-K over pages for small decode batches
-// are later work.
+// What bounds them on the H100: bytes, and at serving sizes latency. Decode
+// does 4*G flops per pair of K/V bytes (G <= 8) against the card's ~295
+// flop/byte ridge in bf16; granite-8b's 128-row prefill chunk does ~220
+// flops per byte it must move (q, out and K/V), still below it. At these sizes (~10 MB of K/V a decode
+// step, ~4 MB a chunk) the chain of dependent loads in one block decides as
+// much as the bytes do. So both designs read each cached byte once per
+// block, compute a block's row offsets before any K/V row (no row waits on
+// its own table load or division), keep every row of a block in flight at
+// once, and spread the keys over enough blocks to fill the card.
+//
+// Split plan, shared by both: the keys of a query position (K5, f32 K6) or
+// of a row tile (bf16 K6) are cut into fixed ranges of kDecodeSplit = 64 or
+// kPrefillSplit = 128 keys, constants of the kernel. The grid holds S =
+// ceil(P*page / split) ranges, from the table's width alone; a block whose
+// range has no key of its rows exits before any K/V load. Each block writes
+// the partial (m, l, f32 acc) of its rows to a workspace the wrapper
+// allocates, and a combine kernel (launched as a programmatic dependent
+// launch, so that its prologue overlaps the split kernel's end) merges a
+// row's ranges in order. Every row goes through the combine, and a row's
+// order of summation depends only on its own slot (length; start and q_len):
+// batched == alone, bitwise. An inactive slot's ranges stop at P*page keys,
+// so no table entry at or past P is read.
+//
+// K5 (paged_decode_split_kernel, paged_decode_combine_kernel): grid (S, Kv,
+// B), 128 threads in groups of kL lanes (16 at hd 128 bf16); a group holds
+// one token row of one kv head, hd contiguous elements, as one or two 16-byte
+// loads a lane, straight into registers (no shared-memory copy of the page,
+// one barrier before the rows and one merge at the end). All of a group's
+// rows are loaded before any is used (8 at hd 128 bf16). The G query rows
+// stay in registers in f32 (templated for G <= 4 and G <= 8); dots on the
+// CUDA cores in f32, reduced across the group by shuffles; each group keeps
+// its own online softmax; the groups merge in group order through shared
+// memory. Tensor cores would gain nothing at G <= 8 rows. Granite-8b's
+// decode (B 4, Kv 8, lengths 561-633, P 40): 10 x 8 x 4 = 320 blocks, 312
+// with work (32 before); gemma3-1b's (Kv 1, hd 256, window 512, P 90): 92
+// blocks, 36 with work (4 before). ptxas: 128 registers, 16,848 B static
+// shared memory at hd 128 bf16, no spills.
+//
+// K6 bf16 (paged_prefill_mma_kernel, paged_prefill_combine_kernel): one block
+// holds kMmaRows = 64 flattened (t, g) rows of one (slot, kv head), 16
+// positions x G 4 at granite, four warps of 16 rows; the G heads of a
+// position share every K/V tile, and the row tiles of a kv head share its
+// K/V from L2. q lives in registers as mma A fragments at hd <= 128 (read
+// once from global memory), in shared memory at hd 256. Keys come in 64-key
+// tiles gathered through the row offsets by cp.async 16-byte copies into a
+// two-stage ring of bf16 tiles (a split is two tiles: the second tile's
+// copies fly while the first is multiplied), rows padded by 16 bytes so that
+// ldmatrix is free of bank conflicts; keys past the extent are zero-filled.
+// S = Q K^T and O += P V by mma.sync.m16n8k16 bf16 -> f32, the softmax in the
+// accumulator registers (FlashAttention-2); a row that sees a whole tile
+// skips the per-key mask. P is split into a bf16 high part and a bf16 low
+// part (two MMAs, the second pass after all the first) so that P V keeps p
+// to ~2^-16 relative, as the plain version's f32 p does. Key tiles wholly
+// above a row tile's last valid row or below its first row's window are
+// never visited. Granite-8b's chunk (T 128, start 384, P 40): grid 5 splits
+// x 8 row tiles x 8 kv heads = 320 blocks, 256 with work (128 before, each
+// of 16 row tiles reading every page); each K/V byte is read from HBM once
+// and by the 8 row tiles of its kv head from L2. ptxas at hd 128: 224
+// registers, 69,632 B of dynamic shared memory, no spills (hd 256: 255
+// registers, 120 B of stack, 168,960 B).
+//
+// f32 inputs: the tensor cores would run TF32 (~1e-3 relative), which fails
+// the f32 gate of 2e-5, so f32 takes its products on the CUDA cores: K5 as
+// above, and K6 through the same split body, one block per (range, kv head,
+// slot, position) with that position's G rows (paged_prefill_rows_kernel),
+// merged by the same combine. The choice is by dtype alone.
+//
+// hd: 16, 32, 64, 96, 128 and 256 are built (the configs use 64, 96, 128,
+// 256; the JAX suite 16, 32, 64, 128).
+//
+// Where quantized KV will go: every key row is found through the block's
+// row offsets (load_row_offsets: block table -> page id -> row offset in
+// shared memory, before any row is read) and kv_row(), and loaded by
+// load_kv_tile (K6, into shared memory) or load_rows (K5, into registers);
+// the per-page f32 scales would be gathered beside the offsets in
+// load_row_offsets and multiplied in where a row is converted to f32 (K5's
+// score and p V loops) or leaves shared memory (K6, before ldmatrix).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,7 +100,10 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
+constexpr int kDecodeSplit = 64;   // keys per K5 split (4 pages of 16)
+constexpr int kPrefillSplit = 128; // keys per K6 split (2 key tiles)
+constexpr int kMmaRows = 64;       // flattened rows per K6 block
+constexpr int kKeyTile = 64;       // keys per K6 ring stage
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -45,271 +114,866 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(x);  // round to nearest even, as XLA's convert
 }
 
-// Shared-memory floats one block needs: q and accumulator tiles (rows, hd),
-// the K tile padded to hd+1 per row (conflict-free score loop), the V tile,
-// the (rows, page) score/p tile and m, l, alpha per row.
-__host__ __device__ inline size_t smem_floats(int rows, int hd, int page) {
-  return (size_t)rows * hd * 2 + (size_t)page * (hd + 1) + (size_t)page * hd +
-         (size_t)rows * page + 3 * (size_t)rows;
-}
-
-// One (page, hd) tile of pool page `pid`, kv head `kv`, into shared memory as
-// f32 with row stride `stride`. The pool is (N, page, Kv, hd) contiguous, so
-// each token row is hd contiguous elements: 16-byte vector loads, consecutive
-// threads on consecutive addresses.
-template <typename T>
-__device__ __forceinline__ void load_tile(const T* __restrict__ pool, int pid, int kv,
-                                          int Kv, int hd, int page, float* dst,
-                                          int stride) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int vec_per_row = hd / kVec;
-  const long base = ((long)pid * page * Kv + kv) * hd;
-  const long row_step = (long)Kv * hd;
-  for (int i = threadIdx.x; i < page * vec_per_row; i += blockDim.x) {
-    const int s = i / vec_per_row;
-    const int c = (i % vec_per_row) * kVec;
-    alignas(16) T vals[kVec];
-    *reinterpret_cast<uint4*>(vals) =
-        *reinterpret_cast<const uint4*>(pool + base + s * row_step + c);
-#pragma unroll
-    for (int e = 0; e < kVec; ++e) dst[s * stride + c + e] = to_f32(vals[e]);
-  }
-}
-
 __device__ __forceinline__ bool visible(int kpos, int qpos, int window) {
   return kpos <= qpos && (window <= 0 || kpos > qpos - window);
 }
 
-// The shared body. Rows row0 .. row0+rows-1 of the flattened (T*G) query of
-// slot b, kv head kv; q and out are (B, T, Kv, G, hd) (decode is T = 1, whose
-// layout (B, Kv, G, hd) is the same memory). Row r sits at start + r / G.
+// Programmatic dependent launch: a split kernel lets the combine after it
+// start early; the combine waits in griddep_wait() until the split kernel
+// has finished and its writes are visible.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// The row offsets of keys [k0, k1) into shared memory: off[k - k0] =
+// (page id * page + kpos % page) * Kv, the page id from the block table.
+// A block computes them before any K/V row, all at once (one table load and
+// one division a key), so that no row's load waits on a table load or a
+// division of its own. The caller synchronizes before reading them. Every
+// key < P*page, so no table entry at or past P is read.
+__device__ __forceinline__ void load_row_offsets(const int* __restrict__ table_row, int k0,
+                                                 int k1, int page, int Kv, long* off) {
+  for (int k = k0 + (int)threadIdx.x; k < k1; k += blockDim.x) {
+    const int j = k / page;
+    off[k - k0] = ((long)table_row[j] * page + (k - j * page)) * Kv;
+  }
+}
+
+// The address of key `k`'s row of kv head `kv` (pool (N, page, Kv, hd)
+// contiguous), from the block's row offsets.
 template <typename T>
-__device__ void attend_rows(const T* __restrict__ q, const T* __restrict__ kp,
-                            const T* __restrict__ vp, const int* __restrict__ table_row,
-                            T* __restrict__ out, int b, int kv, int row0, int rows,
-                            int Tq, int Kv, int G, int hd, int page, int P, int start,
-                            int qlen, int window, float* smem) {
-  float* qs = smem;                         // (rows, hd)
-  float* acc = qs + rows * hd;              // (rows, hd)
-  float* ks = acc + rows * hd;              // (page, hd + 1)
-  float* vs = ks + page * (hd + 1);         // (page, hd)
-  float* ss = vs + page * hd;               // (rows, page)
-  float* m = ss + rows * page;              // (rows,)
-  float* l = m + rows;
-  float* alpha = l + rows;
+__device__ __forceinline__ const T* kv_row(const T* pool, const long* off, int k, int kv,
+                                           int hd) {
+  return pool + (off[k] + kv) * hd;
+}
+
+// ------------------------------------------------------------ split plan
+// Keys [lo, hi) that query position qpos needs (at most P*page of them).
+struct KeyRange {
+  int lo, hi;
+};
+
+__device__ __forceinline__ KeyRange keys_of(int qpos, int window, int cap) {
+  KeyRange r;
+  r.hi = min(qpos + 1, cap);
+  r.lo = window > 0 ? max(0, qpos - window + 1) : 0;
+  return r;
+}
+
+// Splits [first, first + count) of `split` keys that cover [lo, hi).
+__device__ __forceinline__ void splits_of(KeyRange r, int split, int* first, int* count) {
+  if (r.lo >= r.hi) {
+    *first = 0;
+    *count = 0;
+    return;
+  }
+  *first = r.lo / split;
+  *count = (r.hi + split - 1) / split - *first;
+}
+
+// K6's row tile `tile` of one slot: keys from the lowest row's window start
+// to the last valid row's position (rows t >= q_len are garbage by contract).
+__device__ __forceinline__ KeyRange tile_keys(int tile, int T, int G, int start, int qlen,
+                                              int window, int cap) {
+  const int t_lo = tile * kMmaRows / G;
+  const int t_hi = min((tile * kMmaRows + kMmaRows - 1) / G, T - 1);
+  KeyRange r;
+  r.hi = min(start + min(qlen, t_hi + 1), cap);
+  r.lo = window > 0 ? max(0, start + t_lo - window + 1) : 0;
+  return r;
+}
+
+// Position of prefill row t of slot b: start + t; a garbage row (t >=
+// q_len) is computed as the last valid one, so that its work stays within
+// the slot's extent. (A decode row sits at L-1.)
+__device__ __forceinline__ int prefill_qpos(const int* start, const int* q_len, int b, int t) {
+  return start[b] + min(t, q_len[b] - 1);
+}
+
+// ------------------------------------------------ K5 (and f32 K6) split body
+constexpr int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p *= 2;
+  return p;
+}
+
+template <typename T, int HD, int MG>
+struct SplitShape {
+  static constexpr int kVecElems = 16 / (int)sizeof(T);
+  static constexpr int kRowVecs = HD / kVecElems;                    // 16-B vectors a row
+  static constexpr int kL = pow2_at_least(kRowVecs) < 32 ? pow2_at_least(kRowVecs) : 32;
+  static constexpr int kVecs = (kRowVecs + kL - 1) / kL;             // 16-B loads a lane
+  static constexpr int kGroups = kThreads / kL;                      // token rows at once
+  static constexpr int kTokens = kDecodeSplit / kGroups;            // tokens a group
+  // token rows in flight a lane: all of a group's where registers allow
+  static constexpr int kBatchMax = (MG <= 4 ? 8 : 4) / kVecs;
+  static constexpr int kBatch = kBatchMax < kTokens ? kBatchMax : kTokens;
+  static_assert(kTokens * kGroups == kDecodeSplit, "split not a multiple of the groups");
+  static_assert(kTokens % kBatch == 0, "batch does not divide a group's tokens");
+};
+
+// A group's next kBatch token rows (kpos0, kpos0 + kGroups, ...) of K and V,
+// this lane's 16-byte vectors of each, into registers; every load is issued
+// before any is used. Keys outside [r.lo, r.hi) are not read (ok false).
+template <typename T, int HD, int MG>
+__device__ __forceinline__ void load_rows(
+    const T* __restrict__ kp, const T* __restrict__ vp, const long* off, int base,
+    int kpos0, KeyRange r, int kv, int lane,
+    uint4 (&kr)[SplitShape<T, HD, MG>::kBatch][SplitShape<T, HD, MG>::kVecs],
+    uint4 (&vr)[SplitShape<T, HD, MG>::kBatch][SplitShape<T, HD, MG>::kVecs],
+    bool (&ok)[SplitShape<T, HD, MG>::kBatch]) {
+  using Sh = SplitShape<T, HD, MG>;
+#pragma unroll
+  for (int j = 0; j < Sh::kBatch; ++j) {
+    const int kpos = kpos0 + j * Sh::kGroups;
+    ok[j] = kpos >= r.lo && kpos < r.hi;
+#pragma unroll
+    for (int v = 0; v < Sh::kVecs; ++v) {
+      kr[j][v] = make_uint4(0, 0, 0, 0);
+      vr[j][v] = make_uint4(0, 0, 0, 0);
+    }
+    if (ok[j]) {
+      const T* krow = kv_row(kp, off, kpos - base, kv, HD);
+      const T* vrow = kv_row(vp, off, kpos - base, kv, HD);
+#pragma unroll
+      for (int v = 0; v < Sh::kVecs; ++v) {
+        const int vec = lane + v * Sh::kL;
+        if (vec < Sh::kRowVecs) {
+          kr[j][v] = __ldg(reinterpret_cast<const uint4*>(krow + vec * Sh::kVecElems));
+          vr[j][v] = __ldg(reinterpret_cast<const uint4*>(vrow + vec * Sh::kVecElems));
+        }
+      }
+    }
+  }
+}
+
+// One block: the G (<= MG) rows of one query position against the keys of
+// split s; writes the split's partial (m, l, acc) of each row to the
+// workspace.
+template <typename T, int HD, int MG>
+__device__ void split_body(const T* __restrict__ q, const T* __restrict__ kp,
+                           const T* __restrict__ vp, const int* __restrict__ table_row,
+                           float* __restrict__ ws_acc, float* __restrict__ ws_ml,
+                           long row0, int S, int s, int qpos, int kv, int Kv, int G,
+                           int page, int P, int window) {
+  using Sh = SplitShape<T, HD, MG>;
+  constexpr int kVE = Sh::kVecElems, kL = Sh::kL, kV = Sh::kVecs;
+  constexpr int kE = kV * kVE;  // elements a lane holds of a row
+  __shared__ float sm_acc[Sh::kGroups * MG * HD];
+  __shared__ float sm_m[Sh::kGroups * MG];
+  __shared__ float sm_l[Sh::kGroups * MG];
+  __shared__ float sm_w[Sh::kGroups * MG];
+  __shared__ long sm_off[kDecodeSplit];
+
+  griddep_launch_dependents();  // the combine may start its prologue
+  // the row offsets of the split's whole key range, not waiting for the length
+  const int base = s * kDecodeSplit;
+  load_row_offsets(table_row, base, min(base + kDecodeSplit, P * page), page, Kv, sm_off);
+  const KeyRange r = keys_of(qpos, window, P * page);
+  int first, count;
+  splits_of(r, kDecodeSplit, &first, &count);
+  if (s < first || s >= first + count) return;  // whole block: no key of this split
 
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  const int grp = tid / kL;
+  const int lane = tid % kL;
 
-  auto row_offset = [&](int r) -> long {
-    const int fr = row0 + r;
-    const int t = fr / G;
-    const int g = fr % G;
-    return ((((long)b * Tq + t) * Kv + kv) * G + g) * hd;
-  };
-
-  for (int i = tid; i < rows * hd; i += blockDim.x) {
-    const int r = i / hd;
-    qs[i] = to_f32(q[row_offset(r) + i % hd]);
-    acc[i] = 0.f;
-  }
-  for (int r = tid; r < rows; r += blockDim.x) {
-    m[r] = kNegInf;
-    l[r] = 0.f;
-  }
-
-  // Pages this tile needs: up to the last valid row's position (rows past
-  // q_len are garbage by contract), and from the first page that the lowest
-  // row's window reaches.
-  const int t_lo = row0 / G;
-  const int t_hi = (row0 + rows - 1) / G;
-  const int end_tok = start + min(qlen, t_hi + 1);  // exclusive
-  int n_pages = end_tok > 0 ? (end_tok + page - 1) / page : 0;
-  n_pages = min(n_pages, P);
-  int j0 = 0;
-  if (window > 0) {
-    const int lo = start + t_lo - window + 1;
-    if (lo > 0) j0 = lo / page;
-  }
-
-  for (int j = j0; j < n_pages; ++j) {
-    const int pid = table_row[j];
-    __syncthreads();  // the previous page's tiles are no longer read
-    load_tile(kp, pid, kv, Kv, hd, page, ks, hd + 1);
-    load_tile(vp, pid, kv, Kv, hd, page, vs, hd);
-    __syncthreads();
-
-    // scores (rows, page)
-    for (int i = tid; i < rows * page; i += blockDim.x) {
-      const int r = i / page;
-      const int s = i % page;
-      const int qpos = start + (row0 + r) / G;
-      float sc = kNegInf;
-      if (visible(j * page + s, qpos, window)) {
-        const float* qr = qs + r * hd;
-        const float* kr = ks + s * (hd + 1);
-        float dot = 0.f;
-        for (int d = 0; d < hd; ++d) dot = fmaf(qr[d], kr[d], dot);
-        sc = dot;
+  // q rows in f32 registers: lane holds vectors lane, lane + kL, ...
+  float qr[MG][kE];
+#pragma unroll
+  for (int g = 0; g < MG; ++g) {
+#pragma unroll
+    for (int v = 0; v < kV; ++v) {
+      const int vec = lane + v * kL;
+#pragma unroll
+      for (int e = 0; e < kVE; ++e) qr[g][v * kVE + e] = 0.f;
+      if (g < G && vec < Sh::kRowVecs) {
+        alignas(16) T vals[kVE];
+        *reinterpret_cast<uint4*>(vals) =
+            *reinterpret_cast<const uint4*>(q + (row0 + g) * HD + vec * kVE);
+#pragma unroll
+        for (int e = 0; e < kVE; ++e) qr[g][v * kVE + e] = to_f32(vals[e]);
       }
-      ss[i] = sc;
     }
-    __syncthreads();
+  }
 
-    // online softmax, one warp per row
-    for (int r = warp; r < rows; r += kWarps) {
-      const int qpos = start + (row0 + r) / G;
+  float m[MG], l[MG], acc[MG][kE];
+#pragma unroll
+  for (int g = 0; g < MG; ++g) {
+    m[g] = kNegInf;
+    l[g] = 0.f;
+#pragma unroll
+    for (int e = 0; e < kE; ++e) acc[g][e] = 0.f;
+  }
+
+  __syncthreads();  // the row offsets
+#pragma unroll 1
+  for (int i0 = 0; i0 < Sh::kTokens; i0 += Sh::kBatch) {
+    uint4 kr[Sh::kBatch][kV], vr[Sh::kBatch][kV];
+    bool ok[Sh::kBatch];
+    load_rows<T, HD, MG>(kp, vp, sm_off, base, base + grp + i0 * Sh::kGroups, r, kv, lane,
+                         kr, vr, ok);
+    // scores of the batch, reduced across the group's lanes
+    float sc[Sh::kBatch][MG];
+#pragma unroll
+    for (int j = 0; j < Sh::kBatch; ++j) {
+      float kf[kE];
+#pragma unroll
+      for (int v = 0; v < kV; ++v) {
+        const T* kv8 = reinterpret_cast<const T*>(&kr[j][v]);
+#pragma unroll
+        for (int e = 0; e < kVE; ++e) kf[v * kVE + e] = to_f32(kv8[e]);
+      }
+      // every one of the MG rows (rows past G hold q = 0): no branch, so
+      // that the MG x kBatch shuffle chains interleave
+#pragma unroll
+      for (int g = 0; g < MG; ++g) {
+        float d = 0.f;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) d = fmaf(qr[g][e], kf[e], d);
+#pragma unroll
+        for (int o = kL / 2; o > 0; o /= 2) d += __shfl_xor_sync(0xffffffffu, d, o, kL);
+        sc[j][g] = ok[j] ? d : kNegInf;
+      }
+    }
+    // online softmax over the batch, per row
+#pragma unroll
+    for (int g = 0; g < MG; ++g) {
       float mx = kNegInf;
-      for (int s = lane; s < page; s += 32) mx = fmaxf(mx, ss[r * page + s]);
 #pragma unroll
-      for (int o = 16; o > 0; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_prev = m[r];
-      const float m_new = fmaxf(m_prev, mx);
+      for (int j = 0; j < Sh::kBatch; ++j) mx = fmaxf(mx, sc[j][g]);
+      const float m_new = fmaxf(m[g], mx);
+      const float alpha = expf(m[g] - m_new);
       float sum = 0.f;
-      for (int s = lane; s < page; s += 32) {
-        const float p = visible(j * page + s, qpos, window)
-                            ? expf(ss[r * page + s] - m_new) : 0.f;
-        ss[r * page + s] = p;
-        sum += p;
-      }
 #pragma unroll
-      for (int o = 16; o > 0; o /= 2) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float a = expf(m_prev - m_new);
-        alpha[r] = a;
-        l[r] = l[r] * a + sum;
-        m[r] = m_new;
+      for (int e = 0; e < kE; ++e) acc[g][e] *= alpha;
+#pragma unroll
+      for (int j = 0; j < Sh::kBatch; ++j) {
+        const float p = ok[j] ? expf(sc[j][g] - m_new) : 0.f;
+        sum += p;
+#pragma unroll
+        for (int v = 0; v < kV; ++v) {
+          const T* v8 = reinterpret_cast<const T*>(&vr[j][v]);
+#pragma unroll
+          for (int e = 0; e < kVE; ++e)
+            acc[g][v * kVE + e] = fmaf(p, to_f32(v8[e]), acc[g][v * kVE + e]);
+        }
       }
+      l[g] = l[g] * alpha + sum;
+      m[g] = m_new;
     }
-    __syncthreads();
+  }
 
-    // acc = acc * alpha + p @ V
-    for (int i = tid; i < rows * hd; i += blockDim.x) {
-      const int r = i / hd;
-      const int d = i % hd;
-      const float* pr = ss + r * page;
-      float a = acc[i] * alpha[r];
-      for (int s = 0; s < page; ++s) a = fmaf(pr[s], vs[s * hd + d], a);
-      acc[i] = a;
+  // merge the groups in group order
+#pragma unroll
+  for (int g = 0; g < MG; ++g) {
+    if (g >= G) continue;
+    if (lane == 0) {
+      sm_m[grp * MG + g] = m[g];
+      sm_l[grp * MG + g] = l[g];
+    }
+#pragma unroll
+    for (int v = 0; v < kV; ++v) {
+      const int vec = lane + v * kL;
+      if (vec < Sh::kRowVecs) {
+#pragma unroll
+        for (int e = 0; e < kVE; ++e)
+          sm_acc[(grp * MG + g) * HD + vec * kVE + e] = acc[g][v * kVE + e];
+      }
     }
   }
   __syncthreads();
-
-  for (int i = tid; i < rows * hd; i += blockDim.x) {
-    const int r = i / hd;
-    const float denom = fmaxf(l[r], 1e-30f);
-    out[row_offset(r) + i % hd] = from_f32<T>(acc[i] / denom);
+  if (tid < G) {
+    float mx = kNegInf;
+    for (int k = 0; k < Sh::kGroups; ++k) mx = fmaxf(mx, sm_m[k * MG + tid]);
+    float lsum = 0.f;
+    for (int k = 0; k < Sh::kGroups; ++k) {
+      const float w = expf(sm_m[k * MG + tid] - mx);
+      sm_w[k * MG + tid] = w;
+      lsum += w * sm_l[k * MG + tid];
+    }
+    float* ml = ws_ml + ((row0 + tid) * S + s) * 2;
+    ml[0] = mx;
+    ml[1] = lsum;
+  }
+  __syncthreads();
+  for (int i = tid; i < G * HD; i += kThreads) {
+    const int g = i / HD;
+    const int d = i % HD;
+    float a = 0.f;
+    for (int k = 0; k < Sh::kGroups; ++k)
+      a = fmaf(sm_w[k * MG + g], sm_acc[(k * MG + g) * HD + d], a);
+    ws_acc[((row0 + g) * S + s) * HD + d] = a;
   }
 }
 
-// K5: grid (Kv, B); one block holds the G query heads of one kv head.
-template <typename T>
+// K5: grid (S, Kv, B); q and out (B, Kv, G, hd).
+template <typename T, int HD, int MG>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                    const T* __restrict__ vp, const int* __restrict__ tables,
-                    const int* __restrict__ lengths, T* __restrict__ out, int Kv, int G,
-                    int hd, int page, int P, int window) {
-  extern __shared__ float smem[];
-  const int kv = blockIdx.x;
-  const int b = blockIdx.y;
-  const int L = lengths[b];
-  attend_rows<T>(q, kp, vp, tables + (long)b * P, out, b, kv, 0, G, 1, Kv, G, hd,
-                 page, P, L - 1, 1, window, smem);
+paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                          const T* __restrict__ vp, const int* __restrict__ tables,
+                          const int* __restrict__ lengths, float* __restrict__ ws_acc,
+                          float* __restrict__ ws_ml, int Kv, int G, int page, int P,
+                          int window) {
+  const int s = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
+  const long row0 = ((long)b * Kv + kv) * G;
+  split_body<T, HD, MG>(q, kp, vp, tables + (long)b * P, ws_acc, ws_ml, row0, gridDim.x, s,
+                    lengths[b] - 1, kv, Kv, G, page, P, window);
 }
 
-// K6: grid (row tiles, Kv, B); one block holds `rows_per_block` flattened rows.
-template <typename T>
+// f32 K6: grid (S, Kv, B*T); q and out (B, T, Kv, G, hd).
+template <typename T, int HD, int MG>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                     const T* __restrict__ vp, const int* __restrict__ tables,
-                     const int* __restrict__ start, const int* __restrict__ q_len,
-                     T* __restrict__ out, int Tq, int Kv, int G, int hd, int page, int P,
-                     int window, int rows_per_block) {
-  extern __shared__ float smem[];
-  const int row0 = blockIdx.x * rows_per_block;
-  const int kv = blockIdx.y;
-  const int b = blockIdx.z;
-  const int rows = min(rows_per_block, Tq * G - row0);
-  attend_rows<T>(q, kp, vp, tables + (long)b * P, out, b, kv, row0, rows, Tq, Kv, G,
-                 hd, page, P, start[b], q_len[b], window, smem);
+paged_prefill_rows_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                          const T* __restrict__ vp, const int* __restrict__ tables,
+                          const int* __restrict__ start, const int* __restrict__ q_len,
+                          float* __restrict__ ws_acc, float* __restrict__ ws_ml, int Tq,
+                          int Kv, int G, int page, int P, int window) {
+  const int s = blockIdx.x, kv = blockIdx.y;
+  const int b = blockIdx.z / Tq, t = blockIdx.z % Tq;
+  const long row0 = (((long)b * Tq + t) * Kv + kv) * G;
+  split_body<T, HD, MG>(q, kp, vp, tables + (long)b * P, ws_acc, ws_ml, row0, gridDim.x, s,
+                    prefill_qpos(start, q_len, b, t), kv, Kv, G, page, P,
+                    window);
 }
 
+// ------------------------------------------------ K6 tensor-core prefill
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte async copy; src_bytes 0 writes zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// p (two f32) as a bf16 high pair and the bf16 pair of what it leaves.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t* hi, uint32_t* lo) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  *hi = *reinterpret_cast<uint32_t*>(&h);
+  *lo = pack_bf16(x - __low2float(h), y - __high2float(h));
+}
+
+template <int HD>
+struct MmaShape {
+  static constexpr int kStride = HD + 8;  // bf16 a shared-memory row: +16 B, no conflicts
+  static constexpr int kStages = 2;
+  static constexpr int kTileElems = kKeyTile * kStride;
+  static constexpr bool kQRegs = HD <= 128;  // else q is read from shared memory
+  static constexpr int kSmemBytes =
+      (2 * kStages * kTileElems + (kQRegs ? 0 : kMmaRows * kStride)) * 2;
+};
+
+// The K and V tiles of keys key0 .. key0+63 of kv head kv into shared memory:
+// each token row (HD contiguous bf16) found through the block's row offsets and
+// copied as 16-byte cp.async chunks; keys at or past `hi` are zero-filled.
+template <int HD>
+__device__ __forceinline__ void load_kv_tile(const bf16* kp, const bf16* vp, const long* off,
+                                             int base, int key0, int hi, int kv, bf16* sk,
+                                             bf16* sv) {
+  constexpr int kChunks = HD / 8;
+  constexpr int kStride = MmaShape<HD>::kStride;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kKeyTile * kChunks; i += kThreads) {
+    const int row = i / kChunks;
+    const int c = (i % kChunks) * 8;
+    const int kpos = key0 + row;
+    const bool ok = kpos < hi;
+    const bf16* krow = ok ? kv_row(kp, off, kpos - base, kv, HD) + c : kp;
+    const bf16* vrow = ok ? kv_row(vp, off, kpos - base, kv, HD) + c : vp;
+    cp_async16(smem_u32(sk + row * kStride + c), krow, ok ? 16 : 0);
+    cp_async16(smem_u32(sv + row * kStride + c), vrow, ok ? 16 : 0);
+  }
+}
+
+// Grid (S * row tiles, Kv, B); q (B, T, Kv, G, HD) bf16. Block: row tile
+// `tile` of slot b, kv head kv, keys of split s; writes the partials.
+template <int HD>
+__global__ void __launch_bounds__(kThreads)
+paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
+                         const bf16* __restrict__ vp, const int* __restrict__ tables,
+                         const int* __restrict__ start, const int* __restrict__ q_len,
+                         float* __restrict__ ws_acc, float* __restrict__ ws_ml, int Tq,
+                         int Kv, int G, int page, int P, int window, int S) {
+  using Sh = MmaShape<HD>;
+  constexpr int kKC = HD / 16;  // 16-wide k chunks of a q row
+  constexpr int kDN = HD / 8;   // 8-wide n tiles of an output row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ long sm_off[kPrefillSplit];
+  bf16* sk = reinterpret_cast<bf16*>(smem_raw);   // kStages x (64, kStride)
+  bf16* sv = sk + Sh::kStages * Sh::kTileElems;
+  bf16* sq = sv + Sh::kStages * Sh::kTileElems;   // (64, kStride) when !kQRegs
+
+  const int s = blockIdx.x % S, tile = blockIdx.x / S;
+  const int kv = blockIdx.y, b = blockIdx.z;
+  griddep_launch_dependents();  // the combine may start its prologue
+  // the row offsets of the split's whole key range, not waiting for start, q_len
+  const int base = s * kPrefillSplit;
+  load_row_offsets(tables + (long)b * P, base, min(base + kPrefillSplit, P * page), page, Kv,
+                   sm_off);
+  const int st = start[b];
+  const int rows_total = Tq * G;
+  const KeyRange r = tile_keys(tile, Tq, G, st, q_len[b], window, P * page);
+  int first, count;
+  splits_of(r, kPrefillSplit, &first, &count);
+  if (s < first || s >= first + count) return;  // no key of this split
+  const int k_lo = max(r.lo, s * kPrefillSplit) / kKeyTile * kKeyTile;
+  const int k_hi = min(r.hi, (s + 1) * kPrefillSplit);
+  const int n_tiles = (k_hi - k_lo + kKeyTile - 1) / kKeyTile;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int row_base = tile * kMmaRows;
+  auto q_row = [&](int fr) {  // flattened row -> its q row
+    return q + ((((long)b * Tq + fr / G) * Kv + kv) * G + fr % G) * HD;
+  };
+
+  // q: mma A fragments straight from global memory (rows g8, g8+8 of the
+  // warp's 16; zeros past T*G), or the tile's rows into shared memory
+  uint32_t qa[Sh::kQRegs ? kKC : 1][4];
+  if constexpr (Sh::kQRegs) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int fr = row_base + warp * 16 + g8 + 8 * h;
+      const uint32_t* src = fr < rows_total
+                                ? reinterpret_cast<const uint32_t*>(q_row(fr)) : nullptr;
+#pragma unroll
+      for (int kc = 0; kc < kKC; ++kc) {
+        qa[kc][h] = src ? src[kc * 8 + t4] : 0u;
+        qa[kc][h + 2] = src ? src[kc * 8 + 4 + t4] : 0u;
+      }
+    }
+  } else {
+    for (int i = tid; i < kMmaRows * (HD / 8); i += kThreads) {
+      const int rr = i / (HD / 8);
+      const int c = (i % (HD / 8)) * 8;
+      const int fr = row_base + rr;
+      const bool ok = fr < rows_total;
+      cp_async16(smem_u32(sq + rr * Sh::kStride + c), ok ? q_row(fr) + c : q, ok ? 16 : 0);
+    }
+  }
+  __syncthreads();  // the row offsets
+#pragma unroll
+  for (int i = 0; i < Sh::kStages - 1; ++i) {
+    if (i < n_tiles)
+      load_kv_tile<HD>(kp, vp, sm_off, base, k_lo + i * kKeyTile, k_hi, kv,
+                       sk + i * Sh::kTileElems, sv + i * Sh::kTileElems);
+    cp_async_commit();  // with q's copies in the first group
+  }
+
+  // ldmatrix lane offsets: A (q rows), B from K (non-trans), B from V (trans)
+  const int a_row = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8, a_col = (lane / 16) * 8;
+  const int k_row = (lane / 16) * 8 + lane % 8, k_col = ((lane / 8) % 2) * 8;
+  const int v_row = ((lane / 8) % 2) * 8 + lane % 8, v_col = (lane / 16) * 8;
+
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) qpos[h] = st + (row_base + warp * 16 + g8 + 8 * h) / G;
+  float o[kDN][4];
+#pragma unroll
+  for (int n = 0; n < kDN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+
+#pragma unroll 1
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<Sh::kStages - 2>();  // tile `it` has landed (this thread's part)
+    __syncthreads();                   // ... everyone's; and tile it-1 is consumed
+    {
+      const int nt = it + Sh::kStages - 1;
+      if (nt < n_tiles) {
+        const int stg = nt % Sh::kStages;
+        load_kv_tile<HD>(kp, vp, sm_off, base, k_lo + nt * kKeyTile, k_hi, kv,
+                         sk + stg * Sh::kTileElems, sv + stg * Sh::kTileElems);
+      }
+      cp_async_commit();
+    }
+    const bf16* ck = sk + (it % Sh::kStages) * Sh::kTileElems;
+    const bf16* cv = sv + (it % Sh::kStages) * Sh::kTileElems;
+    const int key0 = k_lo + it * kKeyTile;
+
+    // S = Q K^T: (16 rows, 64 keys) a warp, eight 8-key n tiles
+    float sc[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < kKC; ++kc) {
+      uint32_t a[4];
+      if constexpr (Sh::kQRegs) {
+        a[0] = qa[kc][0]; a[1] = qa[kc][1]; a[2] = qa[kc][2]; a[3] = qa[kc][3];
+      } else {
+        ldmatrix_x4(a, smem_u32(sq + a_row * Sh::kStride + kc * 16 + a_col));
+      }
+#pragma unroll
+      for (int np = 0; np < 4; ++np) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, smem_u32(ck + (np * 16 + k_row) * Sh::kStride + kc * 16 + k_col));
+        mma_bf16(sc[2 * np], a, bk[0], bk[1]);
+        mma_bf16(sc[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // online softmax in the accumulator registers: rows g8 (h 0), g8+8 (h 1);
+    // a row that sees every key of the tile skips the per-key mask
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const bool all = key0 + kKeyTile <= k_hi && key0 + kKeyTile - 1 <= qpos[h] &&
+                       (window <= 0 || key0 > qpos[h] - window);
+      float mx = kNegInf;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = key0 + n * 8 + 2 * t4 + e;
+          float& x = sc[n][2 * h + e];
+          if (!all) x = kpos < k_hi && visible(kpos, qpos[h], window) ? x : kNegInf;
+          mx = fmaxf(mx, x);
+        }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_r[h], mx);
+      const float alpha = expf(m_r[h] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int kpos = key0 + n * 8 + 2 * t4 + e;
+          float& x = sc[n][2 * h + e];
+          x = all || (kpos < k_hi && visible(kpos, qpos[h], window)) ? expf(x - m_new) : 0.f;
+          sum += x;
+        }
+      }
+      l_r[h] = l_r[h] * alpha + sum;
+      m_r[h] = m_new;
+#pragma unroll
+      for (int n = 0; n < kDN; ++n) {
+        o[n][2 * h] *= alpha;
+        o[n][2 * h + 1] *= alpha;
+      }
+    }
+
+    // O += P V, P as a bf16 high part, then its bf16 low part (the second
+    // pass reloads V, so that no MMA waits on the one before it)
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t ph[4], pl[4];
+      split_bf16(sc[2 * kc][0], sc[2 * kc][1], &ph[0], &pl[0]);
+      split_bf16(sc[2 * kc][2], sc[2 * kc][3], &ph[1], &pl[1]);
+      split_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1], &ph[2], &pl[2]);
+      split_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3], &ph[3], &pl[3]);
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+#pragma unroll
+        for (int dp = 0; dp < HD / 16; ++dp) {
+          uint32_t bv[4];
+          ldmatrix_x4_trans(bv, smem_u32(cv + (kc * 16 + v_row) * Sh::kStride + dp * 16 +
+                                         v_col));
+          mma_bf16(o[2 * dp], part ? pl : ph, bv[0], bv[1]);
+          mma_bf16(o[2 * dp + 1], part ? pl : ph, bv[2], bv[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // the split's partials of the tile's real rows
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lsum = l_r[h];
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+    const int fr = row_base + warp * 16 + g8 + 8 * h;
+    if (fr < rows_total) {
+      const long orow = (((long)b * Tq + fr / G) * Kv + kv) * G + fr % G;
+      if (t4 == 0) {
+        ws_ml[(orow * S + s) * 2] = m_r[h];
+        ws_ml[(orow * S + s) * 2 + 1] = lsum;
+      }
+      float* dst = ws_acc + (orow * S + s) * HD + 2 * t4;
+#pragma unroll
+      for (int n = 0; n < kDN; ++n)
+        *reinterpret_cast<float2*>(dst + n * 8) = make_float2(o[n][2 * h], o[n][2 * h + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------ combine
+// Row `row`'s splits first .. first+count-1, merged in a fixed order:
+// out = sum_k w_k acc_k / max(sum_k w_k l_k, 1e-30), w_k = exp(m_k - max m).
+// One warp a row: lane j reads splits j, j+32, ... for m and l (a fixed
+// shuffle tree sums them), and HD/32 columns of every split's acc, all
+// loads issued before any is needed; each column sums its splits in order.
+template <typename T, int HD>
+__device__ __forceinline__ void combine_row(const float* __restrict__ ws_acc,
+                                            const float* __restrict__ ws_ml,
+                                            T* __restrict__ out, long row, int S, int first,
+                                            int count) {
+  constexpr int kC = HD >= 32 ? HD / 32 : 1;  // columns a lane
+  const int lane = threadIdx.x % 32;
+  const int col = lane * kC;
+  const bool has_col = col < HD;              // lanes past hd 16 hold none
+  const float* ml = ws_ml + (row * S + first) * 2;
+  const float* acc = ws_acc + (row * S + first) * HD + col;
+  griddep_wait();  // the split kernel's partials are written
+  float mx = kNegInf;
+  for (int k = lane; k < count; k += 32) mx = fmaxf(mx, ml[2 * k]);
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  float l = 0.f;
+  for (int k = lane; k < count; k += 32) l = fmaf(expf(ml[2 * k] - mx), ml[2 * k + 1], l);
+#pragma unroll
+  for (int o = 16; o > 0; o /= 2) l += __shfl_xor_sync(0xffffffffu, l, o);
+  float a[kC];
+#pragma unroll
+  for (int c = 0; c < kC; ++c) a[c] = 0.f;
+  for (int k0 = 0; k0 < count; k0 += 32) {
+    const float w_lane = k0 + lane < count ? expf(ml[2 * (k0 + lane)] - mx) : 0.f;
+    const int n = min(32, count - k0);
+#pragma unroll 8
+    for (int k = 0; k < n; ++k) {
+      const float w = __shfl_sync(0xffffffffu, w_lane, k);
+      if (has_col) {
+#pragma unroll
+        for (int c = 0; c < kC; ++c) a[c] = fmaf(w, acc[(long)(k0 + k) * HD + c], a[c]);
+      }
+    }
+  }
+  if (has_col) {
+    const float denom = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int c = 0; c < kC; ++c) out[row * HD + col + c] = from_f32<T>(a[c] / denom);
+  }
+}
+
+constexpr int kCombineRows = kThreads / 32;
+
+// K5's combine: rows (B, Kv, G).
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+paged_decode_combine_kernel(const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
+                            const int* __restrict__ lengths, T* __restrict__ out, int R,
+                            int Kv, int G, int page, int P, int window, int S) {
+  const long row = (long)blockIdx.x * kCombineRows + threadIdx.x / 32;
+  if (row >= R) return;
+  const int b = row / (Kv * G);
+  int first, count;
+  splits_of(keys_of(lengths[b] - 1, window, P * page), kDecodeSplit, &first, &count);
+  combine_row<T, HD>(ws_acc, ws_ml, out, row, S, first, count);
+}
+
+// K6's combine: rows (B, T, Kv, G); the splits of the row's own position (f32,
+// `mma` 0) or of its row tile (bf16, `mma` 1).
+template <typename T, int HD>
+__global__ void __launch_bounds__(kThreads)
+paged_prefill_combine_kernel(const float* __restrict__ ws_acc, const float* __restrict__ ws_ml,
+                             const int* __restrict__ start, const int* __restrict__ q_len,
+                             T* __restrict__ out, int R, int Tq, int Kv, int G, int page,
+                             int P, int window, int S, int mma) {
+  const long row = (long)blockIdx.x * kCombineRows + threadIdx.x / 32;
+  if (row >= R) return;
+  const int g = row % G;
+  const int t = (row / ((long)G * Kv)) % Tq;
+  const int b = row / ((long)G * Kv * Tq);
+  int first, count;
+  if (mma) {
+    const int tile = (t * G + g) / kMmaRows;
+    splits_of(tile_keys(tile, Tq, G, start[b], q_len[b], window, P * page), kPrefillSplit,
+              &first, &count);
+  } else {
+    splits_of(keys_of(prefill_qpos(start, q_len, b, t), window, P * page),
+              kDecodeSplit, &first, &count);
+  }
+  combine_row<T, HD>(ws_acc, ws_ml, out, row, S, first, count);
+}
+
+// ------------------------------------------------------------ launchers
 template <typename Kernel>
-int prepare(Kernel kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+int allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// The combine, launched so that it may start while the split kernel ends.
+template <typename... Params, typename... Args>
+int launch_combine(void (*kernel)(Params...), long rows, cudaStream_t stream,
+                   Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((rows + kCombineRows - 1) / kCombineRows));
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+}
+
+template <typename T, int HD>
+int decode_hd(const void* q, const void* kp, const void* vp, const void* tables,
+              const void* lengths, void* out, float* ws, int B, int Kv, int G, int page,
+              int P, int window, int S, cudaStream_t stream) {
+  const long R = (long)B * Kv * G;
+  float* ws_acc = ws;
+  float* ws_ml = ws + R * S * HD;
+  const dim3 grid(S, Kv, B);
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(kp);
+  const T* vt = static_cast<const T*>(vp);
+  const int* tb = static_cast<const int*>(tables);
+  const int* ln = static_cast<const int*>(lengths);
+  if (G <= 4)
+    paged_decode_split_kernel<T, HD, 4><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, tb, ln, ws_acc, ws_ml, Kv, G, page, P, window);
+  else
+    paged_decode_split_kernel<T, HD, 8><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, tb, ln, ws_acc, ws_ml, Kv, G, page, P, window);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int err = launch_combine(paged_decode_combine_kernel<T, HD>, R, stream, ws_acc,
+                                 ws_ml, ln, static_cast<T*>(out), (int)R, Kv, G, page, P,
+                                 window, S);
+  return err ? err : (int)cudaGetLastError();
+}
+
+template <typename T, int HD>
+int prefill_hd(const void* q, const void* kp, const void* vp, const void* tables,
+               const void* start, const void* q_len, void* out, float* ws, int B, int Tq,
+               int Kv, int G, int page, int P, int window, int S, cudaStream_t stream) {
+  const long R = (long)B * Tq * Kv * G;
+  float* ws_acc = ws;
+  float* ws_ml = ws + R * S * HD;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(kp);
+  const T* vt = static_cast<const T*>(vp);
+  const int* tb = static_cast<const int*>(tables);
+  const int* st = static_cast<const int*>(start);
+  const int* ql = static_cast<const int*>(q_len);
+  int mma = 0;
+  if constexpr (sizeof(T) == 2) {  // bf16: tensor cores
+    mma = 1;
+    const int bytes = MmaShape<HD>::kSmemBytes;
+    const int err = allow_smem(paged_prefill_mma_kernel<HD>, bytes);
+    if (err) return err;
+    const int tiles = (Tq * G + kMmaRows - 1) / kMmaRows;
+    paged_prefill_mma_kernel<HD><<<dim3(S * tiles, Kv, B), kThreads, bytes, stream>>>(
+        qt, kt, vt, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window, S);
+  } else {  // f32: the CUDA cores, one block a position
+    const dim3 grid(S, Kv, B * Tq);
+    if (G <= 4)
+      paged_prefill_rows_kernel<T, HD, 4><<<grid, kThreads, 0, stream>>>(
+          qt, kt, vt, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window);
+    else
+      paged_prefill_rows_kernel<T, HD, 8><<<grid, kThreads, 0, stream>>>(
+          qt, kt, vt, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window);
   }
-  return 0;
-}
-
-template <typename T>
-int launch_decode(const void* q, const void* kp, const void* vp, const void* tables,
-                  const void* lengths, void* out, int B, int Kv, int G, int hd,
-                  int page, int P, int window, cudaStream_t stream) {
-  const size_t smem = smem_floats(G, hd, page) * sizeof(float);
-  const int err = prepare(paged_decode_kernel<T>, smem);
-  if (err) return err;
-  paged_decode_kernel<T><<<dim3(Kv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      static_cast<const int*>(tables), static_cast<const int*>(lengths),
-      static_cast<T*>(out), Kv, G, hd, page, P, window);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_prefill(const void* q, const void* kp, const void* vp, const void* tables,
-                   const void* start, const void* q_len, void* out, int B, int Tq,
-                   int Kv, int G, int hd, int page, int P, int window,
-                   int rows_per_block, cudaStream_t stream) {
-  const size_t smem = smem_floats(rows_per_block, hd, page) * sizeof(float);
-  const int err = prepare(paged_prefill_kernel<T>, smem);
-  if (err) return err;
-  const int tiles = (Tq * G + rows_per_block - 1) / rows_per_block;
-  paged_prefill_kernel<T><<<dim3(tiles, Kv, B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kp), static_cast<const T*>(vp),
-      static_cast<const int*>(tables), static_cast<const int*>(start),
-      static_cast<const int*>(q_len), static_cast<T*>(out), Tq, Kv, G, hd, page, P,
-      window, rows_per_block);
-  return (int)cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int err = launch_combine(paged_prefill_combine_kernel<T, HD>, R, stream, ws_acc,
+                                 ws_ml, st, ql, static_cast<T*>(out), (int)R, Tq, Kv, G, page,
+                                 P, window, S, mma);
+  return err ? err : (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// the head sizes built (each a template instance of every kernel)
+#define PAGED_HD_CASES(X) X(16) X(32) X(64) X(96) X(128) X(256)
+
 extern "C" {
 
-// Shared-memory bytes one block of either kernel asks for (the wrapper
-// checks it against the card's limit before launching).
-size_t paged_attention_smem_bytes(int rows, int hd, int page) {
-  return smem_floats(rows, hd, page) * sizeof(float);
+// The kernel's constants, which the wrapper's split plan must match:
+// 0 keys per K5 split, 1 keys per bf16 K6 split, 2 rows per K6 block.
+int paged_attention_constant(int which) {
+  switch (which) {
+    case 0: return kDecodeSplit;
+    case 1: return kPrefillSplit;
+    case 2: return kMmaRows;
+  }
+  return -1;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after launch.
+// dtype: 0 = float32, 1 = bfloat16. ws: the wrapper's f32 workspace of
+// B*Kv*G*S*(hd+2) floats, S = ceil(P*page / 64). Returns cudaGetLastError().
 int paged_decode_attention(const void* q, const void* kp, const void* vp,
-                           const void* tables, const void* lengths, void* out, int B,
-                           int Kv, int G, int hd, int page, int P, int window,
+                           const void* tables, const void* lengths, void* out, void* ws,
+                           int B, int Kv, int G, int hd, int page, int P, int window, int S,
                            int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_decode<__nv_bfloat16>(q, kp, vp, tables, lengths, out, B, Kv, G, hd,
-                                        page, P, window, s);
-  return launch_decode<float>(q, kp, vp, tables, lengths, out, B, Kv, G, hd, page, P,
-                              window, s);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  switch (hd) {
+#define PAGED_CASE(H)                                                                     \
+  case H:                                                                                 \
+    return dtype == 1 ? decode_hd<bf16, H>(q, kp, vp, tables, lengths, out, w, B, Kv, G,  \
+                                           page, P, window, S, st)                        \
+                      : decode_hd<float, H>(q, kp, vp, tables, lengths, out, w, B, Kv, G, \
+                                            page, P, window, S, st);
+    PAGED_HD_CASES(PAGED_CASE)
+#undef PAGED_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
+// ws: B*T*Kv*G*S*(hd+2) floats, S = ceil(P*page / 256) for bf16 and
+// ceil(P*page / 64) for f32.
 int paged_prefill_attention(const void* q, const void* kp, const void* vp,
                             const void* tables, const void* start, const void* q_len,
-                            void* out, int B, int Tq, int Kv, int G, int hd, int page,
-                            int P, int window, int rows_per_block, int dtype,
-                            void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    return launch_prefill<__nv_bfloat16>(q, kp, vp, tables, start, q_len, out, B, Tq,
-                                         Kv, G, hd, page, P, window, rows_per_block, s);
-  return launch_prefill<float>(q, kp, vp, tables, start, q_len, out, B, Tq, Kv, G, hd,
-                               page, P, window, rows_per_block, s);
+                            void* out, void* ws, int B, int Tq, int Kv, int G, int hd,
+                            int page, int P, int window, int S, int dtype, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* w = static_cast<float*>(ws);
+  switch (hd) {
+#define PAGED_CASE(H)                                                                    \
+  case H:                                                                                \
+    return dtype == 1 ? prefill_hd<bf16, H>(q, kp, vp, tables, start, q_len, out, w, B,  \
+                                            Tq, Kv, G, page, P, window, S, st)           \
+                      : prefill_hd<float, H>(q, kp, vp, tables, start, q_len, out, w, B, \
+                                             Tq, Kv, G, page, P, window, S, st);
+    PAGED_HD_CASES(PAGED_CASE)
+#undef PAGED_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,15 +1,26 @@
-"""ctypes wrappers of the two CUDA kernels in ``csrc/paged_attention.cu``.
+"""ctypes wrappers of the CUDA kernels in ``csrc/paged_attention.cu``.
 
 Each wrapper checks device, dtype, shape, contiguity and alignment, allocates
-its output with ``torch.empty``, launches on the current CUDA stream, raises
-when the C launcher returns a nonzero ``cudaGetLastError()``, and adds one to
-its entry of ``LAUNCHES`` — only there, so a run can show that it went
-through the kernel.
+its output and the kernels' f32 workspace of split partials with
+``torch.empty``, launches on the current CUDA stream (a split kernel, then
+the combine that merges the splits in order), raises when the C launcher
+returns a nonzero ``cudaGetLastError()``, and adds one to its entry of
+``LAUNCHES`` per call — only there, so a run can show that it went through
+the kernels.
+
+The split plan: K5 (and f32 K6, per query position) splits a slot's keys
+into fixed ranges of ``DECODE_SPLIT`` keys; bf16 K6 splits each row tile of
+``PREFILL_TILE_ROWS`` rows into ranges of ``PREFILL_SPLIT`` keys. The grid and
+the workspace hold ``S = ceil(P * page / split)`` splits, from the table's
+width alone; which splits a row uses depends on its own slot's length (or
+start and q_len) alone, and the kernel finds them itself (``splits_of``
+mirrors it here).
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import math
+from typing import Dict, Tuple
 
 import torch
 
@@ -20,9 +31,11 @@ DECODE = "paged_decode_attention"
 PREFILL = "paged_prefill_attention"
 LAUNCHES: Dict[str, int] = {DECODE: 0, PREFILL: 0}
 
-# Flattened (t, g) query rows one prefill block holds.
-PREFILL_ROWS = 32
-MAX_SMEM_BYTES = 232_448          # dynamic shared memory one H100 block may use
+# the kernel's constants (paged_attention_constant checks them at load)
+DECODE_SPLIT = 64        # keys per K5 split, and per f32 K6 split
+PREFILL_SPLIT = 128      # keys per bf16 K6 split
+PREFILL_TILE_ROWS = 64   # flattened (t, g) rows per bf16 K6 block
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # head sizes the source builds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,17 +49,46 @@ def reset_launches() -> None:
 def library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_typed", False):
-        lib.paged_decode_attention.argtypes = [_P] * 6 + [_I] * 8 + [_P]
+        lib.paged_decode_attention.argtypes = [_P] * 7 + [_I] * 9 + [_P]
         lib.paged_decode_attention.restype = _I
-        lib.paged_prefill_attention.argtypes = [_P] * 7 + [_I] * 10 + [_P]
+        lib.paged_prefill_attention.argtypes = [_P] * 8 + [_I] * 10 + [_P]
         lib.paged_prefill_attention.restype = _I
-        lib.paged_attention_smem_bytes.argtypes = [_I] * 3
-        lib.paged_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.paged_attention_constant.argtypes = [_I]
+        lib.paged_attention_constant.restype = _I
+        got = tuple(lib.paged_attention_constant(i) for i in range(3))
+        if got != (DECODE_SPLIT, PREFILL_SPLIT, PREFILL_TILE_ROWS):
+            raise RuntimeError(f"{SOURCE} splits {got} != the wrapper's plan")
         lib._typed = True
     return lib
 
 
-def _check(q, k_pages, v_pages, tables, ints, G, hd, page, rows):
+def n_splits(split: int, page: int, P: int) -> int:
+    """Split columns of the grid and the workspace: the table's width alone."""
+    return max(1, math.ceil(P * page / split))
+
+
+def splits_of(lo: int, hi: int, split: int) -> Tuple[int, int]:
+    """(first, count) of the ``split``-key ranges that cover keys [lo, hi);
+    the kernel's ``splits_of``."""
+    if lo >= hi:
+        return 0, 0
+    return lo // split, -(-hi // split) - lo // split
+
+
+def decode_keys(length: int, window: int, page: int, P: int) -> Tuple[int, int]:
+    """Keys [lo, hi) a decode row of a slot of ``length`` tokens reads: its
+    window, capped at the table's P * page keys; the kernel's ``keys_of``."""
+    qpos = length - 1
+    lo = max(0, qpos - window + 1) if window > 0 else 0
+    return lo, min(qpos + 1, P * page)
+
+
+def workspace_floats(rows: int, S: int, hd: int) -> int:
+    """f32 partials: acc (rows, S, hd) then (m, l) (rows, S, 2)."""
+    return rows * S * (hd + 2)
+
+
+def _check(q, k_pages, v_pages, tables, ints, G, hd, page):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {dev}")
@@ -64,18 +106,15 @@ def _check(q, k_pages, v_pages, tables, ints, G, hd, page, rows):
                     ("tables", tables)) + ints:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+    for name, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if not 16 <= hd <= 256 or hd % 8:
-        raise ValueError(f"head_dim {hd} not in 16..256 or not a multiple of 8")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS} (the sizes built)")
     if not 1 <= G <= 8:
         raise ValueError(f"group size {G} not in 1..8")
     if not 4 <= page <= 64:
         raise ValueError(f"page size {page} not in 4..64")
-    smem = library().paged_attention_smem_bytes(rows, hd, page)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"{smem} bytes of shared memory > {MAX_SMEM_BYTES}")
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -99,13 +138,16 @@ def paged_decode_attention_cuda(
     P = tables.shape[1]
     if k_pages.shape[2] != Kv or tables.shape[0] != B or lengths.shape != (B,):
         raise ValueError("shapes of q, pools, tables and lengths disagree")
-    _check(q, k_pages, v_pages, tables, (("lengths", lengths),), G, hd, page, G)
+    _check(q, k_pages, v_pages, tables, (("lengths", lengths),), G, hd, page)
+    S = n_splits(DECODE_SPLIT, page, P)
     out = torch.empty_like(q)
+    ws = torch.empty(workspace_floats(B * Kv * G, S, hd), dtype=torch.float32,
+                     device=q.device)
     with torch.cuda.device(q.device):
         err = library().paged_decode_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-            B, Kv, G, hd, page, P, int(window), _DTYPES[q.dtype],
+            tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
+            B, Kv, G, hd, page, P, int(window), S, _DTYPES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, DECODE)
@@ -124,22 +166,27 @@ def paged_prefill_attention_cuda(
     window: int = 0,
 ) -> torch.Tensor:
     """K6 on the card. q (B, T, Kv, G, hd) pre-scaled; start, q_len (B,)
-    int32 -> (B, T, Kv, G, hd) q.dtype (rows t >= q_len are garbage)."""
+    int32 -> (B, T, Kv, G, hd) q.dtype (rows t >= q_len are garbage). bf16
+    runs on the tensor cores, f32 on the CUDA cores (TF32 would fail f32's
+    2e-5): the choice is by dtype alone."""
     B, T, Kv, G, hd = q.shape
     page = k_pages.shape[1]
     P = tables.shape[1]
     if (k_pages.shape[2] != Kv or tables.shape[0] != B
             or start.shape != (B,) or q_len.shape != (B,)):
         raise ValueError("shapes of q, pools, tables, start and q_len disagree")
-    rows = min(PREFILL_ROWS, T * G)
     _check(q, k_pages, v_pages, tables, (("start", start), ("q_len", q_len)),
-           G, hd, page, rows)
+           G, hd, page)
+    split = PREFILL_SPLIT if q.dtype == torch.bfloat16 else DECODE_SPLIT
+    S = n_splits(split, page, P)
     out = torch.empty_like(q)
+    ws = torch.empty(workspace_floats(B * T * Kv * G, S, hd), dtype=torch.float32,
+                     device=q.device)
     with torch.cuda.device(q.device):
         err = library().paged_prefill_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             tables.data_ptr(), start.data_ptr(), q_len.data_ptr(),
-            out.data_ptr(), B, T, Kv, G, hd, page, P, int(window), rows,
+            out.data_ptr(), ws.data_ptr(), B, T, Kv, G, hd, page, P, int(window), S,
             _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
         )
     _raise_on(err, PREFILL)

@@ -74,12 +74,15 @@ PREFILL_CASES = [
     (1, 8, 1, 4, 32, 4, 24, 12, [13], [6]),      # mid-prompt chunk
     (3, 4, 2, 4, 16, 8, 32, 4, [0, 9, 17], [4, 2, 1]),  # mixed depths
 ]
-# chunks of more than one 32-row tile of the CUDA kernel (T*G > 32) at
-# nonzero starts; G=3 puts a tile edge inside one position's rows
+# chunks of more than one row tile of the CUDA kernels (32 rows in the first
+# design, 64 in the tensor-core one) at nonzero starts; G=3 puts a tile edge inside
+# one position's rows
 MULTI_TILE_CASES = [
     (2, 16, 2, 4, 32, 4, 16, 8, [5, 13], [16, 11]),
     (1, 12, 1, 3, 64, 8, 8, 4, [9], [12]),
     (1, 16, 2, 4, 128, 16, 8, 6, [40], [16]),
+    (1, 24, 1, 3, 64, 8, 16, 6, [9], [24]),
+    (2, 32, 2, 4, 128, 16, 16, 8, [5, 40], [32, 25]),
 ]
 
 
@@ -201,21 +204,104 @@ def test_kernel_modules_import_without_triton_nvcc_or_cuda():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
+# serving shapes of the split plan: (lengths, window, page, P)
+PLAN_SHAPES = [
+    ([561, 590, 600, 633], 0, 16, 40),          # granite-8b decode
+    ([1030, 1100, 1250, 1400], 512, 16, 90),    # gemma3-1b decode
+    ([64, 63, 65, 1, 128, 129], 6, 16, 16),     # split edges
+]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=["granite", "gemma3", "edges"])
+def test_decode_split_plan_fits_the_grid_and_covers_each_slot(shape):
+    """The grid's split count comes from the table's width alone, and each
+    slot's splits, from its own length alone, lie inside it and cover
+    exactly its keys — for the serving shapes and for the inactive slots the
+    engine leaves (length 1 on a zeroed row, 0, and past the table's P *
+    page keys)."""
+    lengths, window, page, P = shape
+    split = cuda.DECODE_SPLIT
+    S = cuda.n_splits(split, page, P)
+    assert S == -(-P * page // split)
+    inactive = [0, 1, P * page, P * page + 1, P * page + 500]
+    for L in lengths + inactive:
+        lo, hi = cuda.decode_keys(L, window, page, P)
+        first, count = cuda.splits_of(lo, hi, split)
+        assert 0 <= first and first + count <= S, (L, first, count, S)
+        if hi > lo:
+            assert first * split <= lo < (first + 1) * split
+            assert (first + count - 1) * split < hi <= (first + count) * split
+            assert hi <= P * page and (window == 0 or hi - lo <= window)
+        else:
+            assert count == 0
+
+
+def test_workspace_holds_every_split_partial():
+    """acc (rows, S, hd) and (m, l) (rows, S, 2) in f32, from shapes alone:
+    granite-8b's decode (B 4, Kv 8, G 4) and its bf16 and f32 q_len-128 chunk."""
+    S = cuda.n_splits(cuda.DECODE_SPLIT, 16, 40)
+    assert S == 10
+    assert cuda.workspace_floats(4 * 8 * 4, S, 128) == 128 * 10 * 130
+    assert cuda.n_splits(cuda.PREFILL_SPLIT, 16, 40) == 5
+    assert cuda.workspace_floats(128 * 8 * 4, 5, 128) == 4096 * 5 * 130
+
+
+@pytest.mark.parametrize("kernel, family", [
+    ("paged_decode_split_kernel<__nv_bfloat16, 128, 4>", "K5"),
+    ("paged_decode_combine_kernel<__nv_bfloat16, 128>", "K5"),
+    ("paged_prefill_mma_kernel<128>", "K6"),
+    ("paged_prefill_rows_kernel<float, 128, 4>", "K6"),
+    ("paged_prefill_combine_kernel<float, 64>", "K6"),
+])
+def test_profile_serve_counts_every_kernel_to_its_op(kernel, family):
+    """profile_serve.py sums the device time of each CUDA kernel of an op,
+    the split kernels and the combines, into that op's family."""
+    from repro_torch.launch.profile_serve import _family
+
+    assert _family(f"void (anonymous namespace)::{kernel}(int)").startswith(family)
+
+
+def _card_cases(dtype):
+    """(kind, arrays, qlens) of every case of chip_smoke.py's kernels phase
+    that the JAX suite has, on the card, in ``dtype``."""
+    for case in CASES:
+        arrays = [t.cuda() for t in th(make_case(*case))]
+        yield "decode", [a.to(dtype) if a.is_floating_point() else a for a in arrays], None
+    for case in PREFILL_CASES + MULTI_TILE_CASES:
+        arrays = [t.cuda() for t in th(make_prefill_case(*case))]
+        yield ("prefill", [a.to(dtype) if a.is_floating_point() else a for a in arrays],
+               case[-1])
+
+
 @pytest.mark.cuda
-def test_cuda_kernels_match_plain_on_the_card():
-    """On an H100: both kernels against their plain versions (f32, 2e-5),
-    windows 0 and 6, multi-tile prefill chunks included."""
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernels_match_plain_on_the_card(dtype):
+    """On an H100: both kernels against their plain versions (f32 2e-5, bf16
+    4e-3: one rounding to bf16 on both sides), windows 0 and 6, multi-tile
+    prefill chunks included; and batched == alone, bitwise."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; run on the card with python3 chip_smoke.py")
+    dt = getattr(torch, dtype)
+    tol = TOL if dt == torch.float32 else dict(atol=4e-3, rtol=4e-3)
     for window in (0, 6):
-        for case in CASES:
-            arrays = [t.cuda() for t in th(make_case(*case))]
-            torch.testing.assert_close(
-                cuda.paged_decode_attention_cuda(*arrays, window=window),
-                ref.paged_attention_plain(*arrays, window=window), **TOL)
-        for case in PREFILL_CASES + MULTI_TILE_CASES:
-            arrays = [t.cuda() for t in th(make_prefill_case(*case))]
-            out = cuda.paged_prefill_attention_cuda(*arrays, window=window)
-            plain = ref.paged_prefill_attention_plain(*arrays, window=window)
-            for b, L in enumerate(case[-1]):
-                torch.testing.assert_close(out[b, :L], plain[b, :L], **TOL)
+        for kind, arrays, qlens in _card_cases(dt):
+            if kind == "decode":
+                out = cuda.paged_decode_attention_cuda(*arrays, window=window)
+                plain = ref.paged_attention_plain(*arrays, window=window)
+                torch.testing.assert_close(out.float(), plain.float(), **tol)
+            else:
+                out = cuda.paged_prefill_attention_cuda(*arrays, window=window)
+                plain = ref.paged_prefill_attention_plain(*arrays, window=window)
+                for b, L in enumerate(qlens):
+                    torch.testing.assert_close(out[b, :L].float(), plain[b, :L].float(),
+                                               **tol)
+            q, kp, vp, tables, *ints = arrays
+            for b in range(q.shape[0]):       # batched == alone, bitwise
+                alone_args = (q[b:b + 1].contiguous(), kp, vp, tables[b:b + 1].contiguous(),
+                              *[t[b:b + 1].contiguous() for t in ints])
+                if kind == "decode":
+                    alone = cuda.paged_decode_attention_cuda(*alone_args, window=window)
+                    assert torch.equal(out[b:b + 1], alone)
+                else:
+                    alone = cuda.paged_prefill_attention_cuda(*alone_args, window=window)
+                    assert torch.equal(out[b:b + 1, :qlens[b]], alone[:, :qlens[b]])

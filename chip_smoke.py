@@ -5,7 +5,8 @@
 Phases, in order (any failure exits nonzero and prints no result line):
   1. card    — the card's name and power limit from nvidia-smi;
   2. build   — nvcc builds every kernel source from the checkout, one nvcc per
-               source, all started together;
+               source, all started together; ptxas's registers and spills of
+               the tensor-core flash-attention kernels per head dim;
   3. kernels — K5 (paged decode) and K6 (paged prefill) against their plain
                PyTorch versions, in f32 (atol/rtol 2e-5) and in bf16 (4e-3:
                both sides compute in f32 and round once to bf16): the JAX
@@ -14,13 +15,18 @@ Phases, in order (any failure exits nonzero and prints no result line):
                64-key tile and a 128-key split, windows 0, 6 and 64, the
                poisoned null page, K6 at T = 1 against K5, inactive slots
                (a read past the table would fault), and batched == alone
-               bitwise; then bf16 at the serving path's shapes with times,
-               bounds and a library yardstick;
+               bitwise; groups past 8 rows (recurrentgemma-2b's G 10 at hd
+               256, granite-34b's G 48 at hd 128) across split edges, batched
+               == alone; then bf16 at the serving path's shapes (and
+               granite-34b's) with times, bounds and a library yardstick;
   4. train kernels — K1 (flash forward), K2 (its delta, dq and dk/dv
                launches), K3 and K4 (RMSNorm forward, backward) against their
-               plain versions: f32 on the JAX suites' shapes (forward 2e-5,
-               gradients 1e-4), bf16 at gemma3-1b's training shapes and
-               granite-8b's, with times, bounds and a library yardstick;
+               plain versions: f32 on the JAX suites' shapes and hd 96
+               (forward 2e-5, gradients 1e-4), bf16 on the same shapes and
+               at gemma3-1b's training shapes, granite-8b's and
+               phi-3-vision's (hd 96) (forward 4e-3, gradients 1% of
+               max|ref|, dk and dv the same bits on two runs), with times,
+               bounds and a library yardstick;
   5. quant kernels — K8a / K8b (blockwise dynamic 8-bit quantize,
                dequantize) against their plain versions, bitwise (codes,
                scales, dequantized values): the JAX suite's sizes and scales,
@@ -73,6 +79,7 @@ The line before last lists every kernel as JSON; the last line is
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -359,7 +366,12 @@ def phase_build() -> None:
         regs = [int(ln.split("Used ")[1].split()[0]) for ln in log if "registers" in ln]
         spills = [ln.strip() for ln in log if "spill" in ln and not ln.strip().startswith("0 bytes")]
         ptxas[m.SOURCE] = dict(kernels=len(regs), max_registers=max(regs), spills=spills)
-    emit(phase="build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas)
+    fa_mma = {}
+    for name, r in ptxas_of(fa.SOURCE, "_mma_kernel").items():
+        kern, hd = re.search(r"(fa_\w+?_mma_kernel)ILi(\d+)E", name).groups()
+        fa_mma[f"{kern}<{hd}>"] = r
+    emit(phase="build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas,
+         flash_attention_mma_ptxas=fa_mma)
 
 
 # K5 decode lengths at a split boundary (cuda.DECODE_SPLIT = 64 keys), one
@@ -371,6 +383,15 @@ EDGE_PREFILL = (2, 16, 2, 4, 128, 16, 40, 20, [57, 250], [16, 11])
 # batched == alone: slots of other lengths / starts around each other
 ALONE_DECODE = (4, 2, 4, 128, 16, 60, 16, [200, 37, 129, 64])
 ALONE_PREFILL = (3, 32, 2, 4, 128, 16, 60, 24, [0, 100, 250], [32, 17, 30])
+# groups of more than 8 query rows a kv head: recurrentgemma-2b's G 10 at hd
+# 256 and granite-34b's G 48 at hd 128 (Kv 1). K5 and f32 K6 take them in
+# chunks of 8 rows; bf16 K6 flattens (t, g) into 64-row tiles, whose edges
+# fall inside a position's rows. Decode lengths across the 64-key split
+# edge; chunks across a 64-key (f32) and a 128-key (bf16) split edge.
+LARGE_G_DECODE = [(3, 1, 10, 256, 16, 24, 16, [64, 65, 200]),
+                  (2, 1, 48, 128, 16, 16, 16, [63, 129])]
+LARGE_G_PREFILL = [(2, 16, 1, 10, 256, 16, 16, 16, [57, 120], [16, 11]),
+                   (2, 8, 1, 48, 128, 16, 24, 20, [60, 250], [8, 8])]
 
 
 def inactive_decode_case(dtype):
@@ -452,8 +473,27 @@ def phase_kernels():
             assert_batched_equals_alone(
                 f"K6 {tag} w{window}", lambda *a, w=window: pre(*a, window=w), args,
                 args[5].tolist())
+        # any G, and batched == alone there
+        for case in LARGE_G_DECODE:
+            for window in (0, 64):
+                args = make_decode_case(*case, dtype, seed=41)
+                check(f"K5 {tag} G{case[2]} hd{case[3]} w{window}", dec(*args, window=window),
+                      ref.paged_attention_plain(*args, window=window), tol)
+                n_checked += 1
+            assert_batched_equals_alone(f"K5 {tag} G{case[2]}", dec,
+                                        make_decode_case(*case, dtype, seed=42))
+        for case in LARGE_G_PREFILL:
+            for window in (0, 64):
+                args = make_prefill_case(*case, dtype, seed=43)
+                check(f"K6 {tag} G{case[3]} hd{case[4]} w{window}", pre(*args, window=window),
+                      ref.paged_prefill_attention_plain(*args, window=window), tol, args[5])
+                n_checked += 1
+            args = make_prefill_case(*case, dtype, seed=44)
+            assert_batched_equals_alone(f"K6 {tag} G{case[3]}", pre, args, args[5].tolist())
         torch.cuda.synchronize()
-        emit(phase="kernels_cases", dtype=tag, cases=n_checked, tol=tol, batched_equals_alone=4)
+        emit(phase="kernels_cases", dtype=tag, cases=n_checked, tol=tol,
+             batched_equals_alone=4 + len(LARGE_G_DECODE) + len(LARGE_G_PREFILL),
+             large_groups=[c[2] for c in LARGE_G_DECODE])
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
@@ -469,6 +509,11 @@ def phase_kernels():
                                      lengths=[1030, 1100, 1250, 1400], window=512)),
         ("gemma3-1b", "prefill", dict(B=1, T=128, Kv=1, G=4, hd=256, page=16, P=90,
                                       starts=[1000], qlens=[128], window=512)),
+        # 48 query heads over one kv head: K5 in 6 row chunks, K6 in 96 row tiles
+        ("granite-34b", "decode", dict(B=4, Kv=1, G=48, hd=128, page=16, P=40,
+                                       lengths=[561, 590, 600, 633], window=0)),
+        ("granite-34b", "prefill", dict(B=1, T=128, Kv=1, G=48, hd=128, page=16, P=40,
+                                        starts=[384], qlens=[128], window=0)),
     ]
     for model, kind, s in shapes:
         if kind == "decode":
@@ -525,6 +570,9 @@ FA_CASES = [
     (1, 130, 2, 2, 16, True, 0),
     (1, 250, 1, 2, 16, True, 64),
 ]
+# hd 96 (phi-3-vision's head size): causal ragged S, and a window without
+# the causal mask
+FA_HD96_CASES = [(1, 200, 2, 2, 96, True, 0), (1, 160, 1, 3, 96, False, 48)]
 FA_F32_TOL = 2e-5                 # forward: f32, sums in another order
 FA_F32_GRAD_TOL = 1e-4            # gradients: f32 sums over k blocks in another order
 # bf16 gradients are compared against max|ref|: both sides compute in f32
@@ -541,6 +589,7 @@ TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 10
 GEMMA_FA = [dict(B=TRAIN_B, S=TRAIN_S, Kv=1, G=4, hd=256, window=0, layers=4),
             dict(B=TRAIN_B, S=TRAIN_S, Kv=1, G=4, hd=256, window=512, layers=22)]
 GRANITE_FA = dict(B=1, S=2048, Kv=8, G=4, hd=128, window=0)
+PHI3V_FA = dict(B=1, S=2048, Kv=32, G=1, hd=96, window=0)   # phi-3-vision's heads
 RN_SHAPES = [(TRAIN_B * TRAIN_S, 1152), (TRAIN_B * TRAIN_S, 4096)]
 
 
@@ -582,7 +631,9 @@ def rel_err(out, ref) -> float:
 
 def fa_check(tag, q, k, v, do, kw, bf16):
     """K1 and K2's three launches against the plain versions on the same
-    inputs. Returns the max abs error of each kernel."""
+    inputs; in bf16 also dk and dv against a second run, bitwise. Returns
+    the max abs error of each kernel and, under "grad_rel", each gradient's
+    max error over max|ref|."""
     from repro_torch.kernels.flash_attention import cuda as fa
     from repro_torch.kernels.flash_attention import ref as far
 
@@ -597,6 +648,10 @@ def fa_check(tag, q, k, v, do, kw, bf16):
         1e-4 * max(1.0, float(delta.abs().max())))
     dq = fa.flash_attention_bwd_dq_cuda(q, k, v, do, lse, delta, **kw)
     dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    if bf16:        # no atomics: the same bits on every run
+        dk2, dv2 = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+        if not (torch.equal(dk, dk2) and torch.equal(dv, dv2)):
+            raise AssertionError(f"{tag} K2 dk/dv differ between two runs")
     pdq, pdk, pdv = far.flash_attention_bwd_plain(q, k, v, po, plse, do, **kw)
     torch.cuda.synchronize()
     for name, a, b in (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv)):
@@ -611,6 +666,8 @@ def fa_check(tag, q, k, v, do, kw, bf16):
                                        msg=lambda m, n=name: f"{tag} K2 {n}: {m}")
     err["flash_attention_bwd_dq"] = max_err(dq, pdq)
     err["flash_attention_bwd_dkv"] = max(max_err(dk, pdk), max_err(dv, pdv))
+    err["grad_rel"] = {n: rel_err(a, b) for n, a, b in
+                       (("dq", dq, pdq), ("dk", dk, pdk), ("dv", dv, pdv))}
     return err
 
 
@@ -623,10 +680,15 @@ def phase_train_kernels():
     f32, bf = torch.float32, torch.bfloat16
     cases = [(B, S, Kv, G, hd, causal, 0) for B, S, Kv, G, hd in FA_SHAPES
              for causal in (True, False)]
-    cases += [(1, 256, 2, 2, 32, True, w) for w in (32, 128, 250)] + FA_CASES
-    for i, (B, S, Kv, G, hd, causal, window) in enumerate(cases):
-        fa_check(f"f32 {(B, S, Kv, G, hd, causal, window)}", *fa_flat(B, S, Kv, G, hd, f32, i),
-                 dict(group=G, causal=causal, window=window), bf16=False)
+    cases += [(1, 256, 2, 2, 32, True, w) for w in (32, 128, 250)] + FA_CASES + FA_HD96_CASES
+    worst_rel = 0.0
+    for dt in (f32, bf):
+        for i, (B, S, Kv, G, hd, causal, window) in enumerate(cases):
+            errs = fa_check(f"{dt} {(B, S, Kv, G, hd, causal, window)}",
+                            *fa_flat(B, S, Kv, G, hd, dt, i),
+                            dict(group=G, causal=causal, window=window), bf16=dt == bf)
+            if dt == bf:
+                worst_rel = max(worst_rel, *errs["grad_rel"].values())
     for rows, d in RN_SHAPES:
         for dt, tol in ((f32, FA_F32_TOL), (bf, RN_BF16_TOL)):
             x, g = (torch.tensor(np.random.RandomState(rows + d + j).randn(rows, d),
@@ -641,11 +703,15 @@ def phase_train_kernels():
             if not torch.equal(ds, rn.rmsnorm_bwd_cuda(x, scale, g)[1]):
                 raise AssertionError("K4 dscale differs between two runs")
     emit(phase="train_kernels_f32", cases=len(cases), fa_tol=FA_F32_TOL,
-         fa_grad_tol=FA_F32_GRAD_TOL, rmsnorm_shapes=RN_SHAPES, dscale_deterministic=True)
+         fa_grad_tol=FA_F32_GRAD_TOL, fa_bf16_cases=len(cases), fa_bf16_tol=BF16_TOL,
+         fa_bf16_worst_grad_rel=worst_rel, fa_bf16_grad_rel_tol=FA_BF16_GRAD_REL,
+         fa_bf16_dkv_deterministic=True, fa_head_dims=sorted({c[4] for c in cases}),
+         rmsnorm_shapes=RN_SHAPES, dscale_deterministic=True)
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
-    fa_rows = [("gemma3-1b", s) for s in GEMMA_FA] + [("granite-8b", dict(GRANITE_FA, layers=0))]
+    fa_rows = [("gemma3-1b", s) for s in GEMMA_FA] + [("granite-8b", dict(GRANITE_FA, layers=0)),
+                                                      ("phi-3-vision-4.2b", dict(PHI3V_FA, layers=0))]
     for model, s in fa_rows:
         B, S, Kv, G, hd, w = s["B"], s["S"], s["Kv"], s["G"], s["hd"], s["window"]
         q, k, v, do = fa_flat(B, S, Kv, G, hd, bf, seed=hd + w)
@@ -690,7 +756,8 @@ def phase_train_kernels():
             nbytes, flops = bounds[name]
             bms, by = bound(nbytes, flops, bf)
             row = dict(model=model, kernel=name, shape=s, max_abs_err=errs[name],
-                       kernel_ms=time_ms(fn, flush), plain_ms=plain[name],
+                       grad_rel_err=errs["grad_rel"], kernel_ms=time_ms(fn, flush),
+                       plain_ms=plain[name],
                        library_ms=lib_fwd if name == "flash_attention_fwd" else lib_bwd,
                        bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
             emit(phase="train_kernels_bf16", fwd_tol=BF16_TOL, grad_rel_tol=FA_BF16_GRAD_REL,

@@ -2,12 +2,13 @@
 
 Each library is one ``.cu`` file with a plain C interface, compiled for
 ``sm_90a`` into ``kernels/_build/`` (listed in ``.gitignore``) at first use.
-The file name carries a hash of the source and the flags, so an edited
-source is rebuilt and a stale library is never loaded. nvcc's output (the
-``-Xptxas -v`` register and shared-memory report) lands beside the library
-as ``.log``. Each source has its own lock, so several sources build at once
-from several threads (``chip_smoke.py`` starts them together). Nothing here
-runs at import time: the CPU tests import every module without ``nvcc``.
+The file name carries a hash of the source, its local headers and the
+flags, so an edited source is rebuilt and a stale library is never loaded.
+nvcc's output (the ``-Xptxas -v`` register and shared-memory report) lands
+beside the library as ``.log``. Each source has its own lock, so several
+sources build at once from several threads (``chip_smoke.py`` starts them
+together). Nothing here runs at import time: the CPU tests import every
+module without ``nvcc``.
 """
 from __future__ import annotations
 
@@ -45,10 +46,19 @@ def nvcc_path() -> str:
     )
 
 
+def _local_includes(src: Path) -> list:
+    """The headers ``src`` includes by a quoted path, relative to it."""
+    return [src.parent / ln.split('"')[1] for ln in src.read_text().splitlines()
+            if ln.startswith('#include "')]
+
+
 def library_path(source: str) -> Path:
-    """Where the library of ``source`` (relative to ``kernels/``) lands."""
+    """Where the library of ``source`` (relative to ``kernels/``) lands: the
+    name hashes the source, the headers it includes by a quoted path and the
+    flags, so that an edit to any of them builds anew."""
     src = KERNELS_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    text = src.read_bytes() + b"".join(h.read_bytes() for h in _local_includes(src))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{src.stem}_{digest.hexdigest()[:16]}.so"
 
 

@@ -24,7 +24,7 @@ DQ = "flash_attention_bwd_dq"
 DKV = "flash_attention_bwd_dkv"
 LAUNCHES: Dict[str, int] = {FWD: 0, DELTA: 0, DQ: 0, DKV: 0}
 
-HEAD_DIMS = (16, 32, 64, 128, 256)   # the head dims the source instantiates
+HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # the head dims the source instantiates
 MAX_SMEM_BYTES = 232_448             # dynamic shared memory one H100 block may use
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -78,6 +78,9 @@ def _check(q, k, v, group, **extra) -> Tuple[int, int, int, int, int]:
     for name, t in (("q", q), ("k", k), ("v", v)) + tuple(extra.items()):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        # bf16 tiles are copied as 16-byte cp.async chunks
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
     for name, t in extra.items():
         want = (BH, S) if name in ("lse", "delta") else (BH, S, hd)
         if t.shape != want:

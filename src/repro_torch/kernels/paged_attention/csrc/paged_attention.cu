@@ -16,7 +16,7 @@
 // exact skips (they would add zeros and leave m unchanged).
 //
 // What bounds them on the H100: bytes, and at serving sizes latency. Decode
-// does 4*G flops per pair of K/V bytes (G <= 8) against the card's ~295
+// does 4*G flops per pair of K/V bytes (G <= 8 rows a block) against the card's ~295
 // flop/byte ridge in bf16; granite-8b's 128-row prefill chunk does ~220
 // flops per byte it must move (q, out and K/V), still below it. At these sizes (~10 MB of K/V a decode
 // step, ~4 MB a chunk) the chain of dependent loads in one block decides as
@@ -43,11 +43,14 @@
 // one token row of one kv head, hd contiguous elements, as one or two 16-byte
 // loads a lane, straight into registers (no shared-memory copy of the page,
 // one barrier before the rows and one merge at the end). All of a group's
-// rows are loaded before any is used (8 at hd 128 bf16). The G query rows
-// stay in registers in f32 (templated for G <= 4 and G <= 8); dots on the
+// rows are loaded before any is used (8 at hd 128 bf16). A block holds a
+// chunk of at most 8 of the G query rows of its kv head (kChunkRows; the
+// grid's y holds Kv x ceil(G / 8) chunks, so any G runs on the bodies
+// templated for MG 4 and 8): they stay in registers in f32; dots on the
 // CUDA cores in f32, reduced across the group by shuffles; each group keeps
 // its own online softmax; the groups merge in group order through shared
-// memory. Tensor cores would gain nothing at G <= 8 rows. Granite-8b's
+// memory. A row's sums depend on its own slot and chunk only. Tensor cores
+// would gain nothing at 8 rows. Granite-8b's
 // decode (B 4, Kv 8, lengths 561-633, P 40): 10 x 8 x 4 = 320 blocks, 312
 // with work (32 before); gemma3-1b's (Kv 1, hd 256, window 512, P 90): 92
 // blocks, 36 with work (4 before). ptxas: 128 registers, 16,848 B static
@@ -55,7 +58,8 @@
 //
 // K6 bf16 (paged_prefill_mma_kernel, paged_prefill_combine_kernel): one block
 // holds kMmaRows = 64 flattened (t, g) rows of one (slot, kv head), 16
-// positions x G 4 at granite, four warps of 16 rows; the G heads of a
+// positions x G 4 at granite (any G: a tile edge may fall inside a
+// position's rows), four warps of 16 rows; the G heads of a
 // position share every K/V tile, and the row tiles of a kv head share its
 // K/V from L2. q lives in registers as mma A fragments at hd <= 128 (read
 // once from global memory), in shared memory at hd 256. Keys come in 64-key
@@ -78,8 +82,9 @@
 //
 // f32 inputs: the tensor cores would run TF32 (~1e-3 relative), which fails
 // the f32 gate of 2e-5, so f32 takes its products on the CUDA cores: K5 as
-// above, and K6 through the same split body, one block per (range, kv head,
-// slot, position) with that position's G rows (paged_prefill_rows_kernel),
+// above, and K6 through the same split body, one block per (range, kv head
+// and row chunk, slot, position) with a chunk of that position's G rows
+// (paged_prefill_rows_kernel),
 // merged by the same combine. The choice is by dtype alone.
 //
 // hd: 16, 32, 64, 96, 128 and 256 are built (the configs use 64, 96, 128,
@@ -96,6 +101,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "../../csrc/mma_sm90.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -104,6 +111,7 @@ constexpr int kDecodeSplit = 64;   // keys per K5 split (4 pages of 16)
 constexpr int kPrefillSplit = 128; // keys per K6 split (2 key tiles)
 constexpr int kMmaRows = 64;       // flattened rows per K6 block
 constexpr int kKeyTile = 64;       // keys per K6 ring stage
+constexpr int kChunkRows = 8;      // query rows of a group a K5 / f32 K6 block holds
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -250,9 +258,9 @@ __device__ __forceinline__ void load_rows(
   }
 }
 
-// One block: the G (<= MG) rows of one query position against the keys of
-// split s; writes the split's partial (m, l, acc) of each row to the
-// workspace.
+// One block: the G (<= MG) rows row0 .. row0+G-1 of one query position
+// against the keys of split s; writes the split's partial (m, l, acc) of
+// each row to the workspace.
 template <typename T, int HD, int MG>
 __device__ void split_body(const T* __restrict__ q, const T* __restrict__ kp,
                            const T* __restrict__ vp, const int* __restrict__ table_row,
@@ -410,7 +418,13 @@ __device__ void split_body(const T* __restrict__ q, const T* __restrict__ kp,
   }
 }
 
-// K5: grid (S, Kv, B); q and out (B, Kv, G, hd).
+// Row chunks of a group: blockIdx.y = kv * chunks + c holds rows c * 8 ..
+// of kv head kv's G rows.
+__host__ __device__ __forceinline__ int row_chunks(int G) {
+  return (G + kChunkRows - 1) / kChunkRows;
+}
+
+// K5: grid (S, Kv * row_chunks(G), B); q and out (B, Kv, G, hd).
 template <typename T, int HD, int MG>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
@@ -418,13 +432,14 @@ paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                           const int* __restrict__ lengths, float* __restrict__ ws_acc,
                           float* __restrict__ ws_ml, int Kv, int G, int page, int P,
                           int window) {
-  const int s = blockIdx.x, kv = blockIdx.y, b = blockIdx.z;
-  const long row0 = ((long)b * Kv + kv) * G;
+  const int s = blockIdx.x, b = blockIdx.z;
+  const int kv = blockIdx.y / row_chunks(G), g0 = blockIdx.y % row_chunks(G) * kChunkRows;
+  const long row0 = ((long)b * Kv + kv) * G + g0;
   split_body<T, HD, MG>(q, kp, vp, tables + (long)b * P, ws_acc, ws_ml, row0, gridDim.x, s,
-                    lengths[b] - 1, kv, Kv, G, page, P, window);
+                        lengths[b] - 1, kv, Kv, min(kChunkRows, G - g0), page, P, window);
 }
 
-// f32 K6: grid (S, Kv, B*T); q and out (B, T, Kv, G, hd).
+// f32 K6: grid (S, Kv * row_chunks(G), B*T); q and out (B, T, Kv, G, hd).
 template <typename T, int HD, int MG>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill_rows_kernel(const T* __restrict__ q, const T* __restrict__ kp,
@@ -432,66 +447,17 @@ paged_prefill_rows_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                           const int* __restrict__ start, const int* __restrict__ q_len,
                           float* __restrict__ ws_acc, float* __restrict__ ws_ml, int Tq,
                           int Kv, int G, int page, int P, int window) {
-  const int s = blockIdx.x, kv = blockIdx.y;
+  const int s = blockIdx.x;
+  const int kv = blockIdx.y / row_chunks(G), g0 = blockIdx.y % row_chunks(G) * kChunkRows;
   const int b = blockIdx.z / Tq, t = blockIdx.z % Tq;
-  const long row0 = (((long)b * Tq + t) * Kv + kv) * G;
+  const long row0 = (((long)b * Tq + t) * Kv + kv) * G + g0;
   split_body<T, HD, MG>(q, kp, vp, tables + (long)b * P, ws_acc, ws_ml, row0, gridDim.x, s,
-                    prefill_qpos(start, q_len, b, t), kv, Kv, G, page, P,
-                    window);
+                        prefill_qpos(start, q_len, b, t), kv, Kv, min(kChunkRows, G - g0),
+                        page, P, window);
 }
 
 // ------------------------------------------------ K6 tensor-core prefill
 using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes 0 writes zeros and reads nothing.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 in, f32 accumulate.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// p (two f32) as a bf16 high pair and the bf16 pair of what it leaves.
-__device__ __forceinline__ void split_bf16(float x, float y, uint32_t* hi, uint32_t* lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  *hi = *reinterpret_cast<uint32_t*>(&h);
-  *lo = pack_bf16(x - __low2float(h), y - __high2float(h));
-}
 
 template <int HD>
 struct MmaShape {
@@ -857,7 +823,7 @@ int decode_hd(const void* q, const void* kp, const void* vp, const void* tables,
   const long R = (long)B * Kv * G;
   float* ws_acc = ws;
   float* ws_ml = ws + R * S * HD;
-  const dim3 grid(S, Kv, B);
+  const dim3 grid(S, Kv * row_chunks(G), B);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(kp);
   const T* vt = static_cast<const T*>(vp);
@@ -900,7 +866,7 @@ int prefill_hd(const void* q, const void* kp, const void* vp, const void* tables
     paged_prefill_mma_kernel<HD><<<dim3(S * tiles, Kv, B), kThreads, bytes, stream>>>(
         qt, kt, vt, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window, S);
   } else {  // f32: the CUDA cores, one block a position
-    const dim3 grid(S, Kv, B * Tq);
+    const dim3 grid(S, Kv * row_chunks(G), B * Tq);
     if (G <= 4)
       paged_prefill_rows_kernel<T, HD, 4><<<grid, kThreads, 0, stream>>>(
           qt, kt, vt, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window);

@@ -29,7 +29,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 FAMILIES = (
-    ("fa_fwd_kernel", "K1 flash_attention_fwd"),
+    ("fa_fwd", "K1 flash_attention_fwd"),          # f32 and bf16 (tensor-core) kernels
     ("fa_bwd_delta", "K2 flash_attention_bwd_delta"),
     ("fa_bwd_dq", "K2 flash_attention_bwd_dq"),
     ("fa_bwd_dkv", "K2 flash_attention_bwd_dkv"),

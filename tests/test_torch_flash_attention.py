@@ -5,7 +5,8 @@ package's, on the CPU.
   ``repro_torch.kernels.flash_attention`` against JAX's Pallas
   ``flash_attention_fwd_flat`` and ``flash_attention`` custom_vjp (interpret
   mode) on three of ``tests/test_kernels_backward.py``'s FA_CASES: the MQA
-  G=4 case, the window case and the non-multiple S + window case.
+  G=4 case, the window case and the non-multiple S + window case; and at
+  phi-3-vision's head dim 96, causal and with a window.
 * Output and dq/dk/dv against ``flash_attention_ref`` under ``jax.grad`` on
   all six FA_CASES, f32, 2e-5.
 * A fully masked row (S > Sk with a window) gives zeros, a finite lse and
@@ -36,6 +37,8 @@ FA_CASES = [
     (1, 250, 1, 2, 16, True, 64),    # non-multiple S + window
 ]
 PALLAS_CASES = [FA_CASES[1], FA_CASES[3], FA_CASES[5]]
+# head dim 96 (phi-3-vision), which the CUDA kernels build too
+HD96_CASES = [(1, 64, 1, 2, 96, True, 0), (1, 48, 2, 1, 96, True, 16)]
 # f32 on both sides; the sums run in another order (whole rows here, 128-key
 # blocks in the Pallas kernel)
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -82,7 +85,8 @@ def test_output_and_grads_match_jax_ref(case):
         np.testing.assert_allclose(a, np.asarray(b), **TOL, err_msg=f"d{name}")
 
 
-@pytest.mark.parametrize("case", PALLAS_CASES, ids=[str(c) for c in PALLAS_CASES])
+@pytest.mark.parametrize("case", PALLAS_CASES + HD96_CASES,
+                         ids=[str(c) for c in PALLAS_CASES + HD96_CASES])
 def test_plain_fwd_lse_and_grads_match_jax_pallas(case):
     B, S, Kv, G, hd, causal, window = case
     q, k, v, cot = make(B, S, Kv, G, hd, seed=sum(case[:5]) + 1)

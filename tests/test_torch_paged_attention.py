@@ -74,6 +74,17 @@ PREFILL_CASES = [
     (1, 8, 1, 4, 32, 4, 24, 12, [13], [6]),      # mid-prompt chunk
     (3, 4, 2, 4, 16, 8, 32, 4, [0, 9, 17], [4, 2, 1]),  # mixed depths
 ]
+# groups of more than 8 query rows a kv head, which the CUDA kernels take in
+# chunks of 8 (decode, f32 prefill) or in 64-row tiles over (t, g) (bf16
+# prefill): recurrentgemma-2b's G 10 and granite-34b's G 48, at small hd
+LARGE_G_CASES = [
+    (2, 1, 10, 32, 8, 16, 4, [13, 30]),
+    (2, 1, 48, 16, 8, 16, 4, [9, 27]),
+]
+LARGE_G_PREFILL_CASES = [
+    (2, 4, 1, 10, 32, 8, 16, 4, [3, 11], [4, 3]),
+    (2, 4, 1, 48, 16, 8, 16, 4, [0, 13], [4, 2]),
+]
 # chunks of more than one row tile of the CUDA kernels (32 rows in the first
 # design, 64 in the tensor-core one) at nonzero starts; G=3 puts a tile edge inside
 # one position's rows
@@ -86,7 +97,8 @@ MULTI_TILE_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", CASES, ids=[str(c[:4]) for c in CASES])
+@pytest.mark.parametrize("case", CASES + LARGE_G_CASES,
+                         ids=[str(c[:4]) for c in CASES + LARGE_G_CASES])
 @pytest.mark.parametrize("window", [0, 6])
 def test_decode_plain_matches_jax_ref_and_kernel(case, window):
     arrays = make_case(*case)
@@ -98,8 +110,9 @@ def test_decode_plain_matches_jax_ref_and_kernel(case, window):
     np.testing.assert_allclose(out, jker, **TOL)
 
 
-@pytest.mark.parametrize("case", PREFILL_CASES + MULTI_TILE_CASES,
-                         ids=[str(c[:4]) for c in PREFILL_CASES + MULTI_TILE_CASES])
+@pytest.mark.parametrize(
+    "case", PREFILL_CASES + MULTI_TILE_CASES + LARGE_G_PREFILL_CASES,
+    ids=[str(c[:4]) for c in PREFILL_CASES + MULTI_TILE_CASES + LARGE_G_PREFILL_CASES])
 @pytest.mark.parametrize("window", [0, 6])
 def test_prefill_plain_matches_jax_ref_and_kernel(case, window):
     arrays = make_prefill_case(*case)

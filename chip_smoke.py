@@ -6,7 +6,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
   1. card    — the card's name and power limit from nvidia-smi;
   2. build   — nvcc builds every kernel source from the checkout, one nvcc per
                source, all started together; ptxas's registers and spills of
-               the tensor-core flash-attention kernels per head dim;
+               the tensor-core flash-attention kernels per head dim, and of
+               every RMSNorm kernel body, none of which may spill;
   3. kernels — K5 (paged decode) and K6 (paged prefill) against their plain
                PyTorch versions, in f32 (atol/rtol 2e-5) and in bf16 (4e-3:
                both sides compute in f32 and round once to bf16): the JAX
@@ -26,7 +27,12 @@ Phases, in order (any failure exits nonzero and prints no result line):
                at gemma3-1b's training shapes, granite-8b's and
                phi-3-vision's (hd 96) (forward 4e-3, gradients 1% of
                max|ref|, dk and dv the same bits on two runs), with times,
-               bounds and a library yardstick;
+               bounds and a library yardstick; K3/K4 in f32 (2e-5, dscale
+               1e-4) and bf16 (1e-2) at the training widths, at d that no
+               16-byte vector divides, one row, idle row groups, d 7168 and
+               12,288, the decode shape and views at an odd storage offset
+               (both bodies), dscale the same bits on two runs, timed at the
+               train, pipe and serving shapes;
   5. quant kernels — K8a / K8b (blockwise dynamic 8-bit quantize,
                dequantize) against their plain versions, bitwise (codes,
                scales, dequantized values): the JAX suite's sizes and scales,
@@ -94,9 +100,9 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12         # H100 SXM HBM3
-BF16_FLOPS = 989e12               # H100 SXM dense bf16 tensor-core peak
-F32_FLOPS = 67e12                 # H100 SXM float32 outside the tensor cores
+from repro_torch.launch import profile_rmsnorm as prn  # noqa: E402
+from repro_torch.launch.timing import bound, time_ms  # noqa: E402
+
 BF16_TOL = 4e-3                   # ~1 bf16 ulp at |out| ~1; outputs here are < 1
 PA_SOURCE = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
 FA_SOURCE = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -212,64 +218,6 @@ def check(name, out, ref, tol, qlens=None) -> float:
     return max_err(out, ref, qlens)
 
 
-# ----------------------------------------------------------------- timing
-SPIN_CYCLES = 2_000_000     # ~1 ms of the card's clock
-
-
-def spin_ms(cycles: int) -> float:
-    """CUDA-event time of one spin kernel of ``cycles`` alone."""
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    a.record()
-    torch.cuda._sleep(cycles)
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b)
-
-
-def time_ms(fn, flush, warmup=5, reps=30) -> float:
-    """Median of ``reps`` CUDA-event timings, the L2 flushed before each. A
-    spin kernel keeps the card busy while the host enqueues the first event
-    and ``fn``'s launches, so that the time between the events is the card's
-    alone: an idle card would wait for the host's launch latency between
-    them (tens of µs, the whole time of a small kernel). The spin is checked
-    to outlast every enqueue (host time from the first event's record to the
-    second's), and lengthened fourfold until it does. A ``fn`` that waits on
-    the card inside (its enqueue grows with the spin) cannot be covered so:
-    its time keeps the host's part after the wait, as it does in use."""
-    for _ in range(warmup):
-        fn()
-    cycles, before = SPIN_CYCLES, None
-    while True:
-        spin = spin_ms(cycles)
-        times, enqueue = [], []
-        for _ in range(reps):
-            flush.zero_()
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            torch.cuda._sleep(cycles)
-            t0 = time.perf_counter()
-            a.record()
-            fn()
-            b.record()
-            enqueue.append((time.perf_counter() - t0) * 1e3)
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        took = max(enqueue)
-        if took < spin:
-            return statistics.median(times)
-        if before is not None and took - before[0] > (spin - before[1]) / 2:
-            print(f"time_ms: the enqueue grows with the spin ({before[0]:.3f} ms at a "
-                  f"{before[1]:.3f} ms spin, {took:.3f} at {spin:.3f}): the function "
-                  "waits on the card", file=sys.stderr)
-            return statistics.median(times)
-        if cycles >= 64 * SPIN_CYCLES:
-            raise AssertionError(f"time_ms: an enqueue took {took:.3f} ms, "
-                                 f"longer than a {spin:.3f} ms spin")
-        print(f"time_ms: an enqueue took {took:.3f} ms, longer than a "
-              f"{spin:.3f} ms spin: spinning 4x longer", file=sys.stderr)
-        cycles, before = cycles * 4, (took, spin)
-
-
 def visible_keys(qpos: int, window: int) -> int:
     n = qpos + 1
     return min(n, window) if window > 0 else n
@@ -312,11 +260,6 @@ def prefill_bound(q, kp, tables, starts, qlens, window):
         flops += sum(4 * hd * G * Kv * visible_keys(s + t, window) for t in range(n))
     return nbytes, flops
 
-
-def bound(nbytes, flops, dtype):
-    peak = BF16_FLOPS if dtype == torch.bfloat16 else F32_FLOPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def sdpa_inputs(q, kp, vp, tables, qpos, window):
@@ -370,8 +313,18 @@ def phase_build() -> None:
     for name, r in ptxas_of(fa.SOURCE, "_mma_kernel").items():
         kern, hd = re.search(r"(fa_\w+?_mma_kernel)ILi(\d+)E", name).groups()
         fa_mma[f"{kern}<{hd}>"] = r
+    rn_ptxas = {}
+    for name, r in ptxas_of(rn.SOURCE, "rmsnorm_").items():
+        m = re.search(r"(rmsnorm_\w+?_kernel)(?:I(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E)?", name)
+        kern, t, vec, nv = m.groups()
+        key = kern if t is None else f"{kern}<{'bf16' if t != 'f' else 'f32'},{vec},{nv}>"
+        rn_ptxas[key] = r
+    spilled = {k: r["spills"] for k, r in rn_ptxas.items()
+               if not r.get("spills", "").startswith("0 bytes stack frame, 0 bytes spill stores")}
+    if spilled:
+        raise AssertionError(f"rmsnorm.cu kernels spill: {spilled}")
     emit(phase="build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas,
-         flash_attention_mma_ptxas=fa_mma)
+         flash_attention_mma_ptxas=fa_mma, rmsnorm_ptxas=rn_ptxas)
 
 
 # K5 decode lengths at a split boundary (cuda.DECODE_SPLIT = 64 keys), one
@@ -591,6 +544,15 @@ GEMMA_FA = [dict(B=TRAIN_B, S=TRAIN_S, Kv=1, G=4, hd=256, window=0, layers=4),
 GRANITE_FA = dict(B=1, S=2048, Kv=8, G=4, hd=128, window=0)
 PHI3V_FA = dict(B=1, S=2048, Kv=32, G=1, hd=96, window=0)   # phi-3-vision's heads
 RN_SHAPES = [(TRAIN_B * TRAIN_S, 1152), (TRAIN_B * TRAIN_S, 4096)]
+# K3/K4 beyond the training shapes, f32 and bf16: d that no 16-byte vector
+# divides (100 in bf16, 1001, 7: the scalar body), a predicated last sweep
+# (1000 in bf16), one row, row groups left without a row (601 rows of 64 on
+# 605 groups), arctic-480b's 7168, the widest row 12,288, serving's decode
+# and 128-token prefill chunk, the pipe's microbatch
+RN_CASES = [(7, 100), (33, 1000), (5, 1001), (3, 7), (1, 1152), (601, 64),
+            (5, 7168), (3, 12_288), (4, 4096), (128, 4096), (2048, 4096)]
+# views at an odd storage offset (the scalar body): x and g, or scale alone
+RN_OFFSET_CASES = [(64, 1152, 1, 0), (4, 4096, 1, 0), (64, 1152, 0, 1)]
 
 
 def fa_flat(B, S, Kv, G, hd, dtype, seed, dev="cuda"):
@@ -671,6 +633,48 @@ def fa_check(tag, q, k, v, do, kw, bf16):
     return err
 
 
+def rmsnorm_inputs(rows, d, dtype, seed, x_offset=0, scale_offset=0):
+    """x, g (rows, d) of ``dtype`` and scale (d,) f32 on the card, from
+    numpy; an offset puts the tensor at that many elements into its buffer."""
+    rng = np.random.RandomState(seed)
+
+    def at(a, dt, offset):
+        buf = torch.empty(a.size + offset, dtype=dt, device="cuda")
+        buf[offset:] = torch.tensor(a.reshape(-1), dtype=torch.float32).to("cuda", dt)
+        return buf[offset:].view(a.shape)
+
+    x, g = (at(rng.randn(rows, d), dtype, x_offset) for _ in range(2))
+    return x, g, at(1 + 0.1 * rng.randn(d), torch.float32, scale_offset)
+
+
+def rmsnorm_check() -> dict:
+    """K3 and K4 against their plain versions at RN_SHAPES, RN_CASES and
+    RN_OFFSET_CASES, f32 and bf16; dscale the same bits on two runs. Returns
+    how many cases each body (cuda.plan's vector or scalar) ran."""
+    from repro_torch.kernels.rmsnorm import cuda as rn
+    from repro_torch.kernels.rmsnorm import ref as rnr
+
+    cases = [(rows, d, 0, 0) for rows, d in RN_SHAPES + RN_CASES] + RN_OFFSET_CASES
+    bodies = {"vector": 0, "scalar": 0}
+    for i, (rows, d, xo, so) in enumerate(cases):
+        for dt, tol in ((torch.float32, FA_F32_TOL), (torch.bfloat16, RN_BF16_TOL)):
+            x, g, scale = rmsnorm_inputs(rows, d, dt, seed=i, x_offset=xo, scale_offset=so)
+            aligned = all(t.data_ptr() % 16 == 0 for t in (x, g, scale))
+            if aligned != (xo == so == 0):
+                raise AssertionError(f"K3/K4 case {(rows, d, xo, so)}: alignment {aligned}")
+            body = rn.plan(rows, d, x.element_size(), aligned).body
+            bodies[body] += 1
+            tag = f"{dt} {(rows, d)} offsets {(xo, so)} {body}"
+            check(f"K3 {tag}", rn.rmsnorm_fwd_cuda(x, scale), rnr.rmsnorm_plain(x, scale), tol)
+            dx, ds = rn.rmsnorm_bwd_cuda(x, scale, g)
+            pdx, pds = rnr.rmsnorm_bwd_plain(x, scale, g)
+            check(f"K4 dx {tag}", dx, pdx, tol)
+            check(f"K4 dscale {tag}", ds, pds, RN_DSCALE_TOL)
+            if not torch.equal(ds, rn.rmsnorm_bwd_cuda(x, scale, g)[1]):
+                raise AssertionError(f"K4 {tag}: dscale differs between two runs")
+    return bodies
+
+
 def phase_train_kernels():
     from repro_torch.kernels.flash_attention import cuda as fa
     from repro_torch.kernels.flash_attention import ref as far
@@ -689,24 +693,13 @@ def phase_train_kernels():
                             dict(group=G, causal=causal, window=window), bf16=dt == bf)
             if dt == bf:
                 worst_rel = max(worst_rel, *errs["grad_rel"].values())
-    for rows, d in RN_SHAPES:
-        for dt, tol in ((f32, FA_F32_TOL), (bf, RN_BF16_TOL)):
-            x, g = (torch.tensor(np.random.RandomState(rows + d + j).randn(rows, d),
-                                 dtype=f32).to("cuda", dt) for j in (0, 1))
-            scale = (1 + 0.1 * torch.randn(d, generator=torch.Generator().manual_seed(d))).to("cuda")
-            check(f"K3 {dt} {(rows, d)}", rn.rmsnorm_fwd_cuda(x, scale),
-                  rnr.rmsnorm_plain(x, scale), tol)
-            dx, ds = rn.rmsnorm_bwd_cuda(x, scale, g)
-            pdx, pds = rnr.rmsnorm_bwd_plain(x, scale, g)
-            check(f"K4 dx {dt} {(rows, d)}", dx, pdx, tol)
-            check(f"K4 dscale {dt} {(rows, d)}", ds, pds, RN_DSCALE_TOL)
-            if not torch.equal(ds, rn.rmsnorm_bwd_cuda(x, scale, g)[1]):
-                raise AssertionError("K4 dscale differs between two runs")
+    bodies = rmsnorm_check()
     emit(phase="train_kernels_f32", cases=len(cases), fa_tol=FA_F32_TOL,
          fa_grad_tol=FA_F32_GRAD_TOL, fa_bf16_cases=len(cases), fa_bf16_tol=BF16_TOL,
          fa_bf16_worst_grad_rel=worst_rel, fa_bf16_grad_rel_tol=FA_BF16_GRAD_REL,
          fa_bf16_dkv_deterministic=True, fa_head_dims=sorted({c[4] for c in cases}),
-         rmsnorm_shapes=RN_SHAPES, dscale_deterministic=True)
+         rmsnorm_shapes=RN_SHAPES + RN_CASES, rmsnorm_offset_cases=RN_OFFSET_CASES,
+         rmsnorm_bodies=bodies, dscale_deterministic=True)
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     results = {}
@@ -764,37 +757,26 @@ def phase_train_kernels():
                  **row)
             results.setdefault(name, []).append(row)
         del out, qg, kg, vg
-    # K3/K4 at the training path's (B*S, d_model) = (8192, 1152), and granite's width
-    for rows, d in RN_SHAPES:
-        x, g = (torch.tensor(np.random.RandomState(j).randn(rows, d), dtype=torch.float32)
-                .to("cuda", bf) for j in (0, 1))
-        scale = (1 + 0.1 * torch.randn(d, generator=torch.Generator().manual_seed(1))).to("cuda")
-        dx, ds = rn.rmsnorm_bwd_cuda(x, scale, g)
-        pdx, pds = rnr.rmsnorm_bwd_plain(x, scale, g)
-        errs = {"rmsnorm_fwd": max_err(rn.rmsnorm_fwd_cuda(x, scale), rnr.rmsnorm_plain(x, scale)),
-                "rmsnorm_bwd": max(max_err(dx, pdx), max_err(ds, pds))}
-        wx = scale.to(bf)
-        xg, wg = x.detach().clone().requires_grad_(True), wx.detach().clone().requires_grad_(True)
-        out = F.rms_norm(xg, (d,), wg, eps=1e-6)
-        io = rows * d * 2
-        spec = {
-            "rmsnorm_fwd": (lambda: rn.rmsnorm_fwd_cuda(x, scale),
-                            lambda: rnr.rmsnorm_plain(x, scale),
-                            lambda: F.rms_norm(x, (d,), wx, eps=1e-6),
-                            2 * io + 4 * d, 4 * rows * d),
-            "rmsnorm_bwd": (lambda: rn.rmsnorm_bwd_cuda(x, scale, g),
-                            lambda: rnr.rmsnorm_bwd_plain(x, scale, g),
-                            lambda: torch.autograd.grad(out, (xg, wg), g, retain_graph=True),
-                            3 * io + 8 * d, 10 * rows * d),
-        }
-        for name, (kern, plain, lib, nbytes, flops) in spec.items():
-            bms, by = bound(nbytes, flops, bf)
-            row = dict(model="gemma3-1b" if d == 1152 else "granite-8b", kernel=name,
-                       shape=dict(rows=rows, d=d), max_abs_err=errs[name],
-                       kernel_ms=time_ms(kern, flush), plain_ms=time_ms(plain, flush),
-                       library_ms=time_ms(lib, flush), bound_ms=bms, bound_by=by,
-                       bytes=nbytes, flops=flops)
-            emit(phase="train_kernels_bf16", tol=RN_BF16_TOL, **row)
+    # K3/K4 at the main paths' shapes (profile_rmsnorm.SHAPES, bf16), held
+    # against their plain versions there, beside F.rms_norm
+    for model, rows, d, names in prn.SHAPES:
+        (x, scale, g), spec = prn.timed(rows, d)
+        tag = f"bf16 {model} {(rows, d)}"
+        errs = {"rmsnorm_fwd": check(f"K3 {tag}", rn.rmsnorm_fwd_cuda(x, scale),
+                                     rnr.rmsnorm_plain(x, scale), RN_BF16_TOL)}
+        if "rmsnorm_bwd" in names:
+            dx, ds = rn.rmsnorm_bwd_cuda(x, scale, g)
+            pdx, pds = rnr.rmsnorm_bwd_plain(x, scale, g)
+            errs["rmsnorm_bwd"] = max(check(f"K4 dx {tag}", dx, pdx, RN_BF16_TOL),
+                                      check(f"K4 dscale {tag}", ds, pds, RN_DSCALE_TOL))
+        for name in names:
+            t = spec[name]
+            bms, by = bound(t.nbytes, t.flops, bf)
+            row = dict(model=model, kernel=name, shape=dict(rows=rows, d=d),
+                       max_abs_err=errs[name], kernel_ms=time_ms(t.kernel, flush),
+                       plain_ms=time_ms(t.plain, flush), library_ms=time_ms(t.library, flush),
+                       bound_ms=bms, bound_by=by, bytes=t.nbytes, flops=t.flops)
+            emit(phase="train_kernels_bf16", tol=RN_BF16_TOL, dscale_tol=RN_DSCALE_TOL, **row)
             results.setdefault(name, []).append(row)
     return main_path_rows(results)
 

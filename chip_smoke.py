@@ -7,7 +7,9 @@ Phases, in order (any failure exits nonzero and prints no result line):
   2. build   — nvcc builds every kernel source from the checkout, one nvcc per
                source, all started together; ptxas's registers and spills of
                the tensor-core flash-attention kernels per head dim, and of
-               every RMSNorm kernel body, none of which may spill;
+               every RMSNorm and codec (K7, K8) kernel body, none of which may
+               spill; with cuobjdump, each codec body's count of LDS, SHFL,
+               MUFU, F2I, F2F, F2FP and PRMT instructions;
   3. kernels — K5 (paged decode) and K6 (paged prefill) against their plain
                PyTorch versions, in f32 (atol/rtol 2e-5) and in bf16 (4e-3:
                both sides compute in f32 and round once to bf16): the JAX
@@ -36,13 +38,19 @@ Phases, in order (any failure exits nonzero and prints no result line):
   5. quant kernels — K8a / K8b (blockwise dynamic 8-bit quantize,
                dequantize) against their plain versions, bitwise (codes,
                scales, dequantized values): the JAX suite's sizes and scales,
-               a zero input that needs padding, and every leaf size of the
-               adam8bit main path, with times and bounds there;
+               a zero input that needs padding, block absmaxes from the
+               smallest subnormal to FLT_MAX, every midpoint and its f32
+               neighbours times powers of two, +-0 blocks, every f32 in
+               [-1, 1] (K8a, codes and scales), and every leaf size of the
+               adam8bit main path on Adam-m-like and v-like inputs, with
+               times and bounds there;
   6. stash kernels — K7a / K7b (the activation stash's symmetric int8 / fp8
                codec) against the plain version, bitwise, int8 / fp8 x f32 /
                bf16: the JAX suite's shapes, padding, zero blocks, values on
-               int8 and fp8 rounding ties, and the pipe phase's slot, with
-               times, bounds and ptxas registers and spills;
+               int8 and fp8 rounding ties, every finite bf16 value under 100
+               block absmaxes from bf16 subnormals to the largest finite bf16,
+               and the pipe phase's slot, with times, bounds and ptxas
+               registers and spills;
   7. model   — reduced granite-8b on the card (kernels) against the same
                model on the CPU (plain versions), f32, rtol 1e-3;
   8. train-parity — reduced gemma3-1b, f32 with TF32 off: three training
@@ -100,6 +108,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.launch import profile_codec as pcd  # noqa: E402
 from repro_torch.launch import profile_rmsnorm as prn  # noqa: E402
 from repro_torch.launch.timing import bound, time_ms  # noqa: E402
 
@@ -319,12 +328,51 @@ def phase_build() -> None:
         kern, t, vec, nv = m.groups()
         key = kern if t is None else f"{kern}<{'bf16' if t != 'f' else 'f32'},{vec},{nv}>"
         rn_ptxas[key] = r
-    spilled = {k: r["spills"] for k, r in rn_ptxas.items()
+    codec_ptxas = {codec_body(name): r for name, r in ptxas_of(bq.SOURCE, "quantize_kernel").items()}
+    spilled = {k: r["spills"] for k, r in {**rn_ptxas, **codec_ptxas}.items()
                if not r.get("spills", "").startswith("0 bytes stack frame, 0 bytes spill stores")}
     if spilled:
-        raise AssertionError(f"rmsnorm.cu kernels spill: {spilled}")
+        raise AssertionError(f"rmsnorm.cu or blockwise_quant.cu kernels spill: {spilled}")
+    sass = sass_counts(bq.SOURCE, "quantize_kernel")
     emit(phase="build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas,
-         flash_attention_mma_ptxas=fa_mma, rmsnorm_ptxas=rn_ptxas)
+         flash_attention_mma_ptxas=fa_mma, rmsnorm_ptxas=rn_ptxas, codec_ptxas=codec_ptxas,
+         codec_sass=None if sass is None else {codec_body(k): v for k, v in sass.items()})
+
+
+def codec_body(mangled: str) -> str:
+    """``stash_quantize_kernel<1,0>`` (template flags as 0/1) from a mangled
+    name of blockwise_quant.cu."""
+    m = re.search(r"(\w*quantize_kernel)(?:I((?:Lb[01]E)+)E)?", mangled)
+    flags = ",".join(re.findall(r"Lb([01])E", m.group(2) or ""))
+    return f"{m.group(1)}<{flags}>" if flags else m.group(1)
+
+
+SASS_OPS = ("LDS", "SHFL", "MUFU", "F2I", "F2F", "F2FP", "PRMT")
+
+
+def sass_counts(source: str, key: str):
+    """For each entry function of ``source`` whose mangled name holds
+    ``key``, the number of SASS instructions of each ``SASS_OPS`` kind, from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    from repro_torch.kernels import build
+
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    text = subprocess.run([str(tool), "-sass", str(build.library_path(source))], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    out, name = {}, None
+    for ln in text.splitlines():
+        head = re.match(r"\s*Function : (\S+)", ln)
+        if head:
+            name = head.group(1) if key in head.group(1) else None
+            if name:
+                out[name] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?\w+\s+)?([A-Z0-9]+)", ln)
+        if name and op and op.group(1) in out[name]:
+            out[name][op.group(1)] += 1
+    return out
 
 
 # K5 decode lengths at a split boundary (cuda.DECODE_SPLIT = 64 keys), one
@@ -800,29 +848,6 @@ def main_path_rows(results):
 
 
 # ------------------------------------------------------- quant kernels (K8)
-# the adam8bit main path's quantized leaves of gemma3-1b, padded to 16,384
-# values as ops.quantize pads them: (padded size, leaves of that size); each
-# leaf's m and v go through K8b then K8a once per step
-K8_LEAVES = [
-    (301_989_888, 1),          # embed/table (262,144 x 1,152)
-    (207_028_224, 3),          # ffn w_up, w_down, w_gate (26 x 1,152 x 6,912)
-    (30_670_848, 2),           # mixer wq, wo (26 x 1,152 x 1,024)
-    (7_667_712, 2),            # mixer wk, wv (26 x 1,152 x 256)
-    (32_768, 2),               # norm1, norm2 scale (26 x 1,152 = 29,952)
-]
-K8_PER_STEP = 2 * sum(k for _, k in K8_LEAVES)     # (m, v) per quantized leaf
-
-
-def k8_bounds(n: int):
-    """(bytes, flops) of K8a and K8b over n values: each input read once,
-    each output written once (4 B values, 1 B codes, 4 B per 256-block
-    scale); K8a does |x|, a max, a division and 8 compares per value, K8b
-    one multiply."""
-    scales = 4 * (n // 256)
-    return {"blockwise_quantize": (5 * n + scales, 11 * n),
-            "blockwise_dequantize": (5 * n + scales, n)}
-
-
 def k8_check(tag, x):
     """K8a / K8b on x against the plain versions on the same card tensor,
     bitwise. Returns (codes, scales)."""
@@ -842,6 +867,78 @@ def k8_check(tag, x):
     return c, s
 
 
+# K8a's exhaustive sweep: every f32 in [-1, 1] (the bit patterns 0 ..
+# 0x3f800000 and the same with the sign bit), 255 to a block beside a planted
+# 1.0, so that x / absmax is x; at most 2^28 values a launch
+K8_SWEEP = 2 * (0x3F800000 + 1)
+K8_SWEEP_BLOCKS = 2**28 // 256
+# K8a's division: block absmaxes from the smallest subnormal to FLT_MAX (the
+# reciprocal's range is [2^-64, 2^64]), and the midpoints, their f32
+# neighbours, +-0 and +-1 times 2^k in blocks of absmax 2^k
+K8_ABSMAX = (2.0**-149, 1e-40, 2.0**-126, 1e-30, 2.0**-65, 2.0**-64, 1.0, 2.0**64, 2.0**65,
+             3.0e38, 3.4028235e38)
+K8_MID_SHIFTS = (-149, -140, -130, -126, -100, -65, -64, -20, -3, 0, 20, 64, 65, 100, 127)
+
+
+def planted(values: torch.Tensor, top: float) -> torch.Tensor:
+    """``values`` 255 to a 256-value block (the last block padded with 0)
+    beside a planted ``top`` at each block's start, flat f32."""
+    nb = -(-values.numel() // 255)
+    body = F.pad(values.float(), (0, nb * 255 - values.numel())).view(nb, 255)
+    return torch.cat([torch.full((nb, 1), top, dtype=torch.float32, device=values.device),
+                      body], 1).reshape(-1)
+
+
+def k8_sweep() -> int:
+    """K8a on every f32 in [-1, 1] (``K8_SWEEP``) against the plain version,
+    codes and scales bitwise; returns the values swept."""
+    from repro_torch.kernels.blockwise_quant import cuda as bq
+    from repro_torch.kernels.blockwise_quant import ref as bqr
+
+    per = K8_SWEEP_BLOCKS * 255
+    for i0 in range(0, K8_SWEEP, per):
+        k = torch.arange(i0, min(i0 + per, K8_SWEEP), dtype=torch.int64, device="cuda")
+        half = K8_SWEEP // 2
+        bits_ = torch.where(k < half, k, k - half - 2**31)        # sign bit set
+        x = planted(bits_.to(torch.int32).view(torch.float32), 1.0)
+        c, s = bq.quantize_cuda(x)
+        pc, ps = bqr.quantize_ref(x)
+        if not (torch.equal(c, pc) and torch.equal(s, ps)):
+            bad = (c != pc).nonzero()[:4, 0].tolist()
+            raise AssertionError(f"K8a sweep from {i0}: {int((c != pc).sum())} codes differ "
+                                 f"from the plain version, e.g. x {x[bad].tolist()} -> "
+                                 f"{c[bad].tolist()} vs {pc[bad].tolist()}")
+        del k, bits_, x, c, s, pc, ps
+    torch.cuda.empty_cache()
+    return K8_SWEEP
+
+
+def k8_division_cases() -> int:
+    """K8a / K8b on ``K8_ABSMAX`` and ``K8_MID_SHIFTS`` blocks, and on +-0
+    blocks, bitwise; returns the cases."""
+    from repro_torch.kernels.blockwise_quant import ref as bqr
+
+    rng = np.random.RandomState(19)
+    cases = 0
+    for am in K8_ABSMAX:
+        top = float(torch.tensor(am, dtype=torch.float32))
+        u = torch.tensor(rng.uniform(-1, 1, 255 * 16), dtype=torch.float32, device="cuda")
+        k8_check(f"absmax {am}", planted(u * top, top))
+        cases += 1
+    _, mid = bqr.code_table("cuda")
+    vals = torch.cat([mid, torch.nextafter(mid, torch.full_like(mid, 2.0)),
+                      torch.nextafter(mid, torch.full_like(mid, -2.0)),
+                      torch.tensor([0.0, -0.0, 1.0, -1.0], device="cuda")])
+    for k in K8_MID_SHIFTS:
+        top = torch.tensor(2.0**k, dtype=torch.float32).item()
+        k8_check(f"midpoints x 2^{k}", planted(vals * top, top))
+        cases += 1
+    for z in (0.0, -0.0):
+        k8_check(f"zeros {z}", torch.full((256 * 4,), z, device="cuda"))
+        cases += 1
+    return cases
+
+
 def phase_quant_kernels():
     from repro_torch.kernels.blockwise_quant import cuda as bq
     from repro_torch.kernels.blockwise_quant import ops as bqo
@@ -858,16 +955,19 @@ def phase_quant_kernels():
     k8_check("zeros", F.pad(x, (0, c.numel() - 100)))
     if c.shape != (16384,) or float(bqo.dequantize(c, s, n, (100,)).abs().max()) != 0.0:
         raise AssertionError("K8: a zero input does not come back as zeros")
-    emit(phase="quant_kernels_cases", cases=cases + 1, bitwise=True)
+    cases += 1 + k8_division_cases()
+    t0 = time.perf_counter()
+    swept = k8_sweep()
+    emit(phase="quant_kernels_cases", cases=cases, bitwise=True, sweep_values=swept,
+         sweep_s=round(time.perf_counter() - t0, 3))
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(8)
-    per_size = {}
-    for n, leaves in K8_LEAVES:
-        # Adam-moment-like values: normal, with a magnitude that varies by
-        # four decades from block to block
-        x = torch.randn(n, generator=gen, device="cuda")
-        x *= 10.0 ** (-4 * torch.rand(n // 256, generator=gen, device="cuda")).repeat_interleave(256)
+    per_size, v_rows = {}, []
+    for n, leaves in pcd.K8_LEAVES:
+        # Adam-moment-like values (pcd.k8_input): m, normal with a magnitude
+        # that varies by four decades from block to block, then v, squares
+        x = pcd.k8_input("m", n, gen)
         c, s = k8_check(f"leaf {n}", x)
         times = {
             "blockwise_quantize": (time_ms(lambda: bq.quantize_cuda(x), flush),
@@ -876,24 +976,35 @@ def phase_quant_kernels():
                                      time_ms(lambda: bqr.dequantize_ref(c, s), flush,
                                              warmup=2, reps=5)),
         }
-        for name, (nbytes, flops) in k8_bounds(n).items():
+        for name, (nbytes, flops) in pcd.k8_bounds(n).items():
             bms, by = bound(nbytes, flops, torch.float32)
             row = dict(kernel=name, n=n, leaves=leaves, kernel_ms=times[name][0],
                        plain_ms=times[name][1], library_ms=None, bound_ms=bms,
                        bound_by=by, bytes=nbytes, flops=flops, max_abs_err=0.0)
-            emit(phase="quant_kernels", library="none: no single PyTorch call computes "
-                 "the blockwise dynamic codec", **row)
+            emit(phase="quant_kernels", input="m", library="none: no single PyTorch call "
+                 "computes the blockwise dynamic codec", **row)
             per_size.setdefault(name, []).append(row)
         del x, c, s
+        x = pcd.k8_input("v", n, gen)
+        k8_check(f"leaf {n} v", x)
+        v_rows.append(dict(kernel_ms=time_ms(lambda: bq.quantize_cuda(x), flush),
+                           bound_ms=per_size["blockwise_quantize"][-1]["bound_ms"],
+                           leaves=leaves))
+        emit(phase="quant_kernels", input="v", kernel="blockwise_quantize", n=n,
+             leaves=leaves, **{k: v_rows[-1][k] for k in ("kernel_ms", "bound_ms")})
+        del x
     torch.cuda.empty_cache()
     # one row per kernel: the mean per launch over one step's mix of leaves
+    # (m-like input; K8a's v-like mean in a line of its own)
     rows = {}
-    total = sum(k for _, k in K8_LEAVES)
+    total = sum(k for _, k in pcd.K8_LEAVES)
     for name, rs in per_size.items():
         mean = {k: sum(r[k] * r["leaves"] for r in rs) / total
                 for k in ("kernel_ms", "plain_ms", "bound_ms")}
         by = max(rs, key=lambda r: r["bound_ms"] * r["leaves"])["bound_by"]
         rows[name] = dict(mean, library_ms=None, bound_by=by, max_abs_err=0.0)
+    emit(phase="quant_kernels_mean", kernel="blockwise_quantize", input="v",
+         **{k: sum(r[k] * r["leaves"] for r in v_rows) / total for k in ("kernel_ms", "bound_ms")})
     return rows
 
 
@@ -1010,7 +1121,7 @@ def phase_train(wl, name: str):
                 "rmsnorm_fwd": 2 * L + 1, "rmsnorm_bwd": 2 * L + 1}
     # 8-bit Adam: K8b then K8a on m and v of every quantized leaf per step,
     # and K8a on the zero m and v of each at init
-    k8 = K8_PER_STEP if tc.optimizer == "adam8bit" else 0
+    k8 = pcd.K8_PER_STEP if tc.optimizer == "adam8bit" else 0
     want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
     want.update(blockwise_quantize=k8 * (TRAIN_STEPS + 1), blockwise_dequantize=k8 * TRAIN_STEPS,
                 stash_quantize=0, stash_dequantize=0)
@@ -1042,10 +1153,8 @@ def phase_train(wl, name: str):
 
 
 # ------------------------------------------------------- stash kernels (K7)
-# tests/test_kernels_quant.py SHAPES, and the pipe phase's slot: one
-# microbatch (1 x 2048) of granite-8b's d_model 4096
+# tests/test_kernels_quant.py SHAPES; the pipe phase's slot is pcd.STASH_SLOT
 STASH_SHAPES = [(3, 7), (257,), (2, 2, 130), (64, 256), (33, 77)]
-STASH_SLOT = (1, 2048, 4096)
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -1116,15 +1225,24 @@ def ptxas_of(source: str, key: str) -> dict:
     return out
 
 
-def stash_bounds(n: int, in_size: int, out_size: int):
-    """(bytes, flops) of K7a (values of in_size bytes -> 1-byte codes and a
-    4-byte scale per 256) and K7b (codes and scales -> values of out_size
-    bytes): each input read once, each output written once; K7a does |x|, a
-    max, a division, two clamps and a rounding per value, K7b a conversion
-    and a multiply."""
-    scales = 4 * (n // 256)
-    return {"stash_quantize": (n * in_size + n + scales, 6 * n),
-            "stash_dequantize": (n + scales + n * out_size, 2 * n)}
+# K7a's bf16 sweep: block absmaxes 2^k, 1.5 * 2^k (k = -133 .. 127 by 4: bf16
+# subnormals to 2^127) and the largest finite bf16
+STASH_ABSMAX = ([2.0**k for k in range(-133, 128, 4)] + [1.5 * 2.0**k for k in range(-131, 127, 8)]
+                + [3.3895313892515355e38])
+
+
+def stash_bf16_sweep(storage) -> int:
+    """K7a / K7b on every finite bf16 value under each ``STASH_ABSMAX``: the
+    values of magnitude at most the absmax, 255 to a block beside it,
+    bitwise; returns the absmaxes run."""
+    every = torch.arange(-2**15, 2**15, dtype=torch.int32, device="cuda").to(torch.int16)
+    every = every.view(torch.bfloat16).float()
+    every = every[torch.isfinite(every)]
+    for am in STASH_ABSMAX:
+        top = torch.tensor(am).to(torch.bfloat16).float()
+        x = planted(every[every.abs() <= top], top.item()).to(torch.bfloat16)
+        stash_check(f"{storage} bf16 sweep absmax {top.item():.6g}", x, storage)
+    return len(STASH_ABSMAX)
 
 
 def phase_stash_kernels():
@@ -1135,7 +1253,7 @@ def phase_stash_kernels():
     cases = 0
     for storage in ("int8", "fp8"):
         for dt in (torch.float32, torch.bfloat16):
-            for i, shape in enumerate(STASH_SHAPES + [(100,), STASH_SLOT]):
+            for i, shape in enumerate(STASH_SHAPES + [(100,), pcd.STASH_SLOT]):
                 stash_check(f"{storage} {dt} {shape}", stash_mixed(shape, i).to(dt), storage)
                 cases += 1
             stash_check(f"{storage} {dt} ties", stash_ties().to(dt), storage)
@@ -1144,9 +1262,10 @@ def phase_stash_kernels():
             if c.shape != (1, 256) or float(s[0]) != 0.0:
                 raise AssertionError("K7: a zero input does not pad to one block of scale 0")
             cases += 2
+    for storage in ("int8", "fp8"):
+        cases += stash_bf16_sweep(storage)
     # the main path's call: K7a writes into a slot's rows, K7b reads them
-    x = torch.tensor(np.random.RandomState(1).randn(*STASH_SLOT), dtype=torch.float32,
-                     device="cuda").to(torch.bfloat16)
+    x = pcd.stash_input()
     codes = torch.zeros((3,) + (x.numel() // 256, 256), dtype=torch.int8, device="cuda")
     scales = torch.zeros((3, x.numel() // 256), device="cuda")
     bqo.stash_quantize(x, "int8", out=(codes[1], scales[1]))
@@ -1169,13 +1288,13 @@ def phase_stash_kernels():
                 time_ms(lambda: bqo.stash_quantize(x, storage, out=(c, s)), flush),
                 time_ms(lambda: quant.kv_quantize(x.view(-1, 256), sdt), flush, warmup=2, reps=10)),
             "stash_dequantize": (
-                time_ms(lambda: bqo.stash_dequantize(c, s, STASH_SLOT, torch.bfloat16), flush),
+                time_ms(lambda: bqo.stash_dequantize(c, s, pcd.STASH_SLOT, torch.bfloat16), flush),
                 time_ms(lambda: quant.kv_dequantize(c, s, torch.bfloat16), flush, warmup=2,
                         reps=10)),
         }
-        for name, (nbytes, flops) in stash_bounds(n, 2, 2).items():
+        for name, (nbytes, flops) in pcd.stash_bounds(n, 2, 2).items():
             bms, by = bound(nbytes, flops, torch.float32)
-            row = dict(kernel=name, storage=storage, shape=STASH_SLOT, dtype="bf16",
+            row = dict(kernel=name, storage=storage, shape=pcd.STASH_SLOT, dtype="bf16",
                        kernel_ms=times[name][0], plain_ms=times[name][1], library_ms=None,
                        bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops, max_abs_err=0.0)
             emit(phase="stash_kernels", library="none: no single PyTorch call computes "

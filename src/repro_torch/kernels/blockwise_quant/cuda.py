@@ -7,8 +7,9 @@ Each wrapper checks device, dtype, shape, contiguity and alignment,
 allocates its outputs with ``torch.empty``, launches on the current CUDA
 stream, raises when the C launcher returns a nonzero ``cudaGetLastError()``,
 and adds one to its entry of ``LAUNCHES`` — only there, so a run can show
-that it went through the kernel. The code map and its midpoints are the
-plain version's f32 tensors (``ref.code_table``), kept on each device once.
+that it went through the kernel. The code map is the plain version's f32
+tensor (``ref.code_table``), and K8a's midpoints are laid out for its search
+(``ref.search_table``), both kept on each device once.
 K7a takes the buffers to write into, so a stash slot's rows are filled in
 place with no copy.
 """
@@ -20,7 +21,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.blockwise_quant.ref import BLOCK, code_table
+from repro_torch.kernels.blockwise_quant.ref import BLOCK, code_table, search_table
 
 SOURCE = "blockwise_quant/csrc/blockwise_quant.cu"
 QUANT = "blockwise_quantize"
@@ -59,15 +60,17 @@ def library() -> ctypes.CDLL:
 
 
 def _tables(dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(code map, K8a's search table) on ``dev``."""
     if dev not in _TABLES:
-        _TABLES[dev] = code_table(dev)
+        _TABLES[dev] = (code_table(dev)[0], search_table(dev))
     return _TABLES[dev]
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape: Sequence[int], dev,
            align: int) -> None:
     """``align``: the kernel reads or writes ``t`` in units of this many bytes
-    (16-byte vectors of values, 4 or 8 bytes of codes, a float for scales)."""
+    (16-byte vectors of values, 4, 8 or 16 bytes of codes, a float for
+    scales)."""
     if t.device != dev or t.dtype != dtype or tuple(t.shape) != tuple(shape):
         raise TypeError(f"{name} must be {dtype} {tuple(shape)} on {dev}, got "
                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
@@ -94,12 +97,12 @@ def quantize_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     if n % BLOCK:
         raise ValueError(f"{n} values are not a multiple of the block {BLOCK}")
     _check("x", x, torch.float32, (n,), dev, 16)
-    _, mid = _tables(dev)
+    _, search = _tables(dev)
     codes = torch.empty(n, dtype=torch.uint8, device=dev)
     scales = torch.empty(n // BLOCK, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = library().blockwise_quantize(
-            x.data_ptr(), mid.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+            x.data_ptr(), search.data_ptr(), codes.data_ptr(), scales.data_ptr(),
             n // BLOCK, torch.cuda.current_stream(dev).cuda_stream,
         )
     _raise_on(err, QUANT)
@@ -149,7 +152,7 @@ def stash_quantize_cuda(
     if scales is None:
         scales = torch.empty(nb, dtype=torch.float32, device=dev)
     _check("x", x, x.dtype, (n,), dev, 16)
-    _check("codes", codes, sdt, (nb, BLOCK), dev, 8)
+    _check("codes", codes, sdt, (nb, BLOCK), dev, 16)
     _check("scales", scales, torch.float32, (nb,), dev, 4)
     with torch.cuda.device(dev):
         err = library().stash_quantize(

@@ -52,6 +52,27 @@ def code_table(device) -> Tuple[torch.Tensor, torch.Tensor]:
     return codes, (codes[1:] + codes[:-1]) / 2.0
 
 
+SEARCH_PAD = 32                     # K8a's table: one pad word every 32 midpoints
+
+
+def search_table(device) -> torch.Tensor:
+    """K8a's midpoint table (f32 (132,) on ``device``): the 128 positive
+    midpoints P_m = mid[127 + m] with P_m at index m + m // 32, and +inf in
+    the four pad slots, which the kernel never reads. The pad puts each of
+    its search steps' candidates in distinct shared-memory banks but the
+    last's, two to a bank (``csrc/blockwise_quant.cu``). The kernel searches
+    |v| there and mirrors the count for v < 0, which needs mid[126 - m] ==
+    -mid[127 + m] for m < 127: checked here."""
+    _, mid = code_table("cpu")
+    pos = mid[127:]
+    if not torch.equal(mid[:127], -pos[:127].flip(0)):
+        raise AssertionError("the midpoints are not symmetric about 0 below the top one")
+    m = torch.arange(pos.numel())
+    table = torch.full((pos.numel() + pos.numel() // SEARCH_PAD,), float("inf"))
+    table[m + m // SEARCH_PAD] = pos
+    return table.to(device)
+
+
 def quantize_ref(x: torch.Tensor, block: int = BLOCK) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: flat f32 (n,), n % block == 0 -> (codes uint8 (n,), scales f32 (n/block,))."""
     _, mid = code_table(x.device)

@@ -192,6 +192,114 @@ def test_4bit_map_codec_and_grad_scale_match_jax(scale):
                                float(jlowbit4.grad_scale(jnp.asarray(x))), rtol=1e-6)
 
 
+# ---------------------------------------- K8a's search and division, emulated
+def kernel_search(v: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """K8a's index arithmetic (``csrc/blockwise_quant.cu::code_of``) in plain
+    torch over the host's ``search_table``: the bits of |v| (or of the float
+    below it when the sign bit is set), two steps on the 3 register
+    midpoints, five in the padded table, the count mirrored for v < 0."""
+    t = table.view(torch.int32).long()
+    bits = v.contiguous().view(torch.int32).long()
+    neg = -(bits < 0).long()                       # the kernel's bits >> 31
+    w = (bits & 0x7FFFFFFF) + neg
+
+    def at(m):
+        return t[m + m // ref.SEARCH_PAD]
+
+    s64 = (w >= at(63)).long()
+    s32 = (w >= torch.where(s64 == 1, at(95), at(31))).long()
+    pos = 64 * s64 + 32 * s32
+    a = pos + pos // 32
+    for step in (16, 8, 4, 2, 1):
+        a = a + step * (t[a + step - 1] <= w).long()
+    c = a - pos // 32 + ((neg == 0) & (w >= at(127))).long()
+    return 127 + ((c ^ neg) - neg)
+
+
+def test_search_table_layout_puts_each_step_in_distinct_banks():
+    """P_m = mid[127 + m] at m + m // 32, +inf in the pads; the midpoints are
+    mirrored below the top one; the candidates of the table's steps s = 16,
+    8, 4, 2 fall in distinct banks (32 of 4 bytes) and those of s = 1 two to
+    a bank."""
+    _, mid = ref.code_table("cpu")
+    table = ref.search_table("cpu")
+    m = torch.arange(128)
+    assert table.shape == (132,) and torch.equal(table[m + m // 32], mid[127:])
+    assert torch.isinf(table[[32, 65, 98, 131]]).all()
+    assert torch.equal(mid[:127], -mid[127:254].flip(0))
+    for step, most in ((16, 1), (8, 1), (4, 1), (2, 1), (1, 2)):
+        cand = torch.arange(0, 128, 2 * step) + step - 1
+        banks = (cand + cand // 32) % 32
+        assert int(torch.bincount(banks).max()) == most, step
+
+
+def _search_inputs():
+    _, mid = ref.code_table("cpu")
+    near = [mid]
+    for d in (1, 2):                                # two f32 neighbours a side
+        for to in (2.0, -2.0):
+            x = mid
+            for _ in range(d):
+                x = torch.nextafter(x, torch.full_like(x, to))
+            near.append(x)
+    tiny = torch.tensor([0.0, -0.0, 1.0, -1.0, 2.0**-149, -(2.0**-149), 2.0**-126,
+                         -(2.0**-126), 1.1754942e-38, -1.1754942e-38, 1e-40, -1e-40])
+    rng = np.random.RandomState(19)
+    seeded = np.concatenate([rng.uniform(-1, 1, 500_000),
+                             rng.choice([-1, 1], 500_000) * 10.0 ** rng.uniform(-9, 0, 500_000)])
+    return {"midpoints": torch.cat(near), "zeros-ones-subnormals": tiny,
+            "seeded": torch.tensor(seeded, dtype=torch.float32)}
+
+
+@pytest.mark.parametrize("inputs", ["midpoints", "zeros-ones-subnormals", "seeded"])
+def test_kernel_search_equals_searchsorted(inputs):
+    v = _search_inputs()[inputs]
+    _, mid = ref.code_table("cpu")
+    want = torch.searchsorted(mid, v, right=True)
+    assert torch.equal(kernel_search(v, ref.search_table("cpu")), want)
+
+
+def _rn32_of_sum(a, b):
+    """The f32 nearest (ties to even) to the exact a + b, a and b f64 with
+    f32-sized terms: TwoSum, then the tail t decides a sum on an f32 tie."""
+    s = a + b
+    bb = s - a
+    t = (a - (s - bb)) + (b - bb)
+    f = s.astype(np.float32)
+    ff = f.astype(np.float64)
+    nb = np.nextafter(f, np.where(s > ff, np.float32(np.inf), np.float32(-np.inf))).astype(np.float64)
+    tie = (s == (ff + nb) / 2) & (s != ff)
+    out = f.copy()
+    toward_nb = tie & (((t > 0) & (nb > ff)) | ((t < 0) & (nb < ff)))
+    toward_f = tie & (((t > 0) & (nb < ff)) | ((t < 0) & (nb > ff)))
+    out[toward_nb] = nb[toward_nb].astype(np.float32)
+    out[toward_f] = f[toward_f]
+    return out
+
+
+def test_one_reciprocal_quotient_is_ieee_division():
+    """K8a's and K7a's quotient for 2^-64 <= safe <= 2^64: r = RN(1 / safe),
+    q0 = RN(x r), e = x - q0 safe (exact in f64, rounded once as the FMA
+    does), q = RN(q0 + e r), against RN(x / safe) (f64 division rounded to
+    f32 is correctly rounded), for |x| <= safe: every mantissa of safe in
+    [1, 2), and seeded exponents of safe and x/safe."""
+    rng = np.random.RandomState(7)
+    n = 1 << 20
+    safe = ((np.arange(n, dtype=np.uint32) * 8 % (1 << 23)) | (127 << 23)).view(np.float32)
+    safe = (safe * np.exp2(rng.randint(-64, 64, n))).astype(np.float32)
+    u = ((rng.randint(0, 1 << 23, n).astype(np.uint32))
+         | (rng.randint(127 - 40, 128, n).astype(np.uint32) << 23)).view(np.float32)
+    x = np.where(u >= 1, np.float32(1), u).astype(np.float32) * safe
+    x = np.where(rng.rand(n) < 0.5, -x, x).astype(np.float32)
+    r = (1.0 / safe.astype(np.float64)).astype(np.float32).astype(np.float64)
+    q0 = (x.astype(np.float64) * r).astype(np.float32).astype(np.float64)
+    e = (x.astype(np.float64) - q0 * safe.astype(np.float64)).astype(np.float32)
+    q = _rn32_of_sum(q0, e.astype(np.float64) * r)
+    want = (x.astype(np.float64) / safe.astype(np.float64)).astype(np.float32)
+    np.testing.assert_array_equal(q, want)
+    assert (q0.astype(np.float32) != want).any()    # the correction is needed
+
+
 def test_cpu_route_never_touches_cuda(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("CUDA path taken for a CPU tensor")

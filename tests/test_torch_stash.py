@@ -145,6 +145,28 @@ def test_codec_against_jitted_and_pallas_interpret(dtype, storage):
         print(f"  codes differing {diff.mean():.6f}")
 
 
+def kernel_int8_code(q: torch.Tensor) -> torch.Tensor:
+    """K7a's int8 rounding (``csrc/blockwise_quant.cu::int8_code``) in plain
+    torch: clamp to +-127, add 1.5 * 2^23 in f32 (round to nearest even), and
+    read the code from byte 0 of the sum's bits."""
+    t = torch.clamp(q.float(), -127.0, 127.0) + 12582912.0
+    return (t.view(torch.int32) & 0xFF).to(torch.uint8).view(torch.int8)
+
+
+@pytest.mark.parametrize("inputs", ["halves", "seeded"])
+def test_kernel_int8_rounding_equals_torch_round(inputs):
+    """Every multiple of 0.5 in [-127, 127] (each tie, both signs), and 10^5
+    seeded quotients in [-130, 130], against the plain version's
+    ``torch.round`` (half to even) after its clamp."""
+    if inputs == "halves":
+        q = torch.arange(-254, 255, dtype=torch.float32) / 2
+    else:
+        q = torch.tensor(np.random.RandomState(11).uniform(-130, 130, 100_000),
+                         dtype=torch.float32)
+    want = torch.round(torch.clamp(q, -127.0, 127.0)).to(torch.int8)
+    assert torch.equal(kernel_int8_code(q), want)
+
+
 def test_cpu_route_never_touches_cuda(monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("CUDA path taken for a CPU tensor")

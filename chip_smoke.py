@@ -9,7 +9,8 @@ Phases, in order (any failure exits nonzero and prints no result line):
                the tensor-core flash-attention kernels per head dim, and of
                every RMSNorm and codec (K7, K8) kernel body, none of which may
                spill; with cuobjdump, each codec body's count of LDS, SHFL,
-               MUFU, F2I, F2F, F2FP and PRMT instructions;
+               MUFU, F2I, F2F, F2FP and PRMT instructions; the registers and
+               spills of every K5/K6 instance over an int8 or fp8 pool;
   3. kernels — K5 (paged decode) and K6 (paged prefill) against their plain
                PyTorch versions, in f32 (atol/rtol 2e-5) and in bf16 (4e-3:
                both sides compute in f32 and round once to bf16): the JAX
@@ -22,6 +23,11 @@ Phases, in order (any failure exits nonzero and prints no result line):
                256, granite-34b's G 48 at hd 128) across split edges, batched
                == alone; then bf16 at the serving path's shapes (and
                granite-34b's) with times, bounds and a library yardstick;
+               then over int8 and fp8 pools (codes and f32 scales from
+               kv_quantize), f32 q at 2e-5 and bf16 q at 4e-3: the same cases,
+               a poisoned null page (NaN codes and scales) that must not leak,
+               batched == alone bitwise, and timed at the serve workload's
+               decode and 128-token prefill shapes beside the bf16 kernel;
   4. train kernels — K1 (flash forward), K2 (its delta, dq and dk/dv
                launches), K3 and K4 (RMSNorm forward, backward) against their
                plain versions: f32 on the JAX suites' shapes and hd 96
@@ -52,7 +58,9 @@ Phases, in order (any failure exits nonzero and prints no result line):
                and the pipe phase's slot, with times, bounds and ptxas
                registers and spills;
   7. model   — reduced granite-8b on the card (kernels) against the same
-               model on the CPU (plain versions), f32, rtol 1e-3;
+               model on the CPU (plain versions), f32, rtol 1e-3, with the
+               pool at f32 and as int8 and fp8 codes (the share of codes that
+               differ card vs CPU printed);
   8. train-parity — reduced gemma3-1b, f32 with TF32 off: three training
                steps on the card against the same steps on the CPU, rtol 1e-3,
                with AdamW, and with adam8bit and adam4bit on a 24-layer,
@@ -86,7 +94,11 @@ Phases, in order (any failure exits nonzero and prints no result line):
                ServeEngine (chunked prefill 128, 4 slots, page 16), launch
                counters read around this run only;
  15. alone   — 2 of the requests rerun alone in a fresh engine must give the
-               same greedy tokens.
+               same greedy tokens;
+ 16. serve-int8, serve-fp8 — the same workload with the pool as int8 / fp8
+               codes (the same weights): exact launch counts of the quantized
+               K5/K6 (the bf16 variants at 0) and K3, tokens/s, TTFT, pool
+               bytes and peak memory; each followed by its alone phase.
 The line before last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -133,6 +145,12 @@ KERNELS = {
     "blockwise_dequantize": (BQ_SOURCE, "src/repro/kernels/blockwise_quant/kernel.py:87"),
     "stash_quantize": (BQ_SOURCE, "src/repro/kernels/blockwise_quant/kernel.py:147"),
     "stash_dequantize": (BQ_SOURCE, "src/repro/kernels/blockwise_quant/kernel.py:181"),
+    # over int8 / fp8 pools: the same TPU kernels with their k_scale / v_scale
+    "paged_decode_attention_int8": (PA_SOURCE, "src/repro/kernels/paged_attention/kernel.py:262"),
+    "paged_decode_attention_fp8": (PA_SOURCE, "src/repro/kernels/paged_attention/kernel.py:262"),
+    "paged_prefill_attention_int8": (PA_SOURCE,
+                                     "src/repro/kernels/paged_attention/kernel.py:195"),
+    "paged_prefill_attention_fp8": (PA_SOURCE, "src/repro/kernels/paged_attention/kernel.py:195"),
 }
 
 
@@ -232,16 +250,23 @@ def visible_keys(qpos: int, window: int) -> int:
     return min(n, window) if window > 0 else n
 
 
-def extent_bytes(lo_pos: int, end_tok: int, page: int, Kv: int, hd: int,
-                 isz: int, window: int) -> int:
+def extent_bytes(lo_pos: int, end_tok: int, page: int, Kv: int, row_bytes: int,
+                 window: int) -> int:
     """Least bytes of K, V and block table that rows at positions lo_pos ..
-    end_tok-1 need: the K/V rows from the lowest row's window start (0
-    without a window) to end_tok, and the table entries of their pages."""
+    end_tok-1 need: the K/V rows (``row_bytes`` each, per kv head) from the
+    lowest row's window start (0 without a window) to end_tok, and the table
+    entries of their pages."""
     first = max(0, lo_pos - window + 1) if window > 0 else 0
     if end_tok <= first:
         return 0
     entries = (end_tok - 1) // page - first // page + 1
-    return 2 * (end_tok - first) * Kv * hd * isz + 4 * entries
+    return 2 * (end_tok - first) * Kv * row_bytes + 4 * entries
+
+
+def pool_row_bytes(kp, hd: int) -> int:
+    """Bytes of one cached (key, kv head) row of a pool: hd elements, and a
+    quantized pool's 4-byte scale beside its hd 1-byte codes."""
+    return hd * kp.element_size() + (4 if kp.element_size() == 1 else 0)
 
 
 def decode_bound(q, kp, tables, lengths, window):
@@ -251,7 +276,7 @@ def decode_bound(q, kp, tables, lengths, window):
     nbytes = 2 * q.numel() * isz + lengths.numel() * 4      # q in, out, lengths
     flops = 0
     for L in lengths.tolist():
-        nbytes += extent_bytes(L - 1, L, page, Kv, hd, isz, window)
+        nbytes += extent_bytes(L - 1, L, page, Kv, pool_row_bytes(kp, hd), window)
         flops += 4 * hd * G * Kv * visible_keys(L - 1, window)
     return nbytes, flops
 
@@ -265,7 +290,7 @@ def prefill_bound(q, kp, tables, starts, qlens, window):
     flops = 0
     for s, n in zip(starts.tolist(), qlens.tolist()):
         nbytes += 2 * n * row_bytes         # the q_len valid rows in and out
-        nbytes += extent_bytes(s, s + n, page, Kv, hd, isz, window)
+        nbytes += extent_bytes(s, s + n, page, Kv, pool_row_bytes(kp, hd), window)
         flops += sum(4 * hd * G * Kv * visible_keys(s + t, window) for t in range(n))
     return nbytes, flops
 
@@ -336,7 +361,27 @@ def phase_build() -> None:
     sass = sass_counts(bq.SOURCE, "quantize_kernel")
     emit(phase="build", seconds=round(time.perf_counter() - t0, 3), ptxas=ptxas,
          flash_attention_mma_ptxas=fa_mma, rmsnorm_ptxas=rn_ptxas, codec_ptxas=codec_ptxas,
-         codec_sass=None if sass is None else {codec_body(k): v for k, v in sass.items()})
+         codec_sass=None if sass is None else {codec_body(k): v for k, v in sass.items()},
+         paged_quant_ptxas=paged_quant_ptxas(pa.SOURCE))
+
+
+def paged_quant_ptxas(source: str) -> dict:
+    """Registers and spills of every paged-attention kernel instance over an
+    int8 or fp8 pool, keyed by its demangled template name (cu++filt)."""
+    from repro_torch.kernels import build
+
+    found = ptxas_of(source, "paged_")
+    tool = Path(build.nvcc_path()).with_name("cu++filt")
+    names = list(found)
+    if tool.exists():
+        names = subprocess.run([str(tool)], input="\n".join(names), check=True,
+                               capture_output=True, text=True, timeout=60).stdout.splitlines()
+    out = {}
+    for mangled, name in zip(found, names):
+        short = re.sub(r"^.*::(paged_\w+<[^>]*>).*$", r"\1", name)
+        if re.search(r"signed char|fp8_e4m3|(?:f|bfloat16)aLi|Li\d+EaE", short):
+            out[short] = found[mangled]
+    return out
 
 
 def codec_body(mangled: str) -> str:
@@ -425,6 +470,96 @@ def assert_batched_equals_alone(name, fn, args, qlens=None):
             raise AssertionError(f"{name}: slot {b} batched != alone")
 
 
+def paged_case_checks(tag, prep, tol, poison) -> int:
+    """Every K5/K6 case of the kernels phases: each made in f32 and turned by
+    ``prep`` (f32 args -> (args, scale keywords): q and pools in the dtype
+    under test, or q over code pools with their scales), each kernel held
+    against its plain version at ``tol`` — the JAX package's cases at
+    windows 0, 6 and 64 and the edges of the splits, a null page filled by
+    ``poison(args, scales)`` that must not leak, K6 at T = 1 against K5,
+    inactive slots, groups past 8 rows — and batched == alone bitwise.
+    Returns the count of cases checked against the plain version."""
+    from repro_torch.kernels.paged_attention import cuda, ref
+
+    dec, pre = cuda.paged_decode_attention_cuda, cuda.paged_prefill_attention_cuda
+    f32 = torch.float32
+    n_checked = 0
+
+    def decode(name, f32_args, window=0):
+        args, sc = prep(f32_args)
+        check(name, dec(*args, window=window, **sc),
+              ref.paged_attention_plain(*args, window=window, **sc), tol)
+
+    def prefill(name, f32_args, window=0):
+        args, sc = prep(f32_args)
+        check(name, pre(*args, window=window, **sc),
+              ref.paged_prefill_attention_plain(*args, window=window, **sc), tol, args[5])
+
+    def alone(name, op, f32_args, window=0, chunk=False):
+        args, sc = prep(f32_args)
+        assert_batched_equals_alone(name, lambda *a: op(*a, window=window, **sc), args,
+                                    args[5].tolist() if chunk else None)
+
+    # the JAX package's cases, windows 0 and 6, and the edges of the splits
+    for case in DECODE_CASES + [EDGE_DECODE]:
+        for window in (0, 6, 64):
+            decode(f"K5 {tag} {case[:4]} {case[-1]} w{window}", make_decode_case(*case, f32),
+                   window)
+            n_checked += 1
+    for case in PREFILL_CASES + MULTI_TILE_CASES + [EDGE_PREFILL]:
+        for window in (0, 6, 64):
+            prefill(f"K6 {tag} {case[:4]} {case[-2]} w{window}", make_prefill_case(*case, f32),
+                    window)
+            n_checked += 1
+    # a poisoned null page never leaks into valid rows
+    args, sc = prep(make_decode_case(2, 2, 2, 16, 8, 16, 4, [9, 12], f32, seed=1))
+    clean = ref.paged_attention_plain(*args, **sc)
+    poison(args, sc)
+    check(f"K5 {tag} poisoned null page", dec(*args, **sc), clean, tol)
+    args, sc = prep(make_prefill_case(2, 4, 2, 2, 32, 8, 16, 4, [3, 11], [4, 2], f32, seed=3))
+    clean = ref.paged_prefill_attention_plain(*args, **sc)
+    poison(args, sc)
+    check(f"K6 {tag} poisoned null page", pre(*args, **sc), clean, tol, args[5])
+    # T=1 prefill == decode at length start + 1
+    args, sc = prep(make_prefill_case(2, 1, 2, 2, 16, 8, 16, 4, [6, 11], [1, 1], f32, seed=7))
+    q, kp, vp, tb, st, ql = args
+    check(f"K6 {tag} T=1 vs K5", pre(*args, **sc)[:, 0],
+          dec(q[:, 0].contiguous(), kp, vp, tb, st + 1, **sc), tol)
+    # inactive slots stay in bounds and finite; every row holds the plain
+    decode(f"K5 {tag} inactive slots", inactive_decode_case(f32))
+    n_checked += 4
+    # batched == alone, bitwise
+    for window in (0, 64):
+        alone(f"K5 {tag} w{window}", dec, make_decode_case(*ALONE_DECODE, f32, seed=31), window)
+        alone(f"K6 {tag} w{window}", pre, make_prefill_case(*ALONE_PREFILL, f32, seed=32),
+              window, chunk=True)
+    # any G, and batched == alone there
+    for case in LARGE_G_DECODE:
+        for window in (0, 64):
+            decode(f"K5 {tag} G{case[2]} hd{case[3]} w{window}",
+                   make_decode_case(*case, f32, seed=41), window)
+            n_checked += 1
+        alone(f"K5 {tag} G{case[2]}", dec, make_decode_case(*case, f32, seed=42))
+    for case in LARGE_G_PREFILL:
+        for window in (0, 64):
+            prefill(f"K6 {tag} G{case[3]} hd{case[4]} w{window}",
+                    make_prefill_case(*case, f32, seed=43), window)
+            n_checked += 1
+        alone(f"K6 {tag} G{case[3]}", pre, make_prefill_case(*case, f32, seed=44), chunk=True)
+    torch.cuda.synchronize()
+    return n_checked
+
+
+def as_dtype(dtype):
+    """``paged_case_checks``' prep for q and pools in ``dtype``."""
+    return lambda args: ([a.to(dtype) if a.is_floating_point() else a for a in args], {})
+
+
+def poison_large(args, scales):
+    """1e3 / -1e3 in the null page of a pool at q's dtype."""
+    args[1][0], args[2][0] = 1e3, -1e3
+
+
 def phase_kernels():
     from repro_torch.kernels.paged_attention import cuda, ref
 
@@ -432,66 +567,7 @@ def phase_kernels():
     f32, bf = torch.float32, torch.bfloat16
     for dtype, tol in ((f32, 2e-5), (bf, BF16_TOL)):
         tag = "f32" if dtype == f32 else "bf16"
-        n_checked = 0
-        # the JAX package's cases, windows 0 and 6, and the edges of the splits
-        for case in DECODE_CASES + [EDGE_DECODE]:
-            for window in (0, 6, 64):
-                args = make_decode_case(*case, dtype)
-                check(f"K5 {tag} {case[:4]} {case[-1]} w{window}", dec(*args, window=window),
-                      ref.paged_attention_plain(*args, window=window), tol)
-                n_checked += 1
-        for case in PREFILL_CASES + MULTI_TILE_CASES + [EDGE_PREFILL]:
-            for window in (0, 6, 64):
-                args = make_prefill_case(*case, dtype)
-                check(f"K6 {tag} {case[:4]} {case[-2]} w{window}", pre(*args, window=window),
-                      ref.paged_prefill_attention_plain(*args, window=window), tol, args[5])
-                n_checked += 1
-        # poisoned null page: 1e3 / -1e3 never leaks into valid rows
-        q, kp, vp, tb, ln = make_decode_case(2, 2, 2, 16, 8, 16, 4, [9, 12], dtype, seed=1)
-        clean = ref.paged_attention_plain(q, kp, vp, tb, ln)
-        kp[0], vp[0] = 1e3, -1e3
-        check(f"K5 {tag} poisoned null page", dec(q, kp, vp, tb, ln), clean, tol)
-        q, kp, vp, tb, st, ql = make_prefill_case(2, 4, 2, 2, 32, 8, 16, 4, [3, 11], [4, 2],
-                                                  dtype, seed=3)
-        clean = ref.paged_prefill_attention_plain(q, kp, vp, tb, st, ql)
-        kp[0], vp[0] = 1e3, -1e3
-        check(f"K6 {tag} poisoned null page", pre(q, kp, vp, tb, st, ql), clean, tol, ql)
-        # T=1 prefill == decode at length start + 1
-        q, kp, vp, tb, st, ql = make_prefill_case(2, 1, 2, 2, 16, 8, 16, 4, [6, 11], [1, 1],
-                                                  dtype, seed=7)
-        check(f"K6 {tag} T=1 vs K5", pre(q, kp, vp, tb, st, ql)[:, 0],
-              dec(q[:, 0].contiguous(), kp, vp, tb, st + 1), tol)
-        # inactive slots stay in bounds and finite; every row holds the plain
-        args = inactive_decode_case(dtype)
-        check(f"K5 {tag} inactive slots", dec(*args), ref.paged_attention_plain(*args), tol)
-        n_checked += 4
-        # batched == alone, bitwise
-        for window in (0, 64):
-            assert_batched_equals_alone(
-                f"K5 {tag} w{window}", lambda *a, w=window: dec(*a, window=w),
-                make_decode_case(*ALONE_DECODE, dtype, seed=31))
-            args = make_prefill_case(*ALONE_PREFILL, dtype, seed=32)
-            assert_batched_equals_alone(
-                f"K6 {tag} w{window}", lambda *a, w=window: pre(*a, window=w), args,
-                args[5].tolist())
-        # any G, and batched == alone there
-        for case in LARGE_G_DECODE:
-            for window in (0, 64):
-                args = make_decode_case(*case, dtype, seed=41)
-                check(f"K5 {tag} G{case[2]} hd{case[3]} w{window}", dec(*args, window=window),
-                      ref.paged_attention_plain(*args, window=window), tol)
-                n_checked += 1
-            assert_batched_equals_alone(f"K5 {tag} G{case[2]}", dec,
-                                        make_decode_case(*case, dtype, seed=42))
-        for case in LARGE_G_PREFILL:
-            for window in (0, 64):
-                args = make_prefill_case(*case, dtype, seed=43)
-                check(f"K6 {tag} G{case[3]} hd{case[4]} w{window}", pre(*args, window=window),
-                      ref.paged_prefill_attention_plain(*args, window=window), tol, args[5])
-                n_checked += 1
-            args = make_prefill_case(*case, dtype, seed=44)
-            assert_batched_equals_alone(f"K6 {tag} G{case[3]}", pre, args, args[5].tolist())
-        torch.cuda.synchronize()
+        n_checked = paged_case_checks(tag, as_dtype(dtype), tol, poison_large)
         emit(phase="kernels_cases", dtype=tag, cases=n_checked, tol=tol,
              batched_equals_alone=4 + len(LARGE_G_DECODE) + len(LARGE_G_PREFILL),
              large_groups=[c[2] for c in LARGE_G_DECODE])
@@ -557,6 +633,100 @@ def phase_kernels():
         if model == "granite-8b" and name not in results:
             results[name] = row
     return results
+
+
+# ------------------------------------------------ quantized K5 / K6 (codes)
+QUANT_STORAGE = {"int8": torch.int8, "fp8": torch.float8_e4m3fn}
+
+
+def quantize_case(args, storage, dtype):
+    """An f32 case (q, kp, vp, tables, *ints) as q in ``dtype`` over pools of
+    ``storage`` codes: (args, scales), the codes and scales of each pool row
+    from the port's kv_quantize (what the engine writes)."""
+    from repro_torch.kernels.paged_attention import quant
+
+    q, kp, vp, tables, *ints = args
+    kc, ks = quant.kv_quantize(kp, storage)
+    vc, vs = quant.kv_quantize(vp, storage)
+    return (q.to(dtype), kc, vc, tables, *ints), dict(k_scale=ks, v_scale=vs)
+
+
+def poison_codes(args, scales):
+    """Page 0 as garbage a quantized pool could hold: NaN codes (fp8's 0x7f;
+    int8 has none: its extremes) and NaN scales."""
+    kc, vc = args[1], args[2]
+    if kc.dtype == torch.int8:
+        kc[0], vc[0] = 127, -128
+    else:
+        kc[0].view(torch.uint8).fill_(0x7F)
+        vc[0].view(torch.uint8).fill_(0xFF)
+    scales["k_scale"][0], scales["v_scale"][0] = float("nan"), float("nan")
+
+
+def phase_kernels_quant():
+    """Quantized K5 and K6 (int8 / fp8 pools with their f32 scales) against
+    the plain versions on the same codes and scales: f32 q at 2e-5 and bf16 q
+    at BF16_TOL, every case of phase_kernels with a null page poisoned by NaN
+    codes and scales, batched == alone bitwise; then timed at the serve
+    workload's shapes beside the bf16 kernel. Returns one row per variant."""
+    from repro_torch.kernels.paged_attention import cuda, ref
+
+    dec, pre = cuda.paged_decode_attention_cuda, cuda.paged_prefill_attention_cuda
+    f32, bf = torch.float32, torch.bfloat16
+    for sname, storage in QUANT_STORAGE.items():
+        for dtype, tol in ((f32, 2e-5), (bf, BF16_TOL)):
+            tag = f"{sname} {'f32' if dtype == f32 else 'bf16'}"
+            n_checked = paged_case_checks(
+                tag, lambda a, st=storage, dt=dtype: quantize_case(a, st, dt), tol,
+                poison_codes)
+            emit(phase="kernels_quant_cases", pool=sname, q_dtype=str(dtype).split(".")[1],
+                 cases=n_checked, tol=tol, poisoned_null_page=True,
+                 batched_equals_alone=4 + len(LARGE_G_DECODE) + len(LARGE_G_PREFILL))
+
+    # timed at the serve workload's decode and 128-token prefill shapes, bf16 q,
+    # beside the bf16 kernel on the same values
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    s = QUANT_TIMED
+    results = {}
+    for kind in ("decode", "prefill"):
+        if kind == "decode":
+            N = 1 + sum(-(-L // s["page"]) for L in s["lengths"])
+            base = make_decode_case(s["B"], s["Kv"], s["G"], s["hd"], s["page"], N, s["P"],
+                                    s["lengths"], f32, seed=11)
+            op, plain_op, name = dec, ref.paged_attention_plain, "paged_decode_attention"
+            bound_of = lambda a: decode_bound(a[0], a[1], a[3], a[4], 0)  # noqa: E731
+            qlens = None
+        else:
+            N = 1 + -(-(s["start"] + s["T"]) // s["page"])
+            base = make_prefill_case(1, s["T"], s["Kv"], s["G"], s["hd"], s["page"], N, s["P"],
+                                     [s["start"]], [s["T"]], f32, seed=12)
+            op, plain_op, name = pre, ref.paged_prefill_attention_plain, "paged_prefill_attention"
+            bound_of = lambda a: prefill_bound(a[0], a[1], a[3], a[4], a[5], 0)  # noqa: E731
+            qlens = base[5]
+        native = [t.to(bf) if t.is_floating_point() else t for t in base]
+        bf16_ms = time_ms(lambda: op(*native), flush)
+        for sname, storage in QUANT_STORAGE.items():
+            args, sc = quantize_case(base, storage, bf)
+            kern = lambda a=args, sc=sc: op(*a, **sc)                 # noqa: E731
+            plain = lambda a=args, sc=sc: plain_op(*a, **sc)         # noqa: E731
+            err = check(f"{name} {sname} bf16 granite-8b", kern(), plain(), BF16_TOL, qlens)
+            nbytes, flops = bound_of(args)
+            bms, by = bound(nbytes, flops, bf)
+            row = dict(model="granite-8b", kernel=f"{name}_{sname}", shape=s, kind=kind,
+                       max_abs_err=err, kernel_ms=time_ms(kern, flush),
+                       plain_ms=time_ms(plain, flush), library_ms=None,
+                       library="none: no single PyTorch call dequantizes and attends",
+                       bf16_kernel_ms=bf16_ms, bound_ms=bms, bound_by=by, bytes=nbytes,
+                       flops=flops)
+            emit(phase="kernels_quant", tol=BF16_TOL, **row)
+            results[row["kernel"]] = row
+    return results
+
+
+# the serve workload's shapes (launch/workload.py): 4 slots decoding at
+# lengths 561-633 and one 128-token chunk at 384, granite-8b's Kv 8, G 4, hd 128
+QUANT_TIMED = dict(B=4, Kv=8, G=4, hd=128, page=16, P=40, lengths=[561, 590, 600, 633],
+                   T=128, start=384)
 
 
 # ------------------------------------------------------ training kernels
@@ -1612,7 +1782,11 @@ def phase_pipe_host(wl, int8) -> None:
 
 def phase_model() -> None:
     """Reduced granite-8b, f32: the port on the card (kernels) against the
-    port on the CPU (plain versions) — prefill chunks, then decode steps."""
+    port on the CPU (plain versions) — prefill chunks, then decode steps —
+    with the pool at f32 and as int8 and fp8 codes, each at rtol 1e-3. A
+    quantized pool's codes are written from K/V rows that the card's and the
+    CPU's matmuls round differently, so a few codes may sit one step apart:
+    the share of codes that differ card vs CPU is printed beside the error."""
     from repro_torch.configs import get_reduced
     from repro_torch.models import (Runtime, decode_step_paged, init_paged_state,
                                     init_params, prefill_chunk_paged)
@@ -1620,50 +1794,67 @@ def phase_model() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = get_reduced("granite-8b", n_kv_heads=2)
-    rt = Runtime(dtype=torch.float32)
     cpu = init_params(cfg, seed=3, device="cpu", dtype=torch.float32)
     gpu = init_params(cfg, seed=3, device="cpu", dtype=torch.float32).to("cuda")
     rng = np.random.RandomState(5)
     prompt = rng.randint(0, cfg.vocab_size, 45).astype(np.int32)
-    worst = 0.0
-    outs = {}
-    for dev, params in (("cpu", cpu), ("cuda", gpu)):
-        st = init_paged_state(cfg, 2, rt, num_pages=16, page_size=8, max_len=64,
-                              device=dev)
-        st["tables"][0, :8] = torch.arange(1, 9)
-        seq = []
-        for s in range(0, 45, 16):
-            chunk = np.zeros(16, np.int32)
-            n = min(16, 45 - s)
-            chunk[:n] = prompt[s:s + n]
-            seq.append(prefill_chunk_paged(cfg, params, st["caches"], st["tables"][0],
-                                           torch.from_numpy(chunk).to(dev), s, n, rt, 64))
-        st["lengths"][0] = 45
-        tok = torch.tensor([int(seq[-1].argmax()), 0], dtype=torch.int32, device=dev)
-        act = torch.tensor([True, False], device=dev)
-        for _ in range(4):
-            lg = decode_step_paged(cfg, params, st, tok, rt, 64, active=act)
-            seq.append(lg[0])
-            tok = torch.stack([lg[0].argmax().int(), tok[1]])
-        outs[dev] = [x.float().cpu() for x in seq]
-    for a, b in zip(outs["cpu"], outs["cuda"]):
-        if not torch.isfinite(b).all():
-            raise AssertionError("non-finite logits on the card")
-        torch.testing.assert_close(b, a, atol=1e-3, rtol=1e-3)
-        worst = max(worst, float((a - b).abs().max() / a.abs().max()))
-    emit(phase="model", config=cfg.name, max_rel_err=worst, tol=1e-3)
+    for kv_dtype in ("", "int8", "fp8"):
+        rt = Runtime(dtype=torch.float32, kv_dtype=kv_dtype)
+        worst = 0.0
+        outs, pools = {}, {}
+        for dev, params in (("cpu", cpu), ("cuda", gpu)):
+            st = init_paged_state(cfg, 2, rt, num_pages=16, page_size=8, max_len=64,
+                                  device=dev)
+            st["tables"][0, :8] = torch.arange(1, 9)
+            seq = []
+            for s in range(0, 45, 16):
+                chunk = np.zeros(16, np.int32)
+                n = min(16, 45 - s)
+                chunk[:n] = prompt[s:s + n]
+                seq.append(prefill_chunk_paged(cfg, params, st["caches"], st["tables"][0],
+                                               torch.from_numpy(chunk).to(dev), s, n, rt, 64))
+            st["lengths"][0] = 45
+            tok = torch.tensor([int(seq[-1].argmax()), 0], dtype=torch.int32, device=dev)
+            act = torch.tensor([True, False], device=dev)
+            for _ in range(4):
+                lg = decode_step_paged(cfg, params, st, tok, rt, 64, active=act)
+                seq.append(lg[0])
+                tok = torch.stack([lg[0].argmax().int(), tok[1]])
+            outs[dev] = [x.float().cpu() for x in seq]
+            pools[dev] = {k: v.cpu() for k, v in st["caches"].items()}
+        for a, b in zip(outs["cpu"], outs["cuda"]):
+            if not torch.isfinite(b).all():
+                raise AssertionError(f"non-finite logits on the card ({kv_dtype or 'f32'})")
+            torch.testing.assert_close(b, a, atol=1e-3, rtol=1e-3)
+            worst = max(worst, float((a - b).abs().max() / a.abs().max()))
+        row = dict(phase="model", config=cfg.name, pool=kv_dtype or "f32", max_rel_err=worst,
+                   tol=1e-3)
+        if kv_dtype:
+            differ = sum(int((pools["cpu"][k].view(torch.uint8)
+                              != pools["cuda"][k].view(torch.uint8)).sum()) for k in "kv")
+            total = sum(pools["cpu"][k].numel() for k in "kv")
+            row.update(codes_differ_share=differ / total, scales_max_rel_diff=max(
+                float(((pools["cpu"][k] - pools["cuda"][k]).abs()
+                       / pools["cpu"][k].abs().clamp(min=1e-30)).max()) for k in ("ksc", "vsc")))
+        emit(**row)
 
 
-def phase_serve():
+def phase_serve(kv_dtype: str = "bf16", params=None):
+    """launch/workload.py's granite-8b serving workload with the pool at
+    ``kv_dtype``: the requests' tokens, exact launch counts of the pool's
+    K5/K6 variant (the other variants at 0) and K3, tokens/s, TTFT, pool
+    bytes and peak memory. ``params`` from an earlier serve phase are reused
+    (the same seed)."""
     from repro_torch.kernels.paged_attention import cuda
     from repro_torch.kernels.rmsnorm import cuda as rn
     from repro_torch.launch.workload import granite_serve_workload
     from repro_torch.serve import ServeEngine
 
-    wl = granite_serve_workload()
+    wl = granite_serve_workload(kv_dtype=kv_dtype)
     cfg, rt, ecfg, prompts, new = wl.cfg, wl.rt, wl.ecfg, wl.prompts, wl.new_tokens
     t0 = time.perf_counter()
-    params = wl.params("cuda")
+    if params is None:
+        params = wl.params("cuda")
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     eng = ServeEngine(cfg, params, rt, ecfg, device="cuda")
@@ -1684,26 +1875,33 @@ def phase_serve():
         if not ((out[rid] >= 0) & (out[rid] < cfg.vocab_size)).all():
             raise AssertionError(f"request {rid} produced ids outside the vocab")
     L = cfg.n_layers
-    if min(launches.values()) <= 0:
+    pool_dtype = eng._dev["caches"]["k"].dtype
+    k5, k6 = cuda.variant(cuda.DECODE, pool_dtype), cuda.variant(cuda.PREFILL, pool_dtype)
+    if launches[k5] <= 0 or launches[k6] <= 0:
         raise AssertionError(f"a kernel was not launched on the main path: {launches}")
+    others = {k: v for k, v in launches.items() if k not in (k5, k6) and v}
+    if others:
+        raise AssertionError(f"{kv_dtype} pool launched other variants: {others}")
     chunks = s["prefill_chunks"] - chunks0
-    if launches["paged_prefill_attention"] != L * chunks:
+    if launches[k6] != L * chunks:
         raise AssertionError(f"K6 launches {launches} != {L} x {chunks}")
-    if launches["paged_decode_attention"] % L:
+    if launches[k5] % L:
         raise AssertionError(f"K5 launches {launches} not a multiple of {L}")
-    passes = chunks + launches["paged_decode_attention"] // L
+    passes = chunks + launches[k5] // L
     if k3 != passes * (2 * L + 1):         # two norms per layer and the final one
         raise AssertionError(f"K3 launches {k3} != {passes} passes x {2 * L + 1}")
-    emit(phase="serve", config=cfg.name, dtype="bf16", params_init_s=init_s,
+    emit(phase="serve" if kv_dtype == "bf16" else f"serve-{kv_dtype}", config=cfg.name,
+         dtype="bf16", kv_dtype=kv_dtype, pool_dtype=str(pool_dtype), params_init_s=init_s,
          requests=len(rids), new_tokens=new, num_pages=ecfg.num_pages,
          tokens_per_s=s["tokens_per_s"], run_mean_ttft_s=s["run_mean_ttft_s"],
-         wall_s=s["wall_s"], prefill_chunks=chunks,
-         decode_steps=launches["paged_decode_attention"] // L,
+         wall_s=s["wall_s"], prefill_chunks=chunks, decode_steps=launches[k5] // L,
          launches=launches, rmsnorm_fwd_launches=k3,
+         kv_pool_bytes=s["kv_pool_bytes_per_device"],
+         kv_bytes_per_token=eng._kv_bytes_per_page() // ecfg.page_size,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
     del eng
     torch.cuda.empty_cache()
-    return wl, params, rids, out, launches
+    return wl, params, rids, out, {k5: launches[k5], k6: launches[k6]}
 
 
 def phase_alone(wl, params, rids, out) -> None:
@@ -1714,9 +1912,9 @@ def phase_alone(wl, params, rids, out) -> None:
         rid = eng.submit(wl.prompts[i], wl.new_tokens)
         alone = eng.run()[rid]
         if not np.array_equal(alone, out[rids[i]]):
-            raise AssertionError(f"request {i}: batched {out[rids[i]][:8]} != "
-                                 f"alone {alone[:8]}")
-    emit(phase="alone", requests=[0, 5], identical=True)
+            raise AssertionError(f"request {i} ({wl.ecfg.kv_dtype} pool): batched "
+                                 f"{out[rids[i]][:8]} != alone {alone[:8]}")
+    emit(phase="alone", kv_dtype=wl.ecfg.kv_dtype, requests=[0, 5], identical=True)
 
 
 def main() -> int:
@@ -1729,6 +1927,7 @@ def main() -> int:
     phase_card()
     phase_build()
     kern = phase_kernels()
+    kern.update(phase_kernels_quant())
     kern.update(phase_train_kernels())
     kern.update(phase_quant_kernels())
     kern.update(phase_stash_kernels())
@@ -1745,6 +1944,10 @@ def main() -> int:
     wl, params, rids, out, serve_launches = phase_serve()
     phase_alone(wl, params, rids, out)
     launches.update(serve_launches)        # K5, K6: the serving main path
+    for kv_dtype in QUANT_STORAGE:         # and over int8 / fp8 pools
+        wl, params, rids, out, serve_launches = phase_serve(kv_dtype, params)
+        phase_alone(wl, params, rids, out)
+        launches.update(serve_launches)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kern[name]

@@ -90,16 +90,43 @@
 // hd: 16, 32, 64, 96, 128 and 256 are built (the configs use 64, 96, 128,
 // 256; the JAX suite 16, 32, 64, 128).
 //
-// Where quantized KV will go: every key row is found through the block's
-// row offsets (load_row_offsets: block table -> page id -> row offset in
-// shared memory, before any row is read) and kv_row(), and loaded by
-// load_kv_tile (K6, into shared memory) or load_rows (K5, into registers);
-// the per-page f32 scales would be gathered beside the offsets in
-// load_row_offsets and multiplied in where a row is converted to f32 (K5's
-// score and p V loops) or leaves shared memory (K6, before ldmatrix).
+// Quantized pools (the JAX kernels' k_scale / v_scale operands): the pool
+// holds int8 or fp8-e4m3 codes and one f32 scale per (page slot, kv head),
+// scales (N, page, Kv) contiguous, so key k's scale sits at off[k] + kv,
+// beside its row offset. The kernels compute what JAX's bodies compute: each
+// key's and value's row dequantized in f32 as code * scale, scores, online
+// softmax and P V in f32, one rounding of the output to q's type; no
+// dequantized pool or tile is ever written. The bytes a key costs fall from
+// 2*hd*2 (bf16) to 2*(hd + 4).
+//   K5 and f32 K6 (split_body, templated on the pool's element type KT): a
+//   lane loads 8 codes (8 bytes) where it loaded 8 bf16 (16 bytes), so the
+//   lane layout, group sizes, shuffle trees and registers of the bf16 body
+//   are kept (16 codes a lane would double q's and acc's registers and
+//   spill at 8 rows); each key's two scales are loaded with its row, and
+//   each code is converted to f32 (int8 directly, fp8 through the exact
+//   fp8x2 -> half2 conversion) and multiplied by its scale before the dot
+//   and before P V, in JAX's order.
+//   bf16 K6 (paged_prefill_mma_kernel<HD, KT>): the cp.async ring carries
+//   1-byte code tiles (half a bf16 stage) and each key's two scales. The
+//   thread that copied a 16-code chunk converts it, after its own wait, into
+//   one bf16 tile of the codes themselves (exact: every int8 code and every
+//   e4m3 value is a bf16 value; a barrier before and after), which the bf16
+//   body's ldmatrix and mma.sync read unchanged. The scales go to the f32
+//   side: column j of S = Q C^T is multiplied by ks[j] before the mask and
+//   the softmax, and p_j by vs[j] (after it joins l) before p is split high +
+//   low for P V. Every product is then exact or one f32 rounding, as in the
+//   plain version; only the f32 summation order differs. Rounding code *
+//   scale to bf16 in shared memory would be a second rounding that JAX does
+//   not have, so it is never done.
+//   The null page's scales start at zero and are never read unmasked: keys
+//   at or past a row's extent are neither loaded nor scaled.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "../../csrc/mma_sm90.cuh"
 
@@ -113,8 +140,51 @@ constexpr int kMmaRows = 64;       // flattened rows per K6 block
 constexpr int kKeyTile = 64;       // keys per K6 ring stage
 constexpr int kChunkRows = 8;      // query rows of a group a K5 / f32 K6 block holds
 
+using fp8 = __nv_fp8_e4m3;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// A pool's element type: the native one (q's type: f32, bf16) or a 1-byte
+// code (int8, fp8-e4m3) that comes with scales. A lane's vector of a row is
+// 16 bytes of a native pool and 8 codes of a quantized one.
+template <typename KT>
+struct Pool {
+  static constexpr bool kCodes = false;
+  static constexpr int kVecBytes = 16;
+};
+template <>
+struct Pool<int8_t> {
+  static constexpr bool kCodes = true;
+  static constexpr int kVecBytes = 8;
+};
+template <>
+struct Pool<fp8> {
+  static constexpr bool kCodes = true;
+  static constexpr int kVecBytes = 8;
+};
+
+// The N elements of a loaded vector in f32 (exact for every type here).
+template <typename KT, int N, typename V>
+__device__ __forceinline__ void vec_to_f32(const V& v, float (&out)[N]) {
+  if constexpr (std::is_same_v<KT, fp8>) {
+    const __nv_fp8x2_storage_t* p = reinterpret_cast<const __nv_fp8x2_storage_t*>(&v);
+#pragma unroll
+    for (int e = 0; e < N / 2; ++e) {
+      const float2 f = __half22float2(__half2(__nv_cvt_fp8x2_to_halfraw2(p[e], __NV_E4M3)));
+      out[2 * e] = f.x;
+      out[2 * e + 1] = f.y;
+    }
+  } else if constexpr (std::is_same_v<KT, int8_t>) {
+    const int8_t* p = reinterpret_cast<const int8_t*>(&v);
+#pragma unroll
+    for (int e = 0; e < N; ++e) out[e] = static_cast<float>(p[e]);
+  } else {
+    const KT* p = reinterpret_cast<const KT*>(&v);
+#pragma unroll
+    for (int e = 0; e < N; ++e) out[e] = to_f32(p[e]);
+  }
+}
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
@@ -208,50 +278,72 @@ constexpr int pow2_at_least(int x) {
   return p;
 }
 
-template <typename T, int HD, int MG>
+// KT: the pool's element type (its vectors); q's type is the body's T.
+template <typename KT, int HD, int MG>
 struct SplitShape {
-  static constexpr int kVecElems = 16 / (int)sizeof(T);
-  static constexpr int kRowVecs = HD / kVecElems;                    // 16-B vectors a row
+  static constexpr int kVecBytes = Pool<KT>::kVecBytes;
+  static constexpr int kVecElems = kVecBytes / (int)sizeof(KT);
+  static constexpr int kRowVecs = HD / kVecElems;                    // vectors a row
   static constexpr int kL = pow2_at_least(kRowVecs) < 32 ? pow2_at_least(kRowVecs) : 32;
-  static constexpr int kVecs = (kRowVecs + kL - 1) / kL;             // 16-B loads a lane
+  static constexpr int kVecs = (kRowVecs + kL - 1) / kL;             // vector loads a lane
   static constexpr int kGroups = kThreads / kL;                      // token rows at once
   static constexpr int kTokens = kDecodeSplit / kGroups;            // tokens a group
   // token rows in flight a lane: all of a group's where registers allow
   static constexpr int kBatchMax = (MG <= 4 ? 8 : 4) / kVecs;
   static constexpr int kBatch = kBatchMax < kTokens ? kBatchMax : kTokens;
+  using Vec = std::conditional_t<kVecBytes == 16, uint4, uint2>;
   static_assert(kTokens * kGroups == kDecodeSplit, "split not a multiple of the groups");
   static_assert(kTokens % kBatch == 0, "batch does not divide a group's tokens");
 };
 
+template <typename V>
+__device__ __forceinline__ V zero_vec() {
+  V v;
+  if constexpr (std::is_same_v<V, uint4>) v = make_uint4(0, 0, 0, 0);
+  else v = make_uint2(0, 0);
+  return v;
+}
+
 // A group's next kBatch token rows (kpos0, kpos0 + kGroups, ...) of K and V,
-// this lane's 16-byte vectors of each, into registers; every load is issued
-// before any is used. Keys outside [r.lo, r.hi) are not read (ok false).
-template <typename T, int HD, int MG>
+// this lane's vectors of each, into registers, and (codes) each row's K and
+// V scale; every load is issued before any is used. Keys outside [r.lo,
+// r.hi) are not read (ok false, scale 0).
+template <typename KT, int HD, int MG>
 __device__ __forceinline__ void load_rows(
-    const T* __restrict__ kp, const T* __restrict__ vp, const long* off, int base,
-    int kpos0, KeyRange r, int kv, int lane,
-    uint4 (&kr)[SplitShape<T, HD, MG>::kBatch][SplitShape<T, HD, MG>::kVecs],
-    uint4 (&vr)[SplitShape<T, HD, MG>::kBatch][SplitShape<T, HD, MG>::kVecs],
-    bool (&ok)[SplitShape<T, HD, MG>::kBatch]) {
-  using Sh = SplitShape<T, HD, MG>;
+    const KT* __restrict__ kp, const KT* __restrict__ vp, const float* __restrict__ ks,
+    const float* __restrict__ vs, const long* off, int base, int kpos0, KeyRange r, int kv,
+    int lane,
+    typename SplitShape<KT, HD, MG>::Vec (&kr)[SplitShape<KT, HD, MG>::kBatch]
+                                              [SplitShape<KT, HD, MG>::kVecs],
+    typename SplitShape<KT, HD, MG>::Vec (&vr)[SplitShape<KT, HD, MG>::kBatch]
+                                              [SplitShape<KT, HD, MG>::kVecs],
+    float (&ksc)[SplitShape<KT, HD, MG>::kBatch], float (&vsc)[SplitShape<KT, HD, MG>::kBatch],
+    bool (&ok)[SplitShape<KT, HD, MG>::kBatch]) {
+  using Sh = SplitShape<KT, HD, MG>;
+  using Vec = typename Sh::Vec;
 #pragma unroll
   for (int j = 0; j < Sh::kBatch; ++j) {
     const int kpos = kpos0 + j * Sh::kGroups;
     ok[j] = kpos >= r.lo && kpos < r.hi;
+    ksc[j] = vsc[j] = 0.f;
 #pragma unroll
     for (int v = 0; v < Sh::kVecs; ++v) {
-      kr[j][v] = make_uint4(0, 0, 0, 0);
-      vr[j][v] = make_uint4(0, 0, 0, 0);
+      kr[j][v] = zero_vec<Vec>();
+      vr[j][v] = zero_vec<Vec>();
     }
     if (ok[j]) {
-      const T* krow = kv_row(kp, off, kpos - base, kv, HD);
-      const T* vrow = kv_row(vp, off, kpos - base, kv, HD);
+      const KT* krow = kv_row(kp, off, kpos - base, kv, HD);
+      const KT* vrow = kv_row(vp, off, kpos - base, kv, HD);
+      if constexpr (Pool<KT>::kCodes) {
+        ksc[j] = __ldg(ks + off[kpos - base] + kv);
+        vsc[j] = __ldg(vs + off[kpos - base] + kv);
+      }
 #pragma unroll
       for (int v = 0; v < Sh::kVecs; ++v) {
         const int vec = lane + v * Sh::kL;
         if (vec < Sh::kRowVecs) {
-          kr[j][v] = __ldg(reinterpret_cast<const uint4*>(krow + vec * Sh::kVecElems));
-          vr[j][v] = __ldg(reinterpret_cast<const uint4*>(vrow + vec * Sh::kVecElems));
+          kr[j][v] = __ldg(reinterpret_cast<const Vec*>(krow + vec * Sh::kVecElems));
+          vr[j][v] = __ldg(reinterpret_cast<const Vec*>(vrow + vec * Sh::kVecElems));
         }
       }
     }
@@ -260,16 +352,20 @@ __device__ __forceinline__ void load_rows(
 
 // One block: the G (<= MG) rows row0 .. row0+G-1 of one query position
 // against the keys of split s; writes the split's partial (m, l, acc) of
-// each row to the workspace.
-template <typename T, int HD, int MG>
-__device__ void split_body(const T* __restrict__ q, const T* __restrict__ kp,
-                           const T* __restrict__ vp, const int* __restrict__ table_row,
+// each row to the workspace. T: q's type; KT: the pool's (T, or a code type
+// whose scales ks, vs multiply each converted row, as JAX dequantizes).
+template <typename T, typename KT, int HD, int MG>
+__device__ void split_body(const T* __restrict__ q, const KT* __restrict__ kp,
+                           const KT* __restrict__ vp, const float* __restrict__ ks,
+                           const float* __restrict__ vs, const int* __restrict__ table_row,
                            float* __restrict__ ws_acc, float* __restrict__ ws_ml,
                            long row0, int S, int s, int qpos, int kv, int Kv, int G,
                            int page, int P, int window) {
-  using Sh = SplitShape<T, HD, MG>;
+  using Sh = SplitShape<KT, HD, MG>;
   constexpr int kVE = Sh::kVecElems, kL = Sh::kL, kV = Sh::kVecs;
   constexpr int kE = kV * kVE;  // elements a lane holds of a row
+  constexpr int kQVecs = kVE * (int)sizeof(T) / 16;  // 16-byte q loads a vector
+  static_assert(kQVecs >= 1, "a lane's q vector is a whole number of 16-byte loads");
   __shared__ float sm_acc[Sh::kGroups * MG * HD];
   __shared__ float sm_m[Sh::kGroups * MG];
   __shared__ float sm_l[Sh::kGroups * MG];
@@ -300,8 +396,10 @@ __device__ void split_body(const T* __restrict__ q, const T* __restrict__ kp,
       for (int e = 0; e < kVE; ++e) qr[g][v * kVE + e] = 0.f;
       if (g < G && vec < Sh::kRowVecs) {
         alignas(16) T vals[kVE];
-        *reinterpret_cast<uint4*>(vals) =
-            *reinterpret_cast<const uint4*>(q + (row0 + g) * HD + vec * kVE);
+#pragma unroll
+        for (int i = 0; i < kQVecs; ++i)
+          reinterpret_cast<uint4*>(vals)[i] =
+              reinterpret_cast<const uint4*>(q + (row0 + g) * HD + vec * kVE)[i];
 #pragma unroll
         for (int e = 0; e < kVE; ++e) qr[g][v * kVE + e] = to_f32(vals[e]);
       }
@@ -320,10 +418,11 @@ __device__ void split_body(const T* __restrict__ q, const T* __restrict__ kp,
   __syncthreads();  // the row offsets
 #pragma unroll 1
   for (int i0 = 0; i0 < Sh::kTokens; i0 += Sh::kBatch) {
-    uint4 kr[Sh::kBatch][kV], vr[Sh::kBatch][kV];
+    typename Sh::Vec kr[Sh::kBatch][kV], vr[Sh::kBatch][kV];
+    float ksc[Sh::kBatch], vsc[Sh::kBatch];
     bool ok[Sh::kBatch];
-    load_rows<T, HD, MG>(kp, vp, sm_off, base, base + grp + i0 * Sh::kGroups, r, kv, lane,
-                         kr, vr, ok);
+    load_rows<KT, HD, MG>(kp, vp, ks, vs, sm_off, base, base + grp + i0 * Sh::kGroups, r, kv,
+                          lane, kr, vr, ksc, vsc, ok);
     // scores of the batch, reduced across the group's lanes
     float sc[Sh::kBatch][MG];
 #pragma unroll
@@ -331,9 +430,11 @@ __device__ void split_body(const T* __restrict__ q, const T* __restrict__ kp,
       float kf[kE];
 #pragma unroll
       for (int v = 0; v < kV; ++v) {
-        const T* kv8 = reinterpret_cast<const T*>(&kr[j][v]);
+        float f[kVE];
+        vec_to_f32<KT>(kr[j][v], f);
 #pragma unroll
-        for (int e = 0; e < kVE; ++e) kf[v * kVE + e] = to_f32(kv8[e]);
+        for (int e = 0; e < kVE; ++e)
+          kf[v * kVE + e] = Pool<KT>::kCodes ? f[e] * ksc[j] : f[e];
       }
       // every one of the MG rows (rows past G hold q = 0): no branch, so
       // that the MG x kBatch shuffle chains interleave
@@ -364,10 +465,12 @@ __device__ void split_body(const T* __restrict__ q, const T* __restrict__ kp,
         sum += p;
 #pragma unroll
         for (int v = 0; v < kV; ++v) {
-          const T* v8 = reinterpret_cast<const T*>(&vr[j][v]);
+          float f[kVE];
+          vec_to_f32<KT>(vr[j][v], f);
 #pragma unroll
           for (int e = 0; e < kVE; ++e)
-            acc[g][v * kVE + e] = fmaf(p, to_f32(v8[e]), acc[g][v * kVE + e]);
+            acc[g][v * kVE + e] =
+                fmaf(p, Pool<KT>::kCodes ? f[e] * vsc[j] : f[e], acc[g][v * kVE + e]);
         }
       }
       l[g] = l[g] * alpha + sum;
@@ -425,25 +528,28 @@ __host__ __device__ __forceinline__ int row_chunks(int G) {
 }
 
 // K5: grid (S, Kv * row_chunks(G), B); q and out (B, Kv, G, hd).
-template <typename T, int HD, int MG>
+template <typename T, typename KT, int HD, int MG>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_split_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                          const T* __restrict__ vp, const int* __restrict__ tables,
+paged_decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kp,
+                          const KT* __restrict__ vp, const float* __restrict__ ks,
+                          const float* __restrict__ vs, const int* __restrict__ tables,
                           const int* __restrict__ lengths, float* __restrict__ ws_acc,
                           float* __restrict__ ws_ml, int Kv, int G, int page, int P,
                           int window) {
   const int s = blockIdx.x, b = blockIdx.z;
   const int kv = blockIdx.y / row_chunks(G), g0 = blockIdx.y % row_chunks(G) * kChunkRows;
   const long row0 = ((long)b * Kv + kv) * G + g0;
-  split_body<T, HD, MG>(q, kp, vp, tables + (long)b * P, ws_acc, ws_ml, row0, gridDim.x, s,
-                        lengths[b] - 1, kv, Kv, min(kChunkRows, G - g0), page, P, window);
+  split_body<T, KT, HD, MG>(q, kp, vp, ks, vs, tables + (long)b * P, ws_acc, ws_ml, row0,
+                            gridDim.x, s, lengths[b] - 1, kv, Kv, min(kChunkRows, G - g0),
+                            page, P, window);
 }
 
 // f32 K6: grid (S, Kv * row_chunks(G), B*T); q and out (B, T, Kv, G, hd).
-template <typename T, int HD, int MG>
+template <typename T, typename KT, int HD, int MG>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_rows_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                          const T* __restrict__ vp, const int* __restrict__ tables,
+paged_prefill_rows_kernel(const T* __restrict__ q, const KT* __restrict__ kp,
+                          const KT* __restrict__ vp, const float* __restrict__ ks,
+                          const float* __restrict__ vs, const int* __restrict__ tables,
                           const int* __restrict__ start, const int* __restrict__ q_len,
                           float* __restrict__ ws_acc, float* __restrict__ ws_ml, int Tq,
                           int Kv, int G, int page, int P, int window) {
@@ -451,22 +557,29 @@ paged_prefill_rows_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int kv = blockIdx.y / row_chunks(G), g0 = blockIdx.y % row_chunks(G) * kChunkRows;
   const int b = blockIdx.z / Tq, t = blockIdx.z % Tq;
   const long row0 = (((long)b * Tq + t) * Kv + kv) * G + g0;
-  split_body<T, HD, MG>(q, kp, vp, tables + (long)b * P, ws_acc, ws_ml, row0, gridDim.x, s,
-                        prefill_qpos(start, q_len, b, t), kv, Kv, min(kChunkRows, G - g0),
-                        page, P, window);
+  split_body<T, KT, HD, MG>(q, kp, vp, ks, vs, tables + (long)b * P, ws_acc, ws_ml, row0,
+                            gridDim.x, s, prefill_qpos(start, q_len, b, t), kv, Kv,
+                            min(kChunkRows, G - g0), page, P, window);
 }
 
 // ------------------------------------------------ K6 tensor-core prefill
 using bf16 = __nv_bfloat16;
 
-template <int HD>
+// KT: the pool's element type, bf16 or a 1-byte code type.
+template <int HD, typename KT>
 struct MmaShape {
+  static constexpr bool kCodes = Pool<KT>::kCodes;
   static constexpr int kStride = HD + 8;  // bf16 a shared-memory row: +16 B, no conflicts
   static constexpr int kStages = 2;
   static constexpr int kTileElems = kKeyTile * kStride;
   static constexpr bool kQRegs = HD <= 128;  // else q is read from shared memory
+  static constexpr int kCodeTile = kKeyTile * HD;  // bytes of a code tile (unpadded)
+  // native: kStages bf16 K and V tiles [+ q]; codes: kStages code K and V
+  // tiles, one bf16 K and V tile of the codes [+ q], kStages K and V scale rows
   static constexpr int kSmemBytes =
-      (2 * kStages * kTileElems + (kQRegs ? 0 : kMmaRows * kStride)) * 2;
+      kCodes ? 2 * kStages * kCodeTile + (2 * kTileElems + (kQRegs ? 0 : kMmaRows * kStride)) * 2 +
+                   2 * kStages * kKeyTile * 4
+             : (2 * kStages * kTileElems + (kQRegs ? 0 : kMmaRows * kStride)) * 2;
 };
 
 // The K and V tiles of keys key0 .. key0+63 of kv head kv into shared memory:
@@ -477,7 +590,7 @@ __device__ __forceinline__ void load_kv_tile(const bf16* kp, const bf16* vp, con
                                              int base, int key0, int hi, int kv, bf16* sk,
                                              bf16* sv) {
   constexpr int kChunks = HD / 8;
-  constexpr int kStride = MmaShape<HD>::kStride;
+  constexpr int kStride = MmaShape<HD, bf16>::kStride;
 #pragma unroll 4
   for (int i = threadIdx.x; i < kKeyTile * kChunks; i += kThreads) {
     const int row = i / kChunks;
@@ -491,23 +604,91 @@ __device__ __forceinline__ void load_kv_tile(const bf16* kp, const bf16* vp, con
   }
 }
 
-// Grid (S * row tiles, Kv, B); q (B, T, Kv, G, HD) bf16. Block: row tile
-// `tile` of slot b, kv head kv, keys of split s; writes the partials.
-template <int HD>
+// The code tiles of keys key0 .. key0+63 (HD codes a row, 16 a cp.async
+// chunk, rows unpadded: only the copying thread reads its chunk back) and
+// each key's K and V scale (thread t < 64: K scale of key t; t >= 64: V
+// scale of key t - 64); keys at or past `hi` are zero-filled, codes and
+// scales. convert_kv_tile walks the same chunks in the same threads.
+template <int HD, typename KT>
+__device__ __forceinline__ void load_code_tile(const KT* kp, const KT* vp, const float* ks,
+                                               const float* vs, const long* off, int base,
+                                               int key0, int hi, int kv, KT* kc, KT* vc,
+                                               float* ksm, float* vsm) {
+  constexpr int kChunks = HD / 16;
+  static_assert(kThreads == 2 * kKeyTile, "a thread a key's K or V scale");
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kKeyTile * kChunks; i += kThreads) {
+    const int row = i / kChunks;
+    const int c = (i % kChunks) * 16;
+    const int kpos = key0 + row;
+    const bool ok = kpos < hi;
+    const KT* krow = ok ? kv_row(kp, off, kpos - base, kv, HD) + c : kp;
+    const KT* vrow = ok ? kv_row(vp, off, kpos - base, kv, HD) + c : vp;
+    cp_async16(smem_u32(kc + row * HD + c), krow, ok ? 16 : 0);
+    cp_async16(smem_u32(vc + row * HD + c), vrow, ok ? 16 : 0);
+  }
+  const int row = threadIdx.x % kKeyTile;
+  const int kpos = key0 + row;
+  const bool ok = kpos < hi;
+  const float* sc = threadIdx.x < kKeyTile ? ks : vs;
+  float* dst = (threadIdx.x < kKeyTile ? ksm : vsm) + row;
+  cp_async4(smem_u32(dst), ok ? sc + off[kpos - base] + kv : sc, ok ? 4 : 0);
+}
+
+// This thread's chunks of a landed code tile (load_code_tile's chunks) as
+// bf16 values of the codes themselves, exact, into the bf16 K and V tiles.
+template <int HD, typename KT>
+__device__ __forceinline__ void convert_kv_tile(const KT* kc, const KT* vc, bf16* kb,
+                                                bf16* vb) {
+  constexpr int kChunks = HD / 16;
+  constexpr int kStride = MmaShape<HD, KT>::kStride;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < kKeyTile * kChunks; i += kThreads) {
+    const int row = i / kChunks;
+    const int c = (i % kChunks) * 16;
+#pragma unroll
+    for (int kvi = 0; kvi < 2; ++kvi) {
+      const uint4 raw = *reinterpret_cast<const uint4*>((kvi ? vc : kc) + row * HD + c);
+      float f[16];
+      vec_to_f32<KT>(raw, f);
+      uint4 w[2];
+      uint32_t* wp = reinterpret_cast<uint32_t*>(w);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) wp[e] = pack_bf16(f[2 * e], f[2 * e + 1]);
+      uint4* dst = reinterpret_cast<uint4*>((kvi ? vb : kb) + row * kStride + c);
+      dst[0] = w[0];
+      dst[1] = w[1];
+    }
+  }
+}
+
+// Grid (S * row tiles, Kv, B); q (B, T, Kv, G, HD) bf16; pools of KT (bf16,
+// or codes with scales ks, vs). Block: row tile `tile` of slot b, kv head
+// kv, keys of split s; writes the partials.
+template <int HD, typename KT>
 __global__ void __launch_bounds__(kThreads)
-paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
-                         const bf16* __restrict__ vp, const int* __restrict__ tables,
+paged_prefill_mma_kernel(const bf16* __restrict__ q, const KT* __restrict__ kp,
+                         const KT* __restrict__ vp, const float* __restrict__ ks,
+                         const float* __restrict__ vs, const int* __restrict__ tables,
                          const int* __restrict__ start, const int* __restrict__ q_len,
                          float* __restrict__ ws_acc, float* __restrict__ ws_ml, int Tq,
                          int Kv, int G, int page, int P, int window, int S) {
-  using Sh = MmaShape<HD>;
+  using Sh = MmaShape<HD, KT>;
   constexpr int kKC = HD / 16;  // 16-wide k chunks of a q row
   constexpr int kDN = HD / 8;   // 8-wide n tiles of an output row
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ long sm_off[kPrefillSplit];
-  bf16* sk = reinterpret_cast<bf16*>(smem_raw);   // kStages x (64, kStride)
-  bf16* sv = sk + Sh::kStages * Sh::kTileElems;
-  bf16* sq = sv + Sh::kStages * Sh::kTileElems;   // (64, kStride) when !kQRegs
+  // native: sk, sv are kStages x (64, kStride) bf16 stages. codes: kc8, vc8
+  // are kStages x (64, HD) code stages, sk, sv the one bf16 tile of the
+  // codes, ksm, vsm kStages x 64 scales.
+  KT* kc8 = reinterpret_cast<KT*>(smem_raw);
+  KT* vc8 = kc8 + Sh::kStages * Sh::kCodeTile;
+  bf16* sk = Sh::kCodes ? reinterpret_cast<bf16*>(vc8 + Sh::kStages * Sh::kCodeTile)
+                        : reinterpret_cast<bf16*>(smem_raw);
+  bf16* sv = sk + (Sh::kCodes ? 1 : Sh::kStages) * Sh::kTileElems;
+  bf16* sq = sv + (Sh::kCodes ? 1 : Sh::kStages) * Sh::kTileElems;  // (64, kStride) when !kQRegs
+  float* ksm = reinterpret_cast<float*>(sq + (Sh::kQRegs ? 0 : kMmaRows * Sh::kStride));
+  float* vsm = ksm + Sh::kStages * kKeyTile;
 
   const int s = blockIdx.x % S, tile = blockIdx.x / S;
   const int kv = blockIdx.y, b = blockIdx.z;
@@ -558,11 +739,19 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp
     }
   }
   __syncthreads();  // the row offsets
+  // stage `stg` of the ring: keys key0 .. key0+63
+  auto load_stage = [&](int stg, int key0) {
+    if constexpr (Sh::kCodes)
+      load_code_tile<HD, KT>(kp, vp, ks, vs, sm_off, base, key0, k_hi, kv,
+                             kc8 + stg * Sh::kCodeTile, vc8 + stg * Sh::kCodeTile,
+                             ksm + stg * kKeyTile, vsm + stg * kKeyTile);
+    else
+      load_kv_tile<HD>(kp, vp, sm_off, base, key0, k_hi, kv, sk + stg * Sh::kTileElems,
+                       sv + stg * Sh::kTileElems);
+  };
 #pragma unroll
   for (int i = 0; i < Sh::kStages - 1; ++i) {
-    if (i < n_tiles)
-      load_kv_tile<HD>(kp, vp, sm_off, base, k_lo + i * kKeyTile, k_hi, kv,
-                       sk + i * Sh::kTileElems, sv + i * Sh::kTileElems);
+    if (i < n_tiles) load_stage(i, k_lo + i * kKeyTile);
     cp_async_commit();  // with q's copies in the first group
   }
 
@@ -581,19 +770,19 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp
 
 #pragma unroll 1
   for (int it = 0; it < n_tiles; ++it) {
+    const int cur = it % Sh::kStages;
     cp_async_wait<Sh::kStages - 2>();  // tile `it` has landed (this thread's part)
     __syncthreads();                   // ... everyone's; and tile it-1 is consumed
+    if constexpr (Sh::kCodes)          // this thread's chunks, as bf16 of the codes
+      convert_kv_tile<HD, KT>(kc8 + cur * Sh::kCodeTile, vc8 + cur * Sh::kCodeTile, sk, sv);
     {
       const int nt = it + Sh::kStages - 1;
-      if (nt < n_tiles) {
-        const int stg = nt % Sh::kStages;
-        load_kv_tile<HD>(kp, vp, sm_off, base, k_lo + nt * kKeyTile, k_hi, kv,
-                         sk + stg * Sh::kTileElems, sv + stg * Sh::kTileElems);
-      }
+      if (nt < n_tiles) load_stage(nt % Sh::kStages, k_lo + nt * kKeyTile);
       cp_async_commit();
     }
-    const bf16* ck = sk + (it % Sh::kStages) * Sh::kTileElems;
-    const bf16* cv = sv + (it % Sh::kStages) * Sh::kTileElems;
+    if constexpr (Sh::kCodes) __syncthreads();  // the bf16 tile of tile `it`
+    const bf16* ck = Sh::kCodes ? sk : sk + cur * Sh::kTileElems;
+    const bf16* cv = Sh::kCodes ? sv : sv + cur * Sh::kTileElems;
     const int key0 = k_lo + it * kKeyTile;
 
     // S = Q K^T: (16 rows, 64 keys) a warp, eight 8-key n tiles
@@ -614,6 +803,18 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp
         ldmatrix_x4(bk, smem_u32(ck + (np * 16 + k_row) * Sh::kStride + kc * 16 + k_col));
         mma_bf16(sc[2 * np], a, bk[0], bk[1]);
         mma_bf16(sc[2 * np + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // codes: column j of S = Q C^T times key j's scale, before mask and softmax
+    if constexpr (Sh::kCodes) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 k2 = *reinterpret_cast<const float2*>(ksm + cur * kKeyTile + n * 8 + 2 * t4);
+        sc[n][0] *= k2.x;
+        sc[n][1] *= k2.y;
+        sc[n][2] *= k2.x;
+        sc[n][3] *= k2.y;
       }
     }
 
@@ -655,6 +856,19 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp
       for (int n = 0; n < kDN; ++n) {
         o[n][2 * h] *= alpha;
         o[n][2 * h + 1] *= alpha;
+      }
+    }
+
+    // codes: p_j times key j's V scale, after p joined l (P V then multiplies
+    // the V codes themselves)
+    if constexpr (Sh::kCodes) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const float2 v2 = *reinterpret_cast<const float2*>(vsm + cur * kKeyTile + n * 8 + 2 * t4);
+        sc[n][0] *= v2.x;
+        sc[n][1] *= v2.y;
+        sc[n][2] *= v2.x;
+        sc[n][3] *= v2.y;
       }
     }
 
@@ -816,25 +1030,25 @@ int launch_combine(void (*kernel)(Params...), long rows, cudaStream_t stream,
   return (int)cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
 }
 
-template <typename T, int HD>
-int decode_hd(const void* q, const void* kp, const void* vp, const void* tables,
-              const void* lengths, void* out, float* ws, int B, int Kv, int G, int page,
-              int P, int window, int S, cudaStream_t stream) {
+template <typename T, typename KT, int HD>
+int decode_hd(const void* q, const void* kp, const void* vp, const float* ks, const float* vs,
+              const void* tables, const void* lengths, void* out, float* ws, int B, int Kv,
+              int G, int page, int P, int window, int S, cudaStream_t stream) {
   const long R = (long)B * Kv * G;
   float* ws_acc = ws;
   float* ws_ml = ws + R * S * HD;
   const dim3 grid(S, Kv * row_chunks(G), B);
   const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(kp);
-  const T* vt = static_cast<const T*>(vp);
+  const KT* kt = static_cast<const KT*>(kp);
+  const KT* vt = static_cast<const KT*>(vp);
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lengths);
   if (G <= 4)
-    paged_decode_split_kernel<T, HD, 4><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, tb, ln, ws_acc, ws_ml, Kv, G, page, P, window);
+    paged_decode_split_kernel<T, KT, HD, 4><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, ks, vs, tb, ln, ws_acc, ws_ml, Kv, G, page, P, window);
   else
-    paged_decode_split_kernel<T, HD, 8><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, tb, ln, ws_acc, ws_ml, Kv, G, page, P, window);
+    paged_decode_split_kernel<T, KT, HD, 8><<<grid, kThreads, 0, stream>>>(
+        qt, kt, vt, ks, vs, tb, ln, ws_acc, ws_ml, Kv, G, page, P, window);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int err = launch_combine(paged_decode_combine_kernel<T, HD>, R, stream, ws_acc,
@@ -843,36 +1057,37 @@ int decode_hd(const void* q, const void* kp, const void* vp, const void* tables,
   return err ? err : (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int prefill_hd(const void* q, const void* kp, const void* vp, const void* tables,
-               const void* start, const void* q_len, void* out, float* ws, int B, int Tq,
-               int Kv, int G, int page, int P, int window, int S, cudaStream_t stream) {
+template <typename T, typename KT, int HD>
+int prefill_hd(const void* q, const void* kp, const void* vp, const float* ks, const float* vs,
+               const void* tables, const void* start, const void* q_len, void* out, float* ws,
+               int B, int Tq, int Kv, int G, int page, int P, int window, int S,
+               cudaStream_t stream) {
   const long R = (long)B * Tq * Kv * G;
   float* ws_acc = ws;
   float* ws_ml = ws + R * S * HD;
   const T* qt = static_cast<const T*>(q);
-  const T* kt = static_cast<const T*>(kp);
-  const T* vt = static_cast<const T*>(vp);
+  const KT* kt = static_cast<const KT*>(kp);
+  const KT* vt = static_cast<const KT*>(vp);
   const int* tb = static_cast<const int*>(tables);
   const int* st = static_cast<const int*>(start);
   const int* ql = static_cast<const int*>(q_len);
   int mma = 0;
-  if constexpr (sizeof(T) == 2) {  // bf16: tensor cores
+  if constexpr (sizeof(T) == 2) {  // bf16 q: tensor cores
     mma = 1;
-    const int bytes = MmaShape<HD>::kSmemBytes;
-    const int err = allow_smem(paged_prefill_mma_kernel<HD>, bytes);
+    const int bytes = MmaShape<HD, KT>::kSmemBytes;
+    const int err = allow_smem(paged_prefill_mma_kernel<HD, KT>, bytes);
     if (err) return err;
     const int tiles = (Tq * G + kMmaRows - 1) / kMmaRows;
-    paged_prefill_mma_kernel<HD><<<dim3(S * tiles, Kv, B), kThreads, bytes, stream>>>(
-        qt, kt, vt, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window, S);
-  } else {  // f32: the CUDA cores, one block a position
+    paged_prefill_mma_kernel<HD, KT><<<dim3(S * tiles, Kv, B), kThreads, bytes, stream>>>(
+        qt, kt, vt, ks, vs, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window, S);
+  } else {  // f32 q: the CUDA cores, one block a position
     const dim3 grid(S, Kv * row_chunks(G), B * Tq);
     if (G <= 4)
-      paged_prefill_rows_kernel<T, HD, 4><<<grid, kThreads, 0, stream>>>(
-          qt, kt, vt, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window);
+      paged_prefill_rows_kernel<T, KT, HD, 4><<<grid, kThreads, 0, stream>>>(
+          qt, kt, vt, ks, vs, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window);
     else
-      paged_prefill_rows_kernel<T, HD, 8><<<grid, kThreads, 0, stream>>>(
-          qt, kt, vt, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window);
+      paged_prefill_rows_kernel<T, KT, HD, 8><<<grid, kThreads, 0, stream>>>(
+          qt, kt, vt, ks, vs, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window);
   }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -880,6 +1095,38 @@ int prefill_hd(const void* q, const void* kp, const void* vp, const void* tables
                                  ws_ml, st, ql, static_cast<T*>(out), (int)R, Tq, Kv, G, page,
                                  P, window, S, mma);
   return err ? err : (int)cudaGetLastError();
+}
+
+// q's type T and the pool's code: 0 = the pool at T, 1 = int8, 2 = fp8-e4m3.
+template <typename T, int HD>
+int decode_pool(int code, const void* q, const void* kp, const void* vp, const float* ks,
+                const float* vs, const void* tables, const void* lengths, void* out, float* ws,
+                int B, int Kv, int G, int page, int P, int window, int S, cudaStream_t st) {
+  switch (code) {
+    case 0: return decode_hd<T, T, HD>(q, kp, vp, nullptr, nullptr, tables, lengths, out, ws,
+                                       B, Kv, G, page, P, window, S, st);
+    case 1: return decode_hd<T, int8_t, HD>(q, kp, vp, ks, vs, tables, lengths, out, ws, B,
+                                            Kv, G, page, P, window, S, st);
+    case 2: return decode_hd<T, fp8, HD>(q, kp, vp, ks, vs, tables, lengths, out, ws, B, Kv,
+                                         G, page, P, window, S, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int HD>
+int prefill_pool(int code, const void* q, const void* kp, const void* vp, const float* ks,
+                 const float* vs, const void* tables, const void* start, const void* q_len,
+                 void* out, float* ws, int B, int Tq, int Kv, int G, int page, int P,
+                 int window, int S, cudaStream_t st) {
+  switch (code) {
+    case 0: return prefill_hd<T, T, HD>(q, kp, vp, nullptr, nullptr, tables, start, q_len, out,
+                                        ws, B, Tq, Kv, G, page, P, window, S, st);
+    case 1: return prefill_hd<T, int8_t, HD>(q, kp, vp, ks, vs, tables, start, q_len, out, ws,
+                                             B, Tq, Kv, G, page, P, window, S, st);
+    case 2: return prefill_hd<T, fp8, HD>(q, kp, vp, ks, vs, tables, start, q_len, out, ws, B,
+                                          Tq, Kv, G, page, P, window, S, st);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -900,42 +1147,51 @@ int paged_attention_constant(int which) {
   return -1;
 }
 
-// dtype: 0 = float32, 1 = bfloat16. ws: the wrapper's f32 workspace of
-// B*Kv*G*S*(hd+2) floats, S = ceil(P*page / 64). Returns cudaGetLastError().
-int paged_decode_attention(const void* q, const void* kp, const void* vp,
-                           const void* tables, const void* lengths, void* out, void* ws,
-                           int B, int Kv, int G, int hd, int page, int P, int window, int S,
-                           int dtype, void* stream) {
+// dtype (q's and the output's): 0 = float32, 1 = bfloat16. code (the pool's):
+// 0 = q's dtype (ks, vs null), 1 = int8, 2 = fp8-e4m3, with ks, vs the f32
+// scales (N, page, Kv). ws: the wrapper's f32 workspace of B*Kv*G*S*(hd+2)
+// floats, S = ceil(P*page / 64). Returns cudaGetLastError().
+int paged_decode_attention(const void* q, const void* kp, const void* vp, const void* ks,
+                           const void* vs, const void* tables, const void* lengths, void* out,
+                           void* ws, int B, int Kv, int G, int hd, int page, int P, int window,
+                           int S, int dtype, int code, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
+  const float* k_s = static_cast<const float*>(ks);
+  const float* v_s = static_cast<const float*>(vs);
   switch (hd) {
-#define PAGED_CASE(H)                                                                     \
-  case H:                                                                                 \
-    return dtype == 1 ? decode_hd<bf16, H>(q, kp, vp, tables, lengths, out, w, B, Kv, G,  \
-                                           page, P, window, S, st)                        \
-                      : decode_hd<float, H>(q, kp, vp, tables, lengths, out, w, B, Kv, G, \
-                                            page, P, window, S, st);
+#define PAGED_CASE(H)                                                                        \
+  case H:                                                                                    \
+    return dtype == 1 ? decode_pool<bf16, H>(code, q, kp, vp, k_s, v_s, tables, lengths, out, \
+                                             w, B, Kv, G, page, P, window, S, st)            \
+                      : decode_pool<float, H>(code, q, kp, vp, k_s, v_s, tables, lengths,    \
+                                              out, w, B, Kv, G, page, P, window, S, st);
     PAGED_HD_CASES(PAGED_CASE)
 #undef PAGED_CASE
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// ws: B*T*Kv*G*S*(hd+2) floats, S = ceil(P*page / 256) for bf16 and
-// ceil(P*page / 64) for f32.
-int paged_prefill_attention(const void* q, const void* kp, const void* vp,
-                            const void* tables, const void* start, const void* q_len,
-                            void* out, void* ws, int B, int Tq, int Kv, int G, int hd,
-                            int page, int P, int window, int S, int dtype, void* stream) {
+// ws: B*T*Kv*G*S*(hd+2) floats, S = ceil(P*page / 128) for bf16 q and
+// ceil(P*page / 64) for f32 q; pool code and scales as for decode.
+int paged_prefill_attention(const void* q, const void* kp, const void* vp, const void* ks,
+                            const void* vs, const void* tables, const void* start,
+                            const void* q_len, void* out, void* ws, int B, int Tq, int Kv,
+                            int G, int hd, int page, int P, int window, int S, int dtype,
+                            int code, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* w = static_cast<float*>(ws);
+  const float* k_s = static_cast<const float*>(ks);
+  const float* v_s = static_cast<const float*>(vs);
   switch (hd) {
-#define PAGED_CASE(H)                                                                    \
-  case H:                                                                                \
-    return dtype == 1 ? prefill_hd<bf16, H>(q, kp, vp, tables, start, q_len, out, w, B,  \
-                                            Tq, Kv, G, page, P, window, S, st)           \
-                      : prefill_hd<float, H>(q, kp, vp, tables, start, q_len, out, w, B, \
-                                             Tq, Kv, G, page, P, window, S, st);
+#define PAGED_CASE(H)                                                                       \
+  case H:                                                                                   \
+    return dtype == 1 ? prefill_pool<bf16, H>(code, q, kp, vp, k_s, v_s, tables, start,     \
+                                              q_len, out, w, B, Tq, Kv, G, page, P, window, \
+                                              S, st)                                        \
+                      : prefill_pool<float, H>(code, q, kp, vp, k_s, v_s, tables, start,    \
+                                               q_len, out, w, B, Tq, Kv, G, page, P, window, \
+                                               S, st);
     PAGED_HD_CASES(PAGED_CASE)
 #undef PAGED_CASE
   }

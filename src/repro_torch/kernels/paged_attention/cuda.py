@@ -6,7 +6,11 @@ its output and the kernels' f32 workspace of split partials with
 the combine that merges the splits in order), raises when the C launcher
 returns a nonzero ``cudaGetLastError()``, and adds one to its entry of
 ``LAUNCHES`` per call — only there, so a run can show that it went through
-the kernels.
+the kernels. A quantized pool (int8 or ``float8_e4m3fn`` codes, with f32
+``k_scale`` / ``v_scale`` of shape (N, page, Kv)) runs the same kernels
+templated on the code type, and counts under its own key
+(``paged_decode_attention_int8``, ``..._fp8``), so a run shows which variant
+ran; q and the output stay f32 or bf16.
 
 The split plan: K5 (and f32 K6, per query position) splits a slot's keys
 into fixed ranges of ``DECODE_SPLIT`` keys; bf16 K6 splits each row tile of
@@ -20,7 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,7 +33,13 @@ from repro_torch.kernels import build
 SOURCE = "paged_attention/csrc/paged_attention.cu"
 DECODE = "paged_decode_attention"
 PREFILL = "paged_prefill_attention"
-LAUNCHES: Dict[str, int] = {DECODE: 0, PREFILL: 0}
+# pool code types beside the native one (the pool at q's dtype): the C
+# interface's kv code, and the suffix of the variant's LAUNCHES key
+_CODES = {torch.int8: (1, "int8"), torch.float8_e4m3fn: (2, "fp8")}
+LAUNCHES: Dict[str, int] = {
+    f"{op}{suffix}": 0 for op in (DECODE, PREFILL)
+    for suffix in ("", "_int8", "_fp8")
+}
 
 # the kernel's constants (paged_attention_constant checks them at load)
 DECODE_SPLIT = 64        # keys per K5 split, and per f32 K6 split
@@ -49,9 +59,9 @@ def reset_launches() -> None:
 def library() -> ctypes.CDLL:
     lib = build.load(SOURCE)
     if not getattr(lib, "_typed", False):
-        lib.paged_decode_attention.argtypes = [_P] * 7 + [_I] * 9 + [_P]
+        lib.paged_decode_attention.argtypes = [_P] * 9 + [_I] * 10 + [_P]
         lib.paged_decode_attention.restype = _I
-        lib.paged_prefill_attention.argtypes = [_P] * 8 + [_I] * 10 + [_P]
+        lib.paged_prefill_attention.argtypes = [_P] * 10 + [_I] * 11 + [_P]
         lib.paged_prefill_attention.restype = _I
         lib.paged_attention_constant.argtypes = [_I]
         lib.paged_attention_constant.restype = _I
@@ -88,15 +98,44 @@ def workspace_floats(rows: int, S: int, hd: int) -> int:
     return rows * S * (hd + 2)
 
 
+def variant(name: str, pool_dtype: torch.dtype) -> str:
+    """The ``LAUNCHES`` key of op ``name`` over a pool of ``pool_dtype``."""
+    return name + (f"_{_CODES[pool_dtype][1]}" if pool_dtype in _CODES else "")
+
+
+def _scale_ptrs(q, k_pages, k_scale, v_scale) -> Tuple[int, int, int]:
+    """(kv code, k_scale pointer, v_scale pointer): 0 and null pointers for a
+    pool at q's dtype; a quantized pool needs both scales, f32, contiguous,
+    (N, page, Kv) on q's device."""
+    if k_pages.dtype not in _CODES:
+        if k_scale is not None or v_scale is not None:
+            raise ValueError(f"scales given for a {k_pages.dtype} pool")
+        return 0, 0, 0
+    if k_scale is None or v_scale is None:
+        raise ValueError(f"a {k_pages.dtype} pool needs k_scale and v_scale")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if t.dtype != torch.float32 or t.device != q.device:
+            raise TypeError(f"{name} must be float32 on {q.device}")
+        if t.shape != k_pages.shape[:3]:
+            raise ValueError(f"{name} shape {tuple(t.shape)} != pool's "
+                             f"{tuple(k_pages.shape[:3])}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return _CODES[k_pages.dtype][0], k_scale.data_ptr(), v_scale.data_ptr()
+
+
 def _check(q, k_pages, v_pages, tables, ints, G, hd, page):
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"CUDA kernel given a tensor on {dev}")
     if q.dtype not in _DTYPES:
         raise TypeError(f"q dtype {q.dtype} not in {list(_DTYPES)}")
+    if k_pages.dtype != q.dtype and k_pages.dtype not in _CODES:
+        raise TypeError(f"pool dtype {k_pages.dtype} is neither q's {q.dtype} "
+                        f"nor a code type {list(_CODES)}")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
-        if t.dtype != q.dtype or t.device != dev:
-            raise TypeError(f"{name} must be {q.dtype} on {dev}")
+        if t.dtype != k_pages.dtype or t.device != dev:
+            raise TypeError(f"{name} must be {k_pages.dtype} on {dev}")
         if t.shape != k_pages.shape or t.shape[-1] != hd:
             raise ValueError(f"{name} shape {tuple(t.shape)} does not fit q")
     for name, t in (("tables", tables),) + ints:
@@ -130,28 +169,33 @@ def paged_decode_attention_cuda(
     lengths: torch.Tensor,
     *,
     window: int = 0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K5 on the card. q (B, Kv, G, hd) pre-scaled; pools (N, page, Kv, hd);
-    tables (B, P) int32; lengths (B,) int32 -> (B, Kv, G, hd) q.dtype."""
+    """K5 on the card. q (B, Kv, G, hd) pre-scaled; pools (N, page, Kv, hd)
+    at q's dtype, or int8 / fp8 codes with scales (N, page, Kv) f32; tables
+    (B, P) int32; lengths (B,) int32 -> (B, Kv, G, hd) q.dtype."""
     B, Kv, G, hd = q.shape
     page = k_pages.shape[1]
     P = tables.shape[1]
     if k_pages.shape[2] != Kv or tables.shape[0] != B or lengths.shape != (B,):
         raise ValueError("shapes of q, pools, tables and lengths disagree")
     _check(q, k_pages, v_pages, tables, (("lengths", lengths),), G, hd, page)
+    code, ks, vs = _scale_ptrs(q, k_pages, k_scale, v_scale)
     S = n_splits(DECODE_SPLIT, page, P)
     out = torch.empty_like(q)
     ws = torch.empty(workspace_floats(B * Kv * G, S, hd), dtype=torch.float32,
                      device=q.device)
     with torch.cuda.device(q.device):
         err = library().paged_decode_attention(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
             tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), ws.data_ptr(),
-            B, Kv, G, hd, page, P, int(window), S, _DTYPES[q.dtype],
+            B, Kv, G, hd, page, P, int(window), S, _DTYPES[q.dtype], code,
             torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(err, DECODE)
-    LAUNCHES[DECODE] += 1
+    name = variant(DECODE, k_pages.dtype)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -164,11 +208,13 @@ def paged_prefill_attention_cuda(
     q_len: torch.Tensor,
     *,
     window: int = 0,
+    k_scale: Optional[torch.Tensor] = None,
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """K6 on the card. q (B, T, Kv, G, hd) pre-scaled; start, q_len (B,)
-    int32 -> (B, T, Kv, G, hd) q.dtype (rows t >= q_len are garbage). bf16
-    runs on the tensor cores, f32 on the CUDA cores (TF32 would fail f32's
-    2e-5): the choice is by dtype alone."""
+    """K6 on the card. q (B, T, Kv, G, hd) pre-scaled; pools and scales as
+    for K5; start, q_len (B,) int32 -> (B, T, Kv, G, hd) q.dtype (rows t >=
+    q_len are garbage). bf16 q runs on the tensor cores, f32 q on the CUDA
+    cores (TF32 would fail f32's 2e-5): the choice is by q's dtype alone."""
     B, T, Kv, G, hd = q.shape
     page = k_pages.shape[1]
     P = tables.shape[1]
@@ -177,6 +223,7 @@ def paged_prefill_attention_cuda(
         raise ValueError("shapes of q, pools, tables, start and q_len disagree")
     _check(q, k_pages, v_pages, tables, (("start", start), ("q_len", q_len)),
            G, hd, page)
+    code, ks, vs = _scale_ptrs(q, k_pages, k_scale, v_scale)
     split = PREFILL_SPLIT if q.dtype == torch.bfloat16 else DECODE_SPLIT
     S = n_splits(split, page, P)
     out = torch.empty_like(q)
@@ -184,11 +231,12 @@ def paged_prefill_attention_cuda(
                      device=q.device)
     with torch.cuda.device(q.device):
         err = library().paged_prefill_attention(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), ks, vs,
             tables.data_ptr(), start.data_ptr(), q_len.data_ptr(),
             out.data_ptr(), ws.data_ptr(), B, T, Kv, G, hd, page, P, int(window), S,
-            _DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+            _DTYPES[q.dtype], code, torch.cuda.current_stream(q.device).cuda_stream,
         )
-    _raise_on(err, PREFILL)
-    LAUNCHES[PREFILL] += 1
+    name = variant(PREFILL, k_pages.dtype)
+    _raise_on(err, name)
+    LAUNCHES[name] += 1
     return out

@@ -15,8 +15,11 @@ may differ from the eager one by an ulp in the scale: the port follows the
 eager call, which is what the JAX host-driven pipeline runner executes.)
 
 The stash ops (``kernels.blockwise_quant.ops.stash_quantize``) run these on
-CPU tensors and the hand-written K7a / K7b on CUDA tensors; the serving
-engine's quantized pools (ROADMAP queue 1 item 2) will reuse them.
+CPU tensors and the hand-written K7a / K7b on CUDA tensors. The serving
+engine's quantized pools use ``kv_quantize`` as their write path on both
+devices (``models.attention``: each new K/V row quantized once, codes and
+scale written at the same page slot), and K5 / K6 dequantize inside their
+gathers; ``kv_token_bytes`` prices the pool.
 """
 from __future__ import annotations
 

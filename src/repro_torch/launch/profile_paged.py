@@ -2,14 +2,16 @@
 (split kernels, combines) at the serving shapes of ``chip_smoke.py``'s
 kernels phase, under ``torch.profiler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_paged [--reps 20]
+    PYTHONPATH=src python -m repro_torch.launch.profile_paged [--reps 20] \
+        [--kv-dtype bf16|int8|fp8]
 
 For each shape: ``reps`` calls of the op, each after a 64 MB write that
 flushes the L2 (as ``chip_smoke.py`` times them), and one JSON line with the
 mean device time per call of every kernel the op launched, their sum, the
 median span of one call on the card (first kernel's start to last one's
 end), and the CUDA-event times of 0, 1, 2 and 8 calls queued behind a spin
-kernel (L2 warm).
+kernel (L2 warm). ``--kv-dtype int8|fp8`` quantizes the same pools with
+``quant.kv_quantize`` and times the quantized kernels (q stays bf16).
 """
 from __future__ import annotations
 
@@ -37,8 +39,9 @@ SHAPES = [
 ]
 
 
-def make_args(kind, s, dtype=torch.bfloat16, seed=0):
-    """Random pools and disjoint tables on the card for one shape."""
+def make_args(kind, s, dtype=torch.bfloat16, seed=0, kv_dtype="bf16"):
+    """Random pools and disjoint tables on the card for one shape, and the
+    op's scale operands (none for a bf16 pool)."""
     rng = np.random.RandomState(seed)
     B, Kv, G, hd, page, P = s["B"], s["Kv"], s["G"], s["hd"], s["page"], s["P"]
     ends = s["lengths"] if kind == "decode" else [st + s["T"] for st in s["starts"]]
@@ -55,7 +58,14 @@ def make_args(kind, s, dtype=torch.bfloat16, seed=0):
         nxt += n
     i32 = lambda x: torch.tensor(x, dtype=torch.int32, device="cuda")  # noqa: E731
     ints = [i32(s["lengths"])] if kind == "decode" else [i32(s["starts"]), i32(s["qlens"])]
-    return [q.contiguous(), kp, vp, i32(tables)] + ints
+    scales = {}
+    if kv_dtype != "bf16":
+        from repro_torch.kernels.paged_attention import quant
+
+        store = quant.kv_storage_dtype(kv_dtype, dtype)
+        (kp, ks), (vp, vs) = quant.kv_quantize(kp, store), quant.kv_quantize(vp, store)
+        scales = dict(k_scale=ks, v_scale=vs)
+    return [q.contiguous(), kp, vp, i32(tables)] + ints, scales
 
 
 def busy_call_ms(fn, n: int) -> float:
@@ -73,6 +83,7 @@ def busy_call_ms(fn, n: int) -> float:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8", "fp8"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_paged measures the card; CUDA is not available")
@@ -84,10 +95,10 @@ def main(argv=None) -> None:
     ).stdout.strip()
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     for model, kind, s in SHAPES:
-        a = make_args(kind, s)
+        a, sc = make_args(kind, s, kv_dtype=args.kv_dtype)
         op = cuda.paged_decode_attention_cuda if kind == "decode" else \
             cuda.paged_prefill_attention_cuda
-        fn = lambda: op(*a, window=s["window"])  # noqa: E731
+        fn = lambda: op(*a, window=s["window"], **sc)  # noqa: E731
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -114,7 +125,8 @@ def main(argv=None) -> None:
         for i in range(0, per * args.reps, max(per, 1)):
             spans.append((evts[i + per - 1].time_range.end - evts[i].time_range.start) / 1e3)
         busy = {n: sorted(busy_call_ms(fn, n) for _ in range(11))[5] for n in (0, 1, 2, 8)}
-        print(json.dumps(dict(card=card, model=model, kind=kind, shape=s, kernels=kernels,
+        print(json.dumps(dict(card=card, kv_dtype=args.kv_dtype, model=model, kind=kind,
+                              shape=s, kernels=kernels,
                               kernels_ms=sum(k["ms_per_call"] for k in kernels.values()),
                               span_ms=sorted(spans)[len(spans) // 2] if spans else None,
                               busy_calls_ms=busy)), flush=True)

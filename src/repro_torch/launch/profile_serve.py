@@ -1,10 +1,11 @@
 """Where the serving time goes on the card: granite-8b, the chip smoke's
 serving workload, under ``torch.profiler``.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--out DIR]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve [--out DIR] \
+        [--kv-dtype bf16|int8|fp8]
 
-Runs ``workload.granite_serve_workload()`` (the workload of
-``chip_smoke.py``'s serve phase) once to warm up, then once under the
+Runs ``workload.granite_serve_workload(kv_dtype=...)`` (the workload of
+``chip_smoke.py``'s serve phases) once to warm up, then once under the
 profiler, and prints one JSON line: wall time, device-busy time and idle share of the
 window, the device time of each kernel family, and the isolated times of
 one decode step (4 slots at 500 cached tokens) and one 128-token prefill
@@ -30,11 +31,21 @@ def _self_device_us(evt) -> float:
     return 0.0
 
 
+def _pool(name: str) -> str:
+    """A paged split kernel's pool variant, from its template arguments."""
+    if "fp8_e4m3" in name:
+        return " fp8"
+    return " int8" if "signed char" in name else ""
+
+
 def _family(name: str) -> str:
-    if "paged_decode" in name:
-        return "K5 paged_decode_kernel"
-    if "paged_prefill" in name:
-        return "K6 paged_prefill_kernel"
+    """K5 / K6 by op: the split kernels by pool variant, the combines (which
+    never read the pool) apart; then the model's other kernels by kind."""
+    for op, k in (("paged_decode", "K5"), ("paged_prefill", "K6")):
+        if op in name:
+            if "combine" in name:
+                return f"{k} {op}_combine"
+            return f"{k} {op}_kernel{_pool(name)}"
     low = name.lower()
     if any(k in low for k in ("gemm", "gemv", "nvjet", "cutlass", "splitkreduce")):
         return "matmul (cuBLAS)"
@@ -59,6 +70,7 @@ def _events_ms(fn, reps: int = 10) -> float:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_serve_out")
+    ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8", "fp8"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the card; CUDA is not available")
@@ -71,7 +83,7 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
-    wl = granite_serve_workload()
+    wl = granite_serve_workload(kv_dtype=args.kv_dtype)
     cfg, rt, ecfg = wl.cfg, wl.rt, wl.ecfg
     params = wl.params("cuda")
     eng = ServeEngine(cfg, params, rt, ecfg, device="cuda")
@@ -122,7 +134,7 @@ def main(argv=None) -> None:
 
     decode(), prefill()
     print(json.dumps({
-        "card": card, "config": cfg.name, "wall_s": wall_s,
+        "card": card, "config": cfg.name, "kv_dtype": args.kv_dtype, "wall_s": wall_s,
         "device_busy_s": busy_us / 1e6, "idle_share": 1 - busy_us / 1e6 / wall_s,
         "tokens_per_s": stats["tokens_per_s"],
         "run_mean_ttft_s": stats["run_mean_ttft_s"],

@@ -4,17 +4,20 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --full --arch granite-8b \
         --paged --prefill-chunk 128
 
-    # reduced config on the CPU (plain versions of the kernels)
+    # reduced config on the CPU (plain versions of the kernels), int8 pool
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
-        --paged --prefill-chunk 8 --device cpu
+        --paged --prefill-chunk 8 --device cpu --kv-dtype int8
 
 Counterpart of the ``--paged`` branch of ``repro.launch.serve``. Requests of
 random length (uniform in ``[prompt_len // 2, prompt_len]``, after an
 optional shared system prompt) are admitted into ``--slots`` decode slots
 over the paged KV pool, prefilled in chunks and decoded together. It runs on
 CUDA unless ``--device cpu`` is given, and in bf16 at full size (``--full``),
-f32 when reduced. Modes of the JAX launcher that belong to later slices of
-the port exit with an error naming the slice.
+f32 when reduced. ``--kv-dtype int8|fp8`` stores the pool as codes and
+scales (``bf16``, the default, at the compute dtype); the launcher prints the
+pool's dtype, bytes per request and capacity against bf16, as the JAX
+launcher does. Modes of the JAX launcher that belong to later slices of the
+port exit with an error naming the slice.
 """
 from __future__ import annotations
 
@@ -24,7 +27,6 @@ import numpy as np
 import torch
 
 LATER = {
-    "kv_dtype": "--kv-dtype int8|fp8 (quantized KV)",
     "spec": "--spec (speculative decoding)",
     "mesh": "--mesh (memory techniques and multi-device)",
     "trace": "--trace (the async front-end and its traces)",
@@ -51,7 +53,8 @@ def main(argv=None) -> None:
     ap.add_argument("--prefill-chunk", type=int, default=0)
     ap.add_argument("--shared-prefix", type=int, default=0)
     ap.add_argument("--max-queue", type=int, default=0)
-    ap.add_argument("--kv-dtype", default="bf16")
+    ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8", "fp8"),
+                    help="KV pool storage: the compute dtype, or int8 / fp8 codes")
     ap.add_argument("--spec", type=int, default=0)
     ap.add_argument("--mesh", default="")
     ap.add_argument("--trace", default="")
@@ -60,8 +63,6 @@ def main(argv=None) -> None:
     if not args.paged:
         ap.error("the port serves only --paged so far; batched dense generation "
                  "is ROADMAP queue 1, 'the dense fallback and the other families'")
-    if args.kv_dtype != "bf16":
-        ap.error(f"{LATER['kv_dtype']} is a later slice of the port (ROADMAP queue 1)")
     for flag in ("spec", "mesh", "trace"):
         if getattr(args, flag):
             ap.error(f"{LATER[flag]} is a later slice of the port (ROADMAP queue 1)")
@@ -84,7 +85,7 @@ def main(argv=None) -> None:
     max_prompt = args.prompt_len + args.shared_prefix
     ecfg = EngineConfig.capacity(
         max_prompt, args.new_tokens, slots=args.slots, page_size=args.page_size,
-        headroom=2.0, cfg=cfg,
+        headroom=2.0, cfg=cfg, kv_dtype=args.kv_dtype,
     ).engine(
         temperature=args.temperature, seed=args.seed,
         prefill_bucket=args.page_size, prefix_cache=args.prefix_cache,
@@ -110,6 +111,17 @@ def main(argv=None) -> None:
         f"{s['run_mean_ttft_s'] * 1e3:.0f}ms, evictions={s.get('evictions', 0)}, "
         f"prefill_chunks={s.get('prefill_chunks', 0)}, "
         f"kernel_launches={s['kernel_launches']}"
+    )
+    from repro_torch.kernels.paged_attention.quant import kv_token_bytes
+
+    per_req = list(s.get("kv_bytes", {}).values())
+    tok_bytes = kv_token_bytes(cfg.n_kv_heads, cfg.head_dim, args.kv_dtype)
+    cap_factor = kv_token_bytes(cfg.n_kv_heads, cfg.head_dim, "bf16") / tok_bytes
+    print(
+        f"  kv-pool: dtype={args.kv_dtype}, bytes/token={tok_bytes * cfg.n_layers}, "
+        f"bytes/request={np.mean(per_req):.0f} (mean over {len(per_req)}), "
+        f"capacity_factor_vs_bf16={cap_factor:.2f}x, "
+        f"pool_bytes={s['kv_pool_bytes_per_device']}"
     )
     if args.prefix_cache:
         print(

@@ -5,6 +5,8 @@ Serving: granite-8b at full width and depth in bf16, random weights from
 seed 0; 8 requests with prompts uniform in 128..512 tokens and 64 new tokens
 each, greedy; 4 slots, page 16, chunked prefill of 128 tokens, 8 decode
 steps per tick, a pool sized by ``EngineConfig.capacity(..., headroom=2.0)``.
+``kv_dtype`` "int8" / "fp8" stores that pool as codes and scales: the same
+requests, slots, page size, chunk and number of pages, fewer pool bytes.
 
 Training: gemma3-1b at full width and depth (26 layers, d 1152, 4 query
 heads over 1 kv head of hd 256, window 512 on 22 layers, tied vocabulary of
@@ -33,6 +35,7 @@ import torch
 
 from repro_torch.configs import ArchConfig, get_config
 from repro_torch.core.partitioner import ParallelPlan
+from repro_torch.kernels.paged_attention.quant import normalize_kv_dtype
 from repro_torch.models import Runtime, init_params
 from repro_torch.serve import EngineConfig
 from repro_torch.train import TrainConfig, plan_fields
@@ -52,17 +55,18 @@ class ServeWorkload:
                            dtype=self.rt.dtype)
 
 
-def granite_serve_workload(seed: int = 0) -> ServeWorkload:
+def granite_serve_workload(seed: int = 0, kv_dtype: str = "bf16") -> ServeWorkload:
     cfg = get_config("granite-8b")
     new_tokens, slots, page = 64, 4, 16
     ecfg = EngineConfig.capacity(
         512, new_tokens, slots=slots, page_size=page, headroom=2.0, cfg=cfg,
+        kv_dtype=kv_dtype,
     ).engine(prefill_chunk=128, inner_steps=8, temperature=0.0, seed=seed)
     rng = np.random.RandomState(seed)
     prompts = [rng.randint(0, cfg.vocab_size, (int(n),)).astype(np.int32)
                for n in rng.randint(128, 513, size=8)]
-    return ServeWorkload(cfg, Runtime(dtype=torch.bfloat16), ecfg, prompts,
-                         new_tokens, seed)
+    rt = Runtime(dtype=torch.bfloat16, kv_dtype=normalize_kv_dtype(kv_dtype))
+    return ServeWorkload(cfg, rt, ecfg, prompts, new_tokens, seed)
 
 
 @dataclass(frozen=True)

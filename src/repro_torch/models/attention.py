@@ -12,6 +12,13 @@ old buffers; here the write lands in the caller's tensor). The order is the
 JAX package's: the new K/V rows are written to their block-table pages
 first, then every query row attends through the paged op, so in-chunk
 causality and the cached prefix are the same absolute-position mask.
+
+A quantized pool (int8 / fp8 codes, ``kv_dtype``) comes with its scale pools
+``ksc`` / ``vsc`` (N, page, Kv) f32: each new K/V row is quantized once, at
+write time, by ``quant.kv_quantize`` (its codes and scale depend on its own
+values alone, so pool bytes do not depend on the batch), the codes and the
+scale land at the same ``(pid, slot)``, and the paged op dequantizes inside
+its gather (K5/K6 on the card).
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import (
     paged_attention,
     paged_prefill_attention,
+    quant,
 )
 from repro_torch.models.layers import dense_init, frozen, rope_apply
 
@@ -84,12 +92,21 @@ def attention_apply(
     return out.reshape(B, S, n_heads * head_dim) @ p.wo.to(dtype)
 
 
-def check_kv_dtype(kv_dtype: str) -> None:
-    if kv_dtype not in ("", "bf16", "native"):
-        raise NotImplementedError(
-            f"kv_dtype {kv_dtype!r}: quantized KV pools are ROADMAP queue 1, "
-            "item 'quantized KV' (the int8/fp8 scale path of K5/K6)"
-        )
+def _write_rows(kp, vp, ksc, vsc, pid, slot, k_new, v_new):
+    """New K/V rows into the pools at (pid, slot), in place; quantized (codes
+    and scales at the same place) when scale pools are given. Returns the
+    scale operands of the paged op."""
+    if ksc is None:
+        kp[pid, slot] = k_new
+        vp[pid, slot] = v_new
+        return {}
+    k_codes, k_sc = quant.kv_quantize(k_new, kp.dtype)
+    v_codes, v_sc = quant.kv_quantize(v_new, vp.dtype)
+    kp[pid, slot] = k_codes
+    vp[pid, slot] = v_codes
+    ksc[pid, slot] = k_sc
+    vsc[pid, slot] = v_sc
+    return {"k_scale": ksc, "v_scale": vsc}
 
 
 def attention_prefill_paged(
@@ -106,10 +123,13 @@ def attention_prefill_paged(
     head_dim: int,
     theta: float,
     window: int = 0,
+    ksc: Optional[torch.Tensor] = None,
+    vsc: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One prefill chunk per slot against the paged pool (written in place).
 
-    x: (B, T, d); kp/vp: (N, page, Kv, hd); tables: (B, P) int32; start:
+    x: (B, T, d); kp/vp: (N, page, Kv, hd) at the compute dtype, or codes
+    with scale pools ksc/vsc (N, page, Kv) f32; tables: (B, P) int32; start:
     (B,) absolute position of x[:, 0]; q_len: (B,) valid rows. Rows at or
     beyond q_len write the null page and their output is zeroed. Returns
     (B, T, d)."""
@@ -135,12 +155,12 @@ def attention_prefill_paged(
     ).long()
     slot = torch.where(ok, pos % page, 0).long()
     # invalid rows all land on (0, 0) of the null page: duplicates there are
-    # harmless, it is never attended unmasked
-    kp[pid, slot] = k_new
-    vp[pid, slot] = v_new
+    # harmless (finite codes and scales), it is never attended unmasked
+    scales = _write_rows(kp, vp, ksc, vsc, pid, slot, k_new, v_new)
 
     q = q.reshape(B, T, n_kv, G, head_dim) * (head_dim ** -0.5)
-    out = paged_prefill_attention(q, kp, vp, tables, start, q_len, window=window)
+    out = paged_prefill_attention(q, kp, vp, tables, start, q_len, window=window,
+                                  **scales)
     out = torch.where(valid[:, :, None, None, None], out, 0)
     out = out.to(dtype).reshape(B, T, n_heads * head_dim)
     return out @ p.wo.to(dtype)
@@ -160,12 +180,15 @@ def attention_decode_paged(
     head_dim: int,
     theta: float,
     window: int = 0,
+    ksc: Optional[torch.Tensor] = None,
+    vsc: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One decode token per slot against the paged pool (written in place).
 
     x: (B, 1, d); lengths: (B,) int32 tokens already cached per slot (the
     new token's position); active: (B,) bool — inactive slots write the null
-    page and their output is garbage by contract. Returns (B, 1, d)."""
+    page and their output is garbage by contract. Pools and scale pools as in
+    :func:`attention_prefill_paged`. Returns (B, 1, d)."""
     B = x.shape[0]
     dtype = x.dtype
     G = n_heads // n_kv
@@ -184,10 +207,9 @@ def attention_decode_paged(
     )[:, 0]
     page_ids = torch.where(ok, page_ids, 0).long()
     slot = torch.where(ok, lengths % page, 0).long()
-    kp[page_ids, slot] = k_new[:, 0]
-    vp[page_ids, slot] = v_new[:, 0]
+    scales = _write_rows(kp, vp, ksc, vsc, page_ids, slot, k_new[:, 0], v_new[:, 0])
 
     q = q.reshape(B, n_kv, G, head_dim) * (head_dim ** -0.5)
-    out = paged_attention(q, kp, vp, tables, lengths + 1, window=window)
+    out = paged_attention(q, kp, vp, tables, lengths + 1, window=window, **scales)
     out = out.to(dtype).reshape(B, 1, n_heads * head_dim)
     return out @ p.wo.to(dtype)

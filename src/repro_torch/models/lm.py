@@ -194,9 +194,10 @@ def init_paged_state(
     max_len: int,
     device,
 ) -> Dict[str, Any]:
-    """Paged decode state: the KV page pools shared by ``B`` slots, all-zero
-    block tables (the null page) until the engine admits a request, and the
-    per-slot count of cached tokens."""
+    """Paged decode state: the KV page pools shared by ``B`` slots (in the
+    storage dtype of ``rt.kv_dtype``, with scale pools when it is quantized),
+    all-zero block tables (the null page) until the engine admits a request,
+    and the per-slot count of cached tokens."""
     specs = layer_specs(cfg, seq_len=max_len, long_variant=rt.long_variant)
     table_width = -(-max_len // page_size)
     return {

@@ -19,8 +19,9 @@ REMAT_MODES = ("none", "full", "dots")
 @dataclasses.dataclass(frozen=True)
 class Runtime:
     dtype: Any = torch.bfloat16      # compute dtype of activations and pools
-    # Paged KV pool storage dtype: "" = native (pools stored at ``dtype``).
-    # Quantized pools ("int8" / "fp8") belong to a later slice.
+    # Paged KV pool storage dtype: "" = native (pools stored at ``dtype``);
+    # "int8" / "fp8" store codes and one f32 scale per (page slot, kv head)
+    # (``kernels.paged_attention.quant``)
     kv_dtype: str = ""
     long_variant: bool = False       # run the sliding-window long-context variant
     remat: str = "none"              # none | full | dots (offload: later slice)

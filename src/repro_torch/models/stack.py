@@ -11,9 +11,11 @@ input, ``dots`` also saves every matmul output (``aten.mm``), the
 counterpart of ``dots_with_no_batch_dims_saveable``.
 
 The KV pools stay one K tensor and one V tensor of shape
-``(L, num_pages, page, Kv, hd)`` (``init_stack_pool``), so a copy-on-write
-page copy is a single ``pool[:, dst] = pool[:, src]`` and layer ``i`` works
-on the contiguous view ``pool[i]``.
+``(L, num_pages, page, Kv, hd)`` (``init_stack_pool``), with, for a quantized
+``kv_dtype``, one K and one V scale tensor of shape ``(L, num_pages, page,
+Kv)``, so a copy-on-write page copy is a single ``pool[:, dst] =
+pool[:, src]`` per tensor and layer ``i`` works on the contiguous views
+``pool[i]``.
 
 A pipeline stage is a slice of ``Stack.layers`` (the counterpart of
 ``stage_layer_params`` slicing the stacked leaves), applied by
@@ -29,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.paged_attention import quant
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.layers import MLP, Norm, mlp_apply, norm_apply
 from repro_torch.models.runtime import Runtime
@@ -134,18 +137,34 @@ def init_stack_pool(
     page geometry. Page 0 is the reserved null page: block-table padding
     and inactive-slot writes go there, and reads of it are always masked.
     The pools are zeros: a plain version gathers page 0 and multiplies
-    masked weights of 0 by its values, so garbage there would become NaN."""
+    masked weights of 0 by its values, so garbage there would become NaN.
+
+    A quantized ``rt.kv_dtype`` ("int8" / "fp8") stores the pools in its
+    code dtype and adds ``{"ksc", "vsc"}``, f32 zeros of shape ``(L,
+    num_pages, page, Kv)``, one scale per (page slot, kv head): zero scales
+    dequantize the null page to exact zeros."""
     for spec in specs:
         if spec.kind not in ("attn", "local"):
             raise NotImplementedError(
                 f"paged decode supports attention mixers only, got {spec.kind}"
             )
-    attn_mod.check_kv_dtype(rt.kv_dtype)
+    store = quant.kv_storage_dtype(rt.kv_dtype, rt.dtype)
     shape = (len(specs), num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=rt.dtype, device=device),
-        "v": torch.zeros(shape, dtype=rt.dtype, device=device),
+    pools = {
+        "k": torch.zeros(shape, dtype=store, device=device),
+        "v": torch.zeros(shape, dtype=store, device=device),
     }
+    if quant.is_quantized(rt.kv_dtype):
+        pools["ksc"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+        pools["vsc"] = torch.zeros(shape[:-1], dtype=torch.float32, device=device)
+    return pools
+
+
+def _layer_scales(pools: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
+    """Layer ``i``'s scale pools, for a quantized pool; none otherwise."""
+    if "ksc" not in pools:
+        return {}
+    return {"ksc": pools["ksc"][i], "vsc": pools["vsc"][i]}
 
 
 # --------------------------------------------------------------------- apply
@@ -227,7 +246,7 @@ def stack_prefill_paged(
         x = x + attn_mod.attention_prefill_paged(
             bp.mixer, hn, pools["k"][i], pools["v"][i], tables, start, q_len,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            theta=cfg.rope_theta, window=spec.window,
+            theta=cfg.rope_theta, window=spec.window, **_layer_scales(pools, i),
         )
         x = _ffn_apply(cfg, bp, x)
     return x
@@ -255,7 +274,7 @@ def stack_decode(
         x = x + attn_mod.attention_decode_paged(
             bp.mixer, hn, pools["k"][i], pools["v"][i], tables, lengths, active,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            theta=cfg.rope_theta, window=spec.window,
+            theta=cfg.rope_theta, window=spec.window, **_layer_scales(pools, i),
         )
         x = _ffn_apply(cfg, bp, x)
     return x

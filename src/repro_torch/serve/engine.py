@@ -21,11 +21,19 @@ output equals running the request alone. On a CUDA device every attention
 call goes through the hand-written paged kernels and every RMSNorm through
 K3; ``stats["kernel_launches"]`` counts their launches in the run window.
 
+The pool's dtype is ``EngineConfig.kv_dtype`` (else the runtime's), as in
+the JAX engine: "bf16" keeps the pools at the compute dtype; "int8" and
+"fp8" store codes and one f32 scale per (page slot, kv head), each K/V row
+quantized once when it is written, and K5/K6 dequantize inside their
+gathers. Scales are indexed by page id like the codes, so the pool's
+allocator, copy-on-write copies and the prefix cache's adoption carry them
+unchanged.
+
 Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
 item): the dense fallback (``paged=False`` and the non-attention families),
 whole-prompt admission (``prefill_chunk=0`` with ``prefix_cache=False``),
-speculative decoding, quantized KV pools, meshes and replicated engines,
-and modality-prefix configs.
+speculative decoding, meshes and replicated engines, and modality-prefix
+configs.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention import cuda as pa_cuda
+from repro_torch.kernels.paged_attention.quant import normalize_kv_dtype
 from repro_torch.kernels.rmsnorm import cuda as rn_cuda
 from repro_torch.models import (
     LM,
@@ -54,7 +63,8 @@ from repro_torch.serve.scheduler import Request, Scheduler
 
 
 def _launches() -> Dict[str, int]:
-    """The launch counters of the serving path's kernels (K5, K6, K3)."""
+    """The launch counters of the serving path's kernels: K5 and K6 by pool
+    variant (bf16, int8, fp8), and K3."""
     return {**pa_cuda.LAUNCHES, "rmsnorm_fwd": rn_cuda.LAUNCHES["rmsnorm_fwd"]}
 
 
@@ -90,7 +100,7 @@ class EngineConfig:
     prefix_cache: bool = False
     # prompt tokens per prefill chunk, run inside the engine tick
     prefill_chunk: int = 0
-    kv_dtype: str = "bf16"    # "bf16" = pools at the compute dtype
+    kv_dtype: str = "bf16"    # "bf16" = pools at the compute dtype; "int8" | "fp8"
     max_queue: int = 0        # per-QoS-tier queue bound (0 = unbounded)
     spec_tokens: int = 0      # speculative decoding: a later slice
 
@@ -208,8 +218,6 @@ class ServeEngine:
         if engine.spec_tokens:
             raise _later("speculative decoding (spec_tokens>0)",
                          "speculative decoding")
-        if engine.kv_dtype not in ("", "bf16", "native"):
-            raise _later(f"kv_dtype={engine.kv_dtype!r}", "quantized KV")
         if params.embed.table.device != self.device:
             raise ValueError(
                 f"params on {params.embed.table.device}, engine on {self.device}"
@@ -217,7 +225,8 @@ class ServeEngine:
         self.cfg = cfg
         self.params = params
         self.ecfg = engine
-        self.rt = (rt if rt is not None else Runtime()).replace(kv_dtype="")
+        rt = rt if rt is not None else Runtime()
+        self.rt = rt.replace(kv_dtype=normalize_kv_dtype(engine.kv_dtype or rt.kv_dtype))
         self._policy = SamplingPolicy(
             temperature=engine.temperature, vocab=cfg.vocab_size, seed=engine.seed
         )
@@ -405,7 +414,8 @@ class ServeEngine:
     def _kv_bytes_per_page(self) -> int:
         return kv_page_bytes(
             self.ecfg.page_size, self.cfg.n_kv_heads, self.cfg.head_dim,
-            self.cfg.n_layers, "", torch.empty((), dtype=self.rt.dtype).element_size(),
+            self.cfg.n_layers, self.rt.kv_dtype,
+            torch.empty((), dtype=self.rt.dtype).element_size(),
         )
 
     def _set_slot(self, slot_id: int, *, length: int, remaining: int) -> None:

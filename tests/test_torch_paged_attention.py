@@ -1,13 +1,16 @@
 """The port's plain paged-attention versions against the JAX package's
 oracles and its Pallas kernels (interpret mode), in f32 at 2e-5 — the cases
-of tests/test_paged_attention.py. Also: the port's ops take the plain path
-for CPU tensors, and the kernel modules import without triton, nvcc or a
-card. The CUDA kernels themselves are held against the plain versions on
+of tests/test_paged_attention.py, over pools at q's dtype and over int8 /
+fp8 pools with their scales (the same codes and scales, from the port's
+kv_quantize, handed to both packages). Also: the port's ops take the plain
+path for CPU tensors, and the kernel modules import without triton, nvcc or
+a card. The CUDA kernels themselves are held against the plain versions on
 the card (chip_smoke.py, and the ``cuda``-marked test below)."""
 import subprocess
 import sys
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -20,7 +23,7 @@ from repro.kernels.paged_attention.kernel import (
     paged_attention_kernel,
     paged_prefill_attention_kernel,
 )
-from repro_torch.kernels.paged_attention import cuda, ops, ref
+from repro_torch.kernels.paged_attention import cuda, ops, quant, ref
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 
@@ -124,6 +127,137 @@ def test_prefill_plain_matches_jax_ref_and_kernel(case, window):
     for b, L in enumerate(qlens):      # rows t >= q_len are garbage by contract
         np.testing.assert_allclose(out[b, :L], jref[b, :L], **TOL)
         np.testing.assert_allclose(out[b, :L], jker[b, :L], **TOL)
+
+
+# ---------------------------------------------------- quantized pools
+# the JAX suite's quantized cases (tests/test_paged_attention.py: CASES[:2]
+# decode, one GQA prefill chunk), and a G 10 case of each
+QUANT_DECODE = CASES[:2] + LARGE_G_CASES[:1]
+QUANT_PREFILL = [(2, 4, 2, 2, 32, 8, 16, 4, [0, 5], [4, 3])] + LARGE_G_PREFILL_CASES[:1]
+KV_DTYPES = ["int8", "fp8"]
+
+
+def quantize_pools(arrays, kv_dtype):
+    """f32 (q, kp, vp, tables, *ints) -> the port's arguments and the JAX
+    package's, the pools as codes of ``kv_dtype`` and f32 scales from the
+    port's kv_quantize: the same bytes on both sides."""
+    q, kp, vp, tables, *ints = arrays
+    store = quant.kv_storage_dtype(kv_dtype, torch.float32)
+    kc, ks = quant.kv_quantize(torch.from_numpy(kp), store)
+    vc, vs = quant.kv_quantize(torch.from_numpy(vp), store)
+
+    def to_jax(codes):
+        if codes.dtype == torch.int8:
+            return jnp.asarray(codes.numpy())
+        return jnp.asarray(codes.view(torch.uint8).numpy().view(ml_dtypes.float8_e4m3fn))
+
+    t_args = th([q]) + [kc, vc] + th([tables, *ints])
+    j_args = jx([q]) + [to_jax(kc), to_jax(vc)] + jx([tables, *ints])
+    t_sc = dict(k_scale=ks, v_scale=vs)
+    j_sc = dict(k_scale=jnp.asarray(ks.numpy()), v_scale=jnp.asarray(vs.numpy()))
+    return t_args, t_sc, j_args, j_sc
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+@pytest.mark.parametrize("case", QUANT_DECODE, ids=[str(c[:4]) for c in QUANT_DECODE])
+@pytest.mark.parametrize("window", [0, 6])
+def test_quantized_decode_plain_matches_jax_ref(case, window, kv_dtype):
+    t_args, t_sc, j_args, j_sc = quantize_pools(make_case(*case), kv_dtype)
+    out = ref.paged_attention_plain(*t_args, window=window, **t_sc).numpy()
+    jref = np.asarray(paged_attention_ref(*j_args, window=window, **j_sc))
+    np.testing.assert_allclose(out, jref, **TOL)
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+@pytest.mark.parametrize("case", QUANT_PREFILL, ids=[str(c[:4]) for c in QUANT_PREFILL])
+@pytest.mark.parametrize("window", [0, 6])
+def test_quantized_prefill_plain_matches_jax_ref(case, window, kv_dtype):
+    t_args, t_sc, j_args, j_sc = quantize_pools(make_prefill_case(*case), kv_dtype)
+    out = ref.paged_prefill_attention_plain(*t_args, window=window, **t_sc).numpy()
+    jref = np.asarray(paged_prefill_attention_ref(*j_args, window=window, **j_sc))
+    for b, L in enumerate(case[-1]):
+        np.testing.assert_allclose(out[b, :L], jref[b, :L], **TOL)
+
+
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_quantized_plain_matches_pallas_interpret(kind, kv_dtype):
+    """The Pallas kernels' fused in-gather dequantization, in interpret mode,
+    on one small case each (window 6)."""
+    if kind == "decode":
+        t_args, t_sc, j_args, j_sc = quantize_pools(make_case(*CASES[1]), kv_dtype)
+        out = ref.paged_attention_plain(*t_args, window=6, **t_sc).numpy()
+        jker = np.asarray(paged_attention_kernel(*j_args, window=6, interpret=True, **j_sc))
+        np.testing.assert_allclose(out, jker, **TOL)
+        return
+    case = QUANT_PREFILL[0]
+    t_args, t_sc, j_args, j_sc = quantize_pools(make_prefill_case(*case), kv_dtype)
+    out = ref.paged_prefill_attention_plain(*t_args, window=6, **t_sc).numpy()
+    jker = np.asarray(paged_prefill_attention_kernel(*j_args, window=6, interpret=True,
+                                                     **j_sc))
+    for b, L in enumerate(case[-1]):
+        np.testing.assert_allclose(out[b, :L], jker[b, :L], **TOL)
+
+
+def test_quantized_null_page_dequantizes_to_zero():
+    """Zero scales make the null page read as exact zeros whatever codes it
+    holds: poisoned codes change nothing, and every output is finite."""
+    t_args, t_sc, _, _ = quantize_pools(make_case(2, 2, 2, 16, 8, 16, 4, [9, 12], seed=1),
+                                        "int8")
+    t_sc["k_scale"][0] = 0.0
+    t_sc["v_scale"][0] = 0.0
+    clean = ref.paged_attention_plain(*t_args, **t_sc)
+    t_args[1][0], t_args[2][0] = 127, -127
+    out = ref.paged_attention_plain(*t_args, **t_sc)
+    assert torch.isfinite(out).all()
+    np.testing.assert_array_equal(out.numpy(), clean.numpy())
+    assert (quant.kv_dequantize(t_args[1][0], t_sc["k_scale"][0]) == 0).all()
+
+
+def test_plain_versions_take_scales_in_pairs():
+    """A quantized pool needs both scales: one alone is refused."""
+    t_args, t_sc, _, _ = quantize_pools(make_case(*CASES[1]), "int8")
+    with pytest.raises(ValueError, match="both"):
+        ref.paged_attention_plain(*t_args, k_scale=t_sc["k_scale"])
+    t_args, t_sc, _, _ = quantize_pools(make_prefill_case(*QUANT_PREFILL[0]), "int8")
+    with pytest.raises(ValueError, match="both"):
+        ref.paged_prefill_attention_plain(*t_args, v_scale=t_sc["v_scale"])
+
+
+def test_ops_pass_the_scales_on_cpu(monkeypatch):
+    """The CPU ops hand a quantized pool's scales to the plain versions; the
+    CUDA wrappers and their counters are never touched."""
+    def refuse(*a, **k):
+        raise AssertionError("CUDA path taken for a CPU tensor")
+
+    monkeypatch.setattr(cuda, "paged_decode_attention_cuda", refuse)
+    monkeypatch.setattr(cuda, "paged_prefill_attention_cuda", refuse)
+    before = dict(cuda.LAUNCHES)
+    t_args, t_sc, _, _ = quantize_pools(make_case(*CASES[1]), "fp8")
+    got = ops.paged_attention(*t_args, window=6, **t_sc)
+    assert torch.equal(got, ref.paged_attention_plain(*t_args, window=6, **t_sc))
+    assert not torch.equal(got, ref.paged_attention_plain(
+        *t_args, window=6, k_scale=t_sc["k_scale"] * 2, v_scale=t_sc["v_scale"]))
+    t_args, t_sc, _, _ = quantize_pools(make_prefill_case(*QUANT_PREFILL[0]), "int8")
+    assert torch.equal(ops.paged_prefill_attention(*t_args, **t_sc),
+                       ref.paged_prefill_attention_plain(*t_args, **t_sc))
+    assert cuda.LAUNCHES == before
+
+
+def test_quantized_cuda_wrappers_refuse_cpu_tensors_and_count_by_variant():
+    """A quantized pool's wrappers launch or raise too; their launches count
+    under the variant's own key."""
+    t_args, t_sc, _, _ = quantize_pools(make_case(*CASES[0]), "int8")
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        cuda.paged_decode_attention_cuda(*t_args, **t_sc)
+    t_args, t_sc, _, _ = quantize_pools(make_prefill_case(*PREFILL_CASES[0]), "fp8")
+    with pytest.raises(ValueError, match="CUDA kernel"):
+        cuda.paged_prefill_attention_cuda(*t_args, **t_sc)
+    assert cuda.variant(cuda.DECODE, torch.int8) == "paged_decode_attention_int8"
+    assert cuda.variant(cuda.PREFILL, torch.float8_e4m3fn) == "paged_prefill_attention_fp8"
+    assert cuda.variant(cuda.DECODE, torch.bfloat16) == cuda.DECODE
+    assert set(cuda.LAUNCHES) == {f"{op}{v}" for op in (cuda.DECODE, cuda.PREFILL)
+                                  for v in ("", "_int8", "_fp8")}
 
 
 def test_poisoned_null_page_is_masked():
@@ -265,6 +399,9 @@ def test_workspace_holds_every_split_partial():
     ("paged_prefill_mma_kernel<128>", "K6"),
     ("paged_prefill_rows_kernel<float, 128, 4>", "K6"),
     ("paged_prefill_combine_kernel<float, 64>", "K6"),
+    ("paged_decode_split_kernel<__nv_bfloat16, signed char, 128, 4>",
+     "K5 paged_decode_kernel int8"),
+    ("paged_prefill_mma_kernel<128, __nv_fp8_e4m3>", "K6 paged_prefill_kernel fp8"),
 ])
 def test_profile_serve_counts_every_kernel_to_its_op(kernel, family):
     """profile_serve.py sums the device time of each CUDA kernel of an op,
@@ -318,3 +455,34 @@ def test_cuda_kernels_match_plain_on_the_card(dtype):
                 else:
                     alone = cuda.paged_prefill_attention_cuda(*alone_args, window=window)
                     assert torch.equal(out[b:b + 1, :qlens[b]], alone[:, :qlens[b]])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", KV_DTYPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantized_cuda_kernels_match_plain_on_the_card(dtype, kv_dtype):
+    """On an H100: both kernels over int8 / fp8 pools against their plain
+    versions on the same codes and scales (f32 q 2e-5, bf16 q 4e-3), windows
+    0 and 6, the JAX suite's quantized cases and their G 10 cases."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; run on the card with python3 chip_smoke.py")
+    dt = getattr(torch, dtype)
+    tol = TOL if dt == torch.float32 else dict(atol=4e-3, rtol=4e-3)
+
+    def card(t_args, t_sc):
+        args = [t.cuda() for t in t_args]
+        args[0] = args[0].to(dt)
+        return args, {k: v.cuda() for k, v in t_sc.items()}
+
+    for window in (0, 6):
+        for case in QUANT_DECODE:
+            args, sc = card(*quantize_pools(make_case(*case), kv_dtype)[:2])
+            torch.testing.assert_close(
+                cuda.paged_decode_attention_cuda(*args, window=window, **sc).float(),
+                ref.paged_attention_plain(*args, window=window, **sc).float(), **tol)
+        for case in QUANT_PREFILL:
+            args, sc = card(*quantize_pools(make_prefill_case(*case), kv_dtype)[:2])
+            out = cuda.paged_prefill_attention_cuda(*args, window=window, **sc)
+            plain = ref.paged_prefill_attention_plain(*args, window=window, **sc)
+            for b, L in enumerate(case[-1]):
+                torch.testing.assert_close(out[b, :L].float(), plain[b, :L].float(), **tol)

@@ -28,6 +28,12 @@ Phases, in order (any failure exits nonzero and prints no result line):
                a poisoned null page (NaN codes and scales) that must not leak,
                batched == alone bitwise, and timed at the serve workload's
                decode and 128-token prefill shapes beside the bf16 kernel;
+               then at a 32,768-key table, where the split grid is capped
+               (granite-8b's heads, one slot at ~32k keys beside short ones,
+               windows 0, 1,000 and 4,096; pools at q's dtype and int8, f32
+               and bf16 q): against the plain versions, batched == alone
+               bitwise, and each call's workspace bytes beside the uncapped
+               grid's;
   4. train kernels — K1 (flash forward), K2 (its delta, dq and dk/dv
                launches), K3 and K4 (RMSNorm forward, backward) against their
                plain versions: f32 on the JAX suites' shapes and hd 96
@@ -35,8 +41,10 @@ Phases, in order (any failure exits nonzero and prints no result line):
                at gemma3-1b's training shapes, granite-8b's and
                phi-3-vision's (hd 96) (forward 4e-3, gradients 1% of
                max|ref|, dk and dv the same bits on two runs), with times,
-               bounds and a library yardstick; K3/K4 in f32 (2e-5, dscale
-               1e-4) and bf16 (1e-2) at the training widths, at d that no
+               bounds and a library yardstick (for K2's delta, which no
+               single call computes, a copy_ of the same bytes); K3/K4 in
+               f32 (2e-5, dscale 1e-4) and bf16 (1e-2) at the training
+               widths, at d that no
                16-byte vector divides, one row, idle row groups, d 7168 and
                12,288, the decode shape and views at an odd storage offset
                (both bodies), dscale the same bits on two runs, timed at the
@@ -602,9 +610,10 @@ def phase_kernels():
             plain = lambda a=args, w=w: ref.paged_attention_plain(*a, window=w)  # noqa: E731
             err = check(f"K5 bf16 {model}", kern(), plain(), BF16_TOL)
             nbytes, flops = decode_bound(args[0], args[1], args[3], args[4], w)
+            S = cuda.n_splits(cuda.DECODE_SPLIT, s["page"], s["P"], cuda.DECODE_MAX_SPLITS)
             s["split_blocks_with_work"] = s["Kv"] * sum(
-                cuda.splits_of(*cuda.decode_keys(L, w, s["page"], s["P"]),
-                               cuda.DECODE_SPLIT)[1] for L in s["lengths"])
+                cuda.splits_of(*cuda.decode_keys(L, w, s["page"], s["P"]), cuda.DECODE_SPLIT,
+                               cuda.DECODE_MAX_SPLITS, S).count for L in s["lengths"])
             qpos = (args[4].long() - 1)[:, None]
             sd = sdpa_inputs(args[0][:, None], args[1], args[2], args[3], qpos, w)
             name = "paged_decode_attention"
@@ -727,6 +736,75 @@ def phase_kernels_quant():
 # lengths 561-633 and one 128-token chunk at 384, granite-8b's Kv 8, G 4, hd 128
 QUANT_TIMED = dict(B=4, Kv=8, G=4, hd=128, page=16, P=40, lengths=[561, 590, 600, 633],
                    T=128, start=384)
+
+
+# ------------------------------------------ K5 / K6 at a 32,768-key table
+# granite-8b's heads (Kv 8, G 4, hd 128) over a table of P 2,048 pages of 16,
+# where the split grid is capped (cuda.DECODE_MAX_SPLITS, PREFILL_MAX_SPLITS):
+# one slot at ~32k keys beside short ones. Decode: the long slot and 2,100
+# keys (33 splits of 64) take longer ranges, 600 and 65 keep the fixed
+# plan. Prefill: the long chunk's row tiles take 16 ranges of 2,048 keys;
+# the chunk at 2,000 has positions on both sides of the cap (f32 q) and
+# row tiles past it (bf16 q). Window 1,000 puts short rows' ranges in
+# columns below their own split (the grid holds 32); window 4,096 gives the
+# long slot 65 splits of 64.
+LONG = dict(Kv=8, G=4, hd=128, page=16, P=2048, lengths=[32_700, 2_100, 600, 65],
+            T=128, starts=[32_640, 2_000, 200], qlens=[128, 77, 128], windows=(0, 1000, 4096))
+
+
+def phase_kernels_long():
+    """K5 and K6 at LONG's 32,768-key table against their plain versions
+    (f32 q 2e-5, bf16 q BF16_TOL) over pools at q's dtype and int8 pools,
+    batched == alone bitwise at each window; prints each call's workspace
+    bytes beside the uncapped grid's, and each decode slot's plan."""
+    from repro_torch.kernels.paged_attention import cuda, ref
+
+    dec, pre = cuda.paged_decode_attention_cuda, cuda.paged_prefill_attention_cuda
+    f32, bf = torch.float32, torch.bfloat16
+    s = LONG
+    Kv, G, hd, page, P = s["Kv"], s["G"], s["hd"], s["page"], s["P"]
+    B, Bp = len(s["lengths"]), len(s["starts"])
+    N = 1 + sum(-(-L // page) for L in s["lengths"])
+    dcase = make_decode_case(B, Kv, G, hd, page, N, P, s["lengths"], f32, seed=51)
+    Np = 1 + sum(-(-(st + s["T"]) // page) for st in s["starts"])
+    pcase = make_prefill_case(Bp, s["T"], Kv, G, hd, page, Np, P, s["starts"], s["qlens"],
+                              f32, seed=52)
+    preps = [("f32", as_dtype(f32), 2e-5), ("bf16", as_dtype(bf), BF16_TOL),
+             ("int8 f32", lambda a: quantize_case(a, torch.int8, f32), 2e-5),
+             ("int8 bf16", lambda a: quantize_case(a, torch.int8, bf), BF16_TOL)]
+    n_checked = 0
+    for tag, prep, tol in preps:
+        dargs, dsc = prep(dcase)
+        pargs, psc = prep(pcase)
+        for w in s["windows"]:
+            check(f"K5 long {tag} w{w}", dec(*dargs, window=w, **dsc),
+                  ref.paged_attention_plain(*dargs, window=w, **dsc), tol)
+            check(f"K6 long {tag} w{w}", pre(*pargs, window=w, **psc),
+                  ref.paged_prefill_attention_plain(*pargs, window=w, **psc), tol, pargs[5])
+            assert_batched_equals_alone(f"K5 long {tag} w{w}",
+                                        lambda *a, w=w: dec(*a, window=w, **dsc), dargs)
+            assert_batched_equals_alone(f"K6 long {tag} w{w}",
+                                        lambda *a, w=w: pre(*a, window=w, **psc), pargs,
+                                        s["qlens"])
+            n_checked += 2
+        del dargs, pargs, dsc, psc
+        torch.cuda.empty_cache()
+    workspace = {}
+    for name, rows, split, cap in (
+            ("K5", B * Kv * G, cuda.DECODE_SPLIT, cuda.DECODE_MAX_SPLITS),
+            ("K6 bf16 q", Bp * s["T"] * Kv * G, cuda.PREFILL_SPLIT, cuda.PREFILL_MAX_SPLITS),
+            ("K6 f32 q", Bp * s["T"] * Kv * G, cuda.DECODE_SPLIT, cuda.DECODE_MAX_SPLITS)):
+        S, S_table = cuda.n_splits(split, page, P, cap), -(-P * page // split)
+        workspace[name] = dict(rows=rows, S=S, bytes=4 * cuda.workspace_floats(rows, S, hd),
+                               uncapped_S=S_table,
+                               uncapped_bytes=4 * cuda.workspace_floats(rows, S_table, hd))
+    S = cuda.n_splits(cuda.DECODE_SPLIT, page, P, cuda.DECODE_MAX_SPLITS)
+    plans = {w: [cuda.splits_of(*cuda.decode_keys(L, w, page, P), cuda.DECODE_SPLIT,
+                                cuda.DECODE_MAX_SPLITS, S)._asdict() for L in s["lengths"]]
+             for w in s["windows"]}
+    emit(phase="kernels_long", keys=P * page, shape=s, cases=n_checked,
+         batched_equals_alone=n_checked, tols={"f32 q": 2e-5, "bf16 q": BF16_TOL},
+         workspace=workspace, decode_plans=plans)
 
 
 # ------------------------------------------------------ training kernels
@@ -963,14 +1041,21 @@ def phase_train_kernels():
         lib_bwd = time_ms(lambda: torch.autograd.grad(out, (qg, kg, vg), dod,
                                                       retain_graph=True), flush)
         bounds = fa_bounds(B, S, Kv, G, hd, w, 2)
+        library = {"flash_attention_fwd": lib_fwd, "flash_attention_bwd_dq": lib_bwd,
+                   "flash_attention_bwd_dkv": lib_bwd,
+                   # no single PyTorch call computes delta in f32
+                   # (torch.linalg.vecdot of bf16 returns bf16)
+                   "flash_attention_bwd_delta": None}
+        sink = torch.empty_like(o)
         for name, fn in kern.items():
             nbytes, flops = bounds[name]
             bms, by = bound(nbytes, flops, bf)
             row = dict(model=model, kernel=name, shape=s, max_abs_err=errs[name],
                        grad_rel_err=errs["grad_rel"], kernel_ms=time_ms(fn, flush),
-                       plain_ms=plain[name],
-                       library_ms=lib_fwd if name == "flash_attention_fwd" else lib_bwd,
+                       plain_ms=plain[name], library_ms=library[name],
                        bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
+            if name == "flash_attention_bwd_delta":   # a stream of the same bytes
+                row["copy_ms"] = time_ms(lambda: sink.copy_(o), flush)
             emit(phase="train_kernels_bf16", fwd_tol=BF16_TOL, grad_rel_tol=FA_BF16_GRAD_REL,
                  **row)
             results.setdefault(name, []).append(row)
@@ -1002,7 +1087,8 @@ def phase_train_kernels():
 def main_path_rows(results):
     """One row per kernel at the training main path's shapes. K1/K2 run at
     two shapes there (4 global layers, 22 with window 512): their row is the
-    mean per launch over one step's mix; K3/K4's is gemma3-1b's shape."""
+    mean per launch over one step's mix (library_ms None where no library
+    call computes it; copy_ms only for delta); K3/K4's is gemma3-1b's shape."""
     rows = {}
     for name, rs in results.items():
         gemma = [r for r in rs if r["model"] == "gemma3-1b"]
@@ -1010,8 +1096,9 @@ def main_path_rows(results):
             rows[name] = gemma[0]
             continue
         n = sum(r["shape"]["layers"] for r in gemma)
-        mean = {k: sum(r[k] * r["shape"]["layers"] for r in gemma) / n
-                for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+        mean = {k: None if gemma[0].get(k) is None else
+                sum(r[k] * r["shape"]["layers"] for r in gemma) / n
+                for k in ("kernel_ms", "plain_ms", "library_ms", "bound_ms", "copy_ms")}
         by = max(gemma, key=lambda r: r["bound_ms"] * r["shape"]["layers"])["bound_by"]
         rows[name] = dict(mean, bound_by=by, max_abs_err=max(r["max_abs_err"] for r in gemma))
     return rows
@@ -1928,6 +2015,7 @@ def main() -> int:
     phase_build()
     kern = phase_kernels()
     kern.update(phase_kernels_quant())
+    phase_kernels_long()
     kern.update(phase_train_kernels())
     kern.update(phase_quant_kernels())
     kern.update(phase_stash_kernels())

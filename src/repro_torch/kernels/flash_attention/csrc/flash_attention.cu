@@ -371,20 +371,89 @@ fa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
 }
 
 // ------------------------------------------------------- backward: delta pass
-// delta[row] = sum over hd of dO * O in f32; one warp per row of (BH * S).
-template <typename T>
+// delta[row] = sum over hd of dO * O in f32, over the BH * S rows: a
+// streaming reduction, bound by its bytes (each byte of o and dO read once).
+// A row is kRowVecs 16-byte vectors (8 bf16 or 4 f32); a group of kL lanes
+// (a power of two, at most 32) holds one row, a lane its vectors gl, gl + kL,
+// .... A warp takes kRows consecutive rows, kBatch a group, and issues every
+// load of o and dO for all of them before the first product: each lane has
+// 2 * kV * kBatch 16-byte loads in flight and no loop that waits on a load.
+// A row's products are summed in its lanes in element order, then across the
+// group by an xor-shuffle tree; the warp's kRows sums are gathered into lanes
+// 0 .. kRows-1 by shuffles and written as one coalesced f32 store.
+constexpr int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p *= 2;
+  return p;
+}
+
+template <typename T, int HD>
+struct DeltaShape {
+  static constexpr int kElems = 16 / (int)sizeof(T);            // elements a vector
+  static constexpr int kRowVecs = HD / kElems;                  // vectors a row
+  static constexpr int kL = pow2_at_least(kRowVecs) < 32 ? pow2_at_least(kRowVecs) : 32;
+  static constexpr int kV = (kRowVecs + kL - 1) / kL;           // vectors a lane
+  static constexpr int kGroups = 32 / kL;                       // rows a warp at once
+  static constexpr int kBatch = 4 / kV < kL ? 4 / kV : kL;      // rows a group
+  static constexpr int kRows = kGroups * kBatch;                // rows a warp, <= 32
+  static_assert(HD % kElems == 0, "a row is a whole number of 16-byte vectors");
+  static_assert(kV >= 1 && kV <= 4 && kRows <= 32, "delta's lane plan");
+};
+
+template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 fa_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
-                    float* __restrict__ delta, long rows, int hd) {
-  const long row = (long)blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= rows) return;
-  float s = 0.f;
-  for (int d = lane; d < hd; d += 32)
-    s += to_f32(o[row * hd + d]) * to_f32(dout[row * hd + d]);
+                    float* __restrict__ delta, long rows) {
+  using Sh = DeltaShape<T, HD>;
+  const int lane = threadIdx.x % 32, grp = lane / Sh::kL, gl = lane % Sh::kL;
+  const long row0 = ((long)blockIdx.x * kWarps + threadIdx.x / 32) * Sh::kRows;
+  uint4 ov[Sh::kBatch][Sh::kV], dv[Sh::kBatch][Sh::kV];
 #pragma unroll
-  for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) delta[row] = s;
+  for (int r = 0; r < Sh::kBatch; ++r) {
+    const long row = row0 + r * Sh::kGroups + grp;
+#pragma unroll
+    for (int v = 0; v < Sh::kV; ++v) {
+      const int vec = gl + v * Sh::kL;
+      const bool ok = row < rows && vec < Sh::kRowVecs;
+      ov[r][v] = ok ? __ldcs(reinterpret_cast<const uint4*>(o + row * HD) + vec)
+                    : make_uint4(0, 0, 0, 0);
+      dv[r][v] = ok ? __ldcs(reinterpret_cast<const uint4*>(dout + row * HD) + vec)
+                    : make_uint4(0, 0, 0, 0);
+    }
+  }
+  float s[Sh::kBatch];
+#pragma unroll
+  for (int r = 0; r < Sh::kBatch; ++r) {
+    s[r] = 0.f;
+#pragma unroll
+    for (int v = 0; v < Sh::kV; ++v) {
+      const T* a = reinterpret_cast<const T*>(&ov[r][v]);
+      const T* b = reinterpret_cast<const T*>(&dv[r][v]);
+#pragma unroll
+      for (int e = 0; e < Sh::kElems; ++e) s[r] = fmaf(to_f32(a[e]), to_f32(b[e]), s[r]);
+    }
+#pragma unroll
+    for (int off = Sh::kL / 2; off > 0; off /= 2)
+      s[r] += __shfl_xor_sync(0xffffffffu, s[r], off);
+  }
+  // lane j < kRows takes row row0 + j: batch j / kGroups of group j % kGroups
+  float out = 0.f;
+#pragma unroll
+  for (int r = 0; r < Sh::kBatch; ++r) {
+    const float x = __shfl_sync(0xffffffffu, s[r], (lane % Sh::kGroups) * Sh::kL);
+    if (lane / Sh::kGroups == r) out = x;
+  }
+  if (lane < Sh::kRows && row0 + lane < rows) delta[row0 + lane] = out;
+}
+
+template <typename T, int HD>
+int delta_hd(const void* o, const void* dout, void* delta, long rows, cudaStream_t s) {
+  constexpr int kBlockRows = kWarps * DeltaShape<T, HD>::kRows;
+  const long blocks = (rows + kBlockRows - 1) / kBlockRows;
+  fa_bwd_delta_kernel<T, HD><<<(unsigned)blocks, kThreads, 0, s>>>(
+      static_cast<const T*>(o), static_cast<const T*>(dout), static_cast<float*>(delta),
+      rows);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------- backward: dq pass
@@ -1260,20 +1329,20 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, vo
   return run(0, hd, dtype, a);
 }
 
+// o and dout 16-byte aligned (the wrapper checks it).
 int flash_attention_bwd_delta(const void* o, const void* dout, void* delta, int BH, int S,
                               int hd, int dtype, void* stream) {
   const long rows = (long)BH * S;
-  const int blocks = (int)((rows + kWarps - 1) / kWarps);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1)
-    fa_bwd_delta_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
-        static_cast<float*>(delta), rows, hd);
-  else
-    fa_bwd_delta_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(o), static_cast<const float*>(dout),
-        static_cast<float*>(delta), rows, hd);
-  return (int)cudaGetLastError();
+  switch (hd) {
+#define FA_CASE(H)                                                        \
+  case H:                                                                 \
+    return dtype == 1 ? delta_hd<__nv_bfloat16, H>(o, dout, delta, rows, s) \
+                      : delta_hd<float, H>(o, dout, delta, rows, s);
+    FA_HD_CASES(FA_CASE)
+#undef FA_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* dout,

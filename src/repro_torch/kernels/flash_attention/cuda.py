@@ -131,6 +131,10 @@ def flash_attention_bwd_delta_cuda(o: torch.Tensor, do: torch.Tensor) -> torch.T
     if not (o.is_contiguous() and do.is_contiguous()):
         raise ValueError("o and do must be contiguous")
     BH, S, hd = o.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd} not in {HEAD_DIMS}")
+    if o.data_ptr() % 16 or do.data_ptr() % 16:     # rows are read as 16-byte vectors
+        raise ValueError("o and do must be 16-byte aligned")
     delta = torch.empty((BH, S), dtype=torch.float32, device=o.device)
     with torch.cuda.device(o.device):
         err = library().flash_attention_bwd_delta(

@@ -26,17 +26,24 @@
 // once, and spread the keys over enough blocks to fill the card.
 //
 // Split plan, shared by both: the keys of a query position (K5, f32 K6) or
-// of a row tile (bf16 K6) are cut into fixed ranges of kDecodeSplit = 64 or
-// kPrefillSplit = 128 keys, constants of the kernel. The grid holds S =
-// ceil(P*page / split) ranges, from the table's width alone; a block whose
-// range has no key of its rows exits before any K/V load. Each block writes
-// the partial (m, l, f32 acc) of its rows to a workspace the wrapper
-// allocates, and a combine kernel (launched as a programmatic dependent
-// launch, so that its prologue overlaps the split kernel's end) merges a
-// row's ranges in order. Every row goes through the combine, and a row's
-// order of summation depends only on its own slot (length; start and q_len):
-// batched == alone, bitwise. An inactive slot's ranges stop at P*page keys,
-// so no table entry at or past P is read.
+// of a row tile (bf16 K6) are cut into ranges of kDecodeSplit = 64 or
+// kPrefillSplit = 128 keys, constants of the kernel, from the range that
+// holds the row's first key. The grid holds S = min(ceil(P*page / split),
+// max_splits) columns of ranges (kDecodeMaxSplits = 32, kPrefillMaxSplits =
+// 16), so that the workspace is bounded whatever the table's width: a row
+// whose keys meet more than max_splits ranges takes longer ones, split *
+// ceil(n / max_splits) keys for its n, walked in steps of `split` keys by
+// one block (plan_of). A row that fits keeps ranges of `split` keys, each in
+// its own column wherever the grid is not capped, so that a block loads its
+// row offsets before its row's length is known. A block whose column holds
+// no range of its rows exits before any K/V load. Each block writes the
+// partial (m, l, f32 acc) of its rows to a workspace the wrapper allocates,
+// and a combine kernel (launched as a programmatic dependent launch, so that
+// its prologue overlaps the split kernel's end) merges a row's ranges in
+// order. Every row goes through the combine, and a row's ranges and order of
+// summation depend only on its own slot (length; start and q_len): batched
+// == alone, bitwise. An inactive slot's ranges stop at P*page keys, so no
+// table entry at or past P is read.
 //
 // K5 (paged_decode_split_kernel, paged_decode_combine_kernel): grid (S, Kv,
 // B), 128 threads in groups of kL lanes (16 at hd 128 bf16); a group holds
@@ -136,6 +143,8 @@ constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 128;
 constexpr int kDecodeSplit = 64;   // keys per K5 split (4 pages of 16)
 constexpr int kPrefillSplit = 128; // keys per K6 split (2 key tiles)
+constexpr int kDecodeMaxSplits = 32;   // split columns of a K5 / f32 K6 grid, at most
+constexpr int kPrefillMaxSplits = 16;  // split columns of a bf16 K6 grid, at most
 constexpr int kMmaRows = 64;       // flattened rows per K6 block
 constexpr int kKeyTile = 64;       // keys per K6 ring stage
 constexpr int kChunkRows = 8;      // query rows of a group a K5 / f32 K6 block holds
@@ -241,15 +250,30 @@ __device__ __forceinline__ KeyRange keys_of(int qpos, int window, int cap) {
   return r;
 }
 
-// Splits [first, first + count) of `split` keys that cover [lo, hi).
-__device__ __forceinline__ void splits_of(KeyRange r, int split, int* first, int* count) {
-  if (r.lo >= r.hi) {
-    *first = 0;
-    *count = 0;
-    return;
-  }
-  *first = r.lo / split;
-  *count = (r.hi + split - 1) / split - *first;
+// A row's splits: `count` ranges of `len` keys (a multiple of `split`) from
+// key `key0` = lo rounded down to `split`, which cover its keys [lo, hi);
+// range i sits in column col0 + i of the grid's S columns. A row whose keys
+// meet at most max_splits ranges of `split` keys has len = split and them as
+// its ranges; a longer row has len = split * ceil(n / max_splits) for its n
+// ranges of `split` keys, so that count <= max_splits. The plan depends on
+// the row's own keys alone (and col0 on S). S = min(ceil(P*page / split),
+// max_splits) >= count, so col0 >= 0; in a grid of ceil(P*page / split)
+// columns, col0 = lo / split: range i at its own column, key0 + i * split.
+struct Plan {
+  int key0, len, count, col0;
+};
+
+__device__ __forceinline__ Plan plan_of(KeyRange r, int split, int max_splits, int S) {
+  Plan p{0, split, 0, 0};
+  if (r.lo >= r.hi) return p;
+  const int first = r.lo / split;
+  const int n = (r.hi + split - 1) / split - first;
+  const int k = (n + max_splits - 1) / max_splits;
+  p.key0 = first * split;
+  p.len = k * split;
+  p.count = (n + k - 1) / k;
+  p.col0 = min(first, S - p.count);
+  return p;
 }
 
 // K6's row tile `tile` of one slot: keys from the lowest row's window start
@@ -351,10 +375,15 @@ __device__ __forceinline__ void load_rows(
 }
 
 // One block: the G (<= MG) rows row0 .. row0+G-1 of one query position
-// against the keys of split s; writes the split's partial (m, l, acc) of
-// each row to the workspace. T: q's type; KT: the pool's (T, or a code type
-// whose scales ks, vs multiply each converted row, as JAX dequantizes).
-template <typename T, typename KT, int HD, int MG>
+// against the keys of their range in column s; writes the range's partial
+// (m, l, acc) of each row to the workspace. T: q's type; KT: the pool's (T,
+// or a code type whose scales ks, vs multiply each converted row, as JAX
+// dequantizes). kLong: the grid is capped (ceil(P*page / kDecodeSplit) >
+// S), so a row's range may be longer than a split and sit in another column
+// than its own; else every range is the split of its own column, and the
+// body is one straight pass over it (a loop over ranges there would take
+// ~210 registers where the pass takes 128, halving the blocks an SM holds).
+template <typename T, typename KT, int HD, int MG, bool kLong>
 __device__ void split_body(const T* __restrict__ q, const KT* __restrict__ kp,
                            const KT* __restrict__ vp, const float* __restrict__ ks,
                            const float* __restrict__ vs, const int* __restrict__ table_row,
@@ -373,13 +402,21 @@ __device__ void split_body(const T* __restrict__ q, const KT* __restrict__ kp,
   __shared__ long sm_off[kDecodeSplit];
 
   griddep_launch_dependents();  // the combine may start its prologue
-  // the row offsets of the split's whole key range, not waiting for the length
-  const int base = s * kDecodeSplit;
-  load_row_offsets(table_row, base, min(base + kDecodeSplit, P * page), page, Kv, sm_off);
+  // the row offsets of the keys at this column's own split, not waiting for
+  // the length: the block's keys wherever the grid is not capped
+  const int guess = s * kDecodeSplit;
+  load_row_offsets(table_row, guess, min(guess + kDecodeSplit, P * page), page, Kv, sm_off);
   const KeyRange r = keys_of(qpos, window, P * page);
-  int first, count;
-  splits_of(r, kDecodeSplit, &first, &count);
-  if (s < first || s >= first + count) return;  // whole block: no key of this split
+  Plan plan{0, kDecodeSplit, 0, 0};
+  int range0 = guess;  // keys [range0, range0 + plan.len)
+  if constexpr (kLong) {
+    plan = plan_of(r, kDecodeSplit, kDecodeMaxSplits, S);
+    const int split_i = s - plan.col0;
+    if (split_i < 0 || split_i >= plan.count) return;  // whole block: no range of its row
+    range0 = plan.key0 + split_i * plan.len;
+  } else if (r.lo >= r.hi || s < r.lo / kDecodeSplit || guess >= r.hi) {
+    return;  // whole block: no key of this split
+  }
 
   const int tid = threadIdx.x;
   const int grp = tid / kL;
@@ -415,67 +452,86 @@ __device__ void split_body(const T* __restrict__ q, const KT* __restrict__ kp,
     for (int e = 0; e < kE; ++e) acc[g][e] = 0.f;
   }
 
-  __syncthreads();  // the row offsets
+  // one split's keys [base, base + kDecodeSplit), their row offsets in
+  // sm_off; each group's online softmax runs on across calls
+  auto split_keys = [&](int base) {
 #pragma unroll 1
-  for (int i0 = 0; i0 < Sh::kTokens; i0 += Sh::kBatch) {
-    typename Sh::Vec kr[Sh::kBatch][kV], vr[Sh::kBatch][kV];
-    float ksc[Sh::kBatch], vsc[Sh::kBatch];
-    bool ok[Sh::kBatch];
-    load_rows<KT, HD, MG>(kp, vp, ks, vs, sm_off, base, base + grp + i0 * Sh::kGroups, r, kv,
-                          lane, kr, vr, ksc, vsc, ok);
-    // scores of the batch, reduced across the group's lanes
-    float sc[Sh::kBatch][MG];
-#pragma unroll
-    for (int j = 0; j < Sh::kBatch; ++j) {
-      float kf[kE];
-#pragma unroll
-      for (int v = 0; v < kV; ++v) {
-        float f[kVE];
-        vec_to_f32<KT>(kr[j][v], f);
-#pragma unroll
-        for (int e = 0; e < kVE; ++e)
-          kf[v * kVE + e] = Pool<KT>::kCodes ? f[e] * ksc[j] : f[e];
-      }
-      // every one of the MG rows (rows past G hold q = 0): no branch, so
-      // that the MG x kBatch shuffle chains interleave
-#pragma unroll
-      for (int g = 0; g < MG; ++g) {
-        float d = 0.f;
-#pragma unroll
-        for (int e = 0; e < kE; ++e) d = fmaf(qr[g][e], kf[e], d);
-#pragma unroll
-        for (int o = kL / 2; o > 0; o /= 2) d += __shfl_xor_sync(0xffffffffu, d, o, kL);
-        sc[j][g] = ok[j] ? d : kNegInf;
-      }
-    }
-    // online softmax over the batch, per row
-#pragma unroll
-    for (int g = 0; g < MG; ++g) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < Sh::kBatch; ++j) mx = fmaxf(mx, sc[j][g]);
-      const float m_new = fmaxf(m[g], mx);
-      const float alpha = expf(m[g] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int e = 0; e < kE; ++e) acc[g][e] *= alpha;
+    for (int i0 = 0; i0 < Sh::kTokens; i0 += Sh::kBatch) {
+      typename Sh::Vec kr[Sh::kBatch][kV], vr[Sh::kBatch][kV];
+      float ksc[Sh::kBatch], vsc[Sh::kBatch];
+      bool ok[Sh::kBatch];
+      load_rows<KT, HD, MG>(kp, vp, ks, vs, sm_off, base, base + grp + i0 * Sh::kGroups, r, kv,
+                            lane, kr, vr, ksc, vsc, ok);
+      // scores of the batch, reduced across the group's lanes
+      float sc[Sh::kBatch][MG];
 #pragma unroll
       for (int j = 0; j < Sh::kBatch; ++j) {
-        const float p = ok[j] ? expf(sc[j][g] - m_new) : 0.f;
-        sum += p;
+        float kf[kE];
 #pragma unroll
         for (int v = 0; v < kV; ++v) {
           float f[kVE];
-          vec_to_f32<KT>(vr[j][v], f);
+          vec_to_f32<KT>(kr[j][v], f);
 #pragma unroll
           for (int e = 0; e < kVE; ++e)
-            acc[g][v * kVE + e] =
-                fmaf(p, Pool<KT>::kCodes ? f[e] * vsc[j] : f[e], acc[g][v * kVE + e]);
+            kf[v * kVE + e] = Pool<KT>::kCodes ? f[e] * ksc[j] : f[e];
+        }
+        // every one of the MG rows (rows past G hold q = 0): no branch, so
+        // that the MG x kBatch shuffle chains interleave
+#pragma unroll
+        for (int g = 0; g < MG; ++g) {
+          float d = 0.f;
+#pragma unroll
+          for (int e = 0; e < kE; ++e) d = fmaf(qr[g][e], kf[e], d);
+#pragma unroll
+          for (int o = kL / 2; o > 0; o /= 2) d += __shfl_xor_sync(0xffffffffu, d, o, kL);
+          sc[j][g] = ok[j] ? d : kNegInf;
         }
       }
-      l[g] = l[g] * alpha + sum;
-      m[g] = m_new;
+      // online softmax over the batch, per row
+#pragma unroll
+      for (int g = 0; g < MG; ++g) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int j = 0; j < Sh::kBatch; ++j) mx = fmaxf(mx, sc[j][g]);
+        const float m_new = fmaxf(m[g], mx);
+        const float alpha = expf(m[g] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int e = 0; e < kE; ++e) acc[g][e] *= alpha;
+#pragma unroll
+        for (int j = 0; j < Sh::kBatch; ++j) {
+          const float p = ok[j] ? expf(sc[j][g] - m_new) : 0.f;
+          sum += p;
+#pragma unroll
+          for (int v = 0; v < kV; ++v) {
+            float f[kVE];
+            vec_to_f32<KT>(vr[j][v], f);
+#pragma unroll
+            for (int e = 0; e < kVE; ++e)
+              acc[g][v * kVE + e] =
+                  fmaf(p, Pool<KT>::kCodes ? f[e] * vsc[j] : f[e], acc[g][v * kVE + e]);
+          }
+        }
+        l[g] = l[g] * alpha + sum;
+        m[g] = m_new;
+      }
     }
+  };
+  if constexpr (kLong) {  // the range in steps of kDecodeSplit keys
+    int loaded = guess;
+#pragma unroll 1
+    for (int base = range0; base < min(range0 + plan.len, r.hi); base += kDecodeSplit) {
+      if (base != loaded) {
+        if (base != range0) __syncthreads();  // every group is done with the last offsets
+        load_row_offsets(table_row, base, min(base + kDecodeSplit, P * page), page, Kv, sm_off);
+        loaded = base;
+      }
+      __syncthreads();  // the row offsets
+      split_keys(base);
+    }
+  } else {
+    __syncthreads();  // the row offsets
+    split_keys(range0);
   }
 
   // merge the groups in group order
@@ -528,7 +584,7 @@ __host__ __device__ __forceinline__ int row_chunks(int G) {
 }
 
 // K5: grid (S, Kv * row_chunks(G), B); q and out (B, Kv, G, hd).
-template <typename T, typename KT, int HD, int MG>
+template <typename T, typename KT, int HD, int MG, bool kLong>
 __global__ void __launch_bounds__(kThreads)
 paged_decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kp,
                           const KT* __restrict__ vp, const float* __restrict__ ks,
@@ -539,13 +595,13 @@ paged_decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ kp,
   const int s = blockIdx.x, b = blockIdx.z;
   const int kv = blockIdx.y / row_chunks(G), g0 = blockIdx.y % row_chunks(G) * kChunkRows;
   const long row0 = ((long)b * Kv + kv) * G + g0;
-  split_body<T, KT, HD, MG>(q, kp, vp, ks, vs, tables + (long)b * P, ws_acc, ws_ml, row0,
-                            gridDim.x, s, lengths[b] - 1, kv, Kv, min(kChunkRows, G - g0),
-                            page, P, window);
+  split_body<T, KT, HD, MG, kLong>(q, kp, vp, ks, vs, tables + (long)b * P, ws_acc, ws_ml,
+                                   row0, gridDim.x, s, lengths[b] - 1, kv, Kv,
+                                   min(kChunkRows, G - g0), page, P, window);
 }
 
 // f32 K6: grid (S, Kv * row_chunks(G), B*T); q and out (B, T, Kv, G, hd).
-template <typename T, typename KT, int HD, int MG>
+template <typename T, typename KT, int HD, int MG, bool kLong>
 __global__ void __launch_bounds__(kThreads)
 paged_prefill_rows_kernel(const T* __restrict__ q, const KT* __restrict__ kp,
                           const KT* __restrict__ vp, const float* __restrict__ ks,
@@ -557,9 +613,9 @@ paged_prefill_rows_kernel(const T* __restrict__ q, const KT* __restrict__ kp,
   const int kv = blockIdx.y / row_chunks(G), g0 = blockIdx.y % row_chunks(G) * kChunkRows;
   const int b = blockIdx.z / Tq, t = blockIdx.z % Tq;
   const long row0 = (((long)b * Tq + t) * Kv + kv) * G + g0;
-  split_body<T, KT, HD, MG>(q, kp, vp, ks, vs, tables + (long)b * P, ws_acc, ws_ml, row0,
-                            gridDim.x, s, prefill_qpos(start, q_len, b, t), kv, Kv,
-                            min(kChunkRows, G - g0), page, P, window);
+  split_body<T, KT, HD, MG, kLong>(q, kp, vp, ks, vs, tables + (long)b * P, ws_acc, ws_ml,
+                                   row0, gridDim.x, s, prefill_qpos(start, q_len, b, t), kv, Kv,
+                                   min(kChunkRows, G - g0), page, P, window);
 }
 
 // ------------------------------------------------ K6 tensor-core prefill
@@ -693,19 +749,18 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const KT* __restrict__ kp,
   const int s = blockIdx.x % S, tile = blockIdx.x / S;
   const int kv = blockIdx.y, b = blockIdx.z;
   griddep_launch_dependents();  // the combine may start its prologue
-  // the row offsets of the split's whole key range, not waiting for start, q_len
-  const int base = s * kPrefillSplit;
-  load_row_offsets(tables + (long)b * P, base, min(base + kPrefillSplit, P * page), page, Kv,
-                   sm_off);
+  // the row offsets of the keys at this column's own split, not waiting for
+  // start, q_len: the block's keys wherever the grid is not capped
+  const int guess = s * kPrefillSplit;
+  const int* table_row = tables + (long)b * P;
+  load_row_offsets(table_row, guess, min(guess + kPrefillSplit, P * page), page, Kv, sm_off);
   const int st = start[b];
   const int rows_total = Tq * G;
   const KeyRange r = tile_keys(tile, Tq, G, st, q_len[b], window, P * page);
-  int first, count;
-  splits_of(r, kPrefillSplit, &first, &count);
-  if (s < first || s >= first + count) return;  // no key of this split
-  const int k_lo = max(r.lo, s * kPrefillSplit) / kKeyTile * kKeyTile;
-  const int k_hi = min(r.hi, (s + 1) * kPrefillSplit);
-  const int n_tiles = (k_hi - k_lo + kKeyTile - 1) / kKeyTile;
+  const Plan plan = plan_of(r, kPrefillSplit, kPrefillMaxSplits, S);
+  const int split_i = s - plan.col0;
+  if (split_i < 0 || split_i >= plan.count) return;  // no range of its row tile
+  const int range0 = plan.key0 + split_i * plan.len;   // keys [range0, range0 + len)
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g8 = lane / 4, t4 = lane % 4;
@@ -738,8 +793,9 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const KT* __restrict__ kp,
       cp_async16(smem_u32(sq + rr * Sh::kStride + c), ok ? q_row(fr) + c : q, ok ? 16 : 0);
     }
   }
-  __syncthreads();  // the row offsets
-  // stage `stg` of the ring: keys key0 .. key0+63
+  // stage `stg` of the ring: keys key0 .. key0+63 below k_hi, from the row
+  // offsets of the keys from `base`
+  int base = range0, k_hi = 0;
   auto load_stage = [&](int stg, int key0) {
     if constexpr (Sh::kCodes)
       load_code_tile<HD, KT>(kp, vp, ks, vs, sm_off, base, key0, k_hi, kv,
@@ -749,12 +805,6 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const KT* __restrict__ kp,
       load_kv_tile<HD>(kp, vp, sm_off, base, key0, k_hi, kv, sk + stg * Sh::kTileElems,
                        sv + stg * Sh::kTileElems);
   };
-#pragma unroll
-  for (int i = 0; i < Sh::kStages - 1; ++i) {
-    if (i < n_tiles) load_stage(i, k_lo + i * kKeyTile);
-    cp_async_commit();  // with q's copies in the first group
-  }
-
   // ldmatrix lane offsets: A (q rows), B from K (non-trans), B from V (trans)
   const int a_row = warp * 16 + (lane % 8) + ((lane / 8) % 2) * 8, a_col = (lane / 16) * 8;
   const int k_row = (lane / 16) * 8 + lane % 8, k_col = ((lane / 8) % 2) * 8;
@@ -768,133 +818,155 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const KT* __restrict__ kp,
   for (int n = 0; n < kDN; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
 
+  // the range in steps of kPrefillSplit keys (one step unless the row tile
+  // is longer than kPrefillMaxSplits steps); the ring drains between steps
+  int loaded = guess;
 #pragma unroll 1
-  for (int it = 0; it < n_tiles; ++it) {
-    const int cur = it % Sh::kStages;
-    cp_async_wait<Sh::kStages - 2>();  // tile `it` has landed (this thread's part)
-    __syncthreads();                   // ... everyone's; and tile it-1 is consumed
-    if constexpr (Sh::kCodes)          // this thread's chunks, as bf16 of the codes
-      convert_kv_tile<HD, KT>(kc8 + cur * Sh::kCodeTile, vc8 + cur * Sh::kCodeTile, sk, sv);
-    {
-      const int nt = it + Sh::kStages - 1;
-      if (nt < n_tiles) load_stage(nt % Sh::kStages, k_lo + nt * kKeyTile);
-      cp_async_commit();
+  for (; base < min(range0 + plan.len, r.hi); base += kPrefillSplit) {
+    if (base != loaded) {
+      if (base != range0) __syncthreads();  // every warp is done with the last stages
+      load_row_offsets(table_row, base, min(base + kPrefillSplit, P * page), page, Kv,
+                       sm_off);
+      loaded = base;
     }
-    if constexpr (Sh::kCodes) __syncthreads();  // the bf16 tile of tile `it`
-    const bf16* ck = Sh::kCodes ? sk : sk + cur * Sh::kTileElems;
-    const bf16* cv = Sh::kCodes ? sv : sv + cur * Sh::kTileElems;
-    const int key0 = k_lo + it * kKeyTile;
-
-    // S = Q K^T: (16 rows, 64 keys) a warp, eight 8-key n tiles
-    float sc[8][4];
+    __syncthreads();  // the row offsets
+    const int k_lo = max(r.lo, base) / kKeyTile * kKeyTile;
+    k_hi = min(r.hi, base + kPrefillSplit);
+    const int n_tiles = (k_hi - k_lo + kKeyTile - 1) / kKeyTile;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
-#pragma unroll
-    for (int kc = 0; kc < kKC; ++kc) {
-      uint32_t a[4];
-      if constexpr (Sh::kQRegs) {
-        a[0] = qa[kc][0]; a[1] = qa[kc][1]; a[2] = qa[kc][2]; a[3] = qa[kc][3];
-      } else {
-        ldmatrix_x4(a, smem_u32(sq + a_row * Sh::kStride + kc * 16 + a_col));
-      }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, smem_u32(ck + (np * 16 + k_row) * Sh::kStride + kc * 16 + k_col));
-        mma_bf16(sc[2 * np], a, bk[0], bk[1]);
-        mma_bf16(sc[2 * np + 1], a, bk[2], bk[3]);
-      }
+    for (int i = 0; i < Sh::kStages - 1; ++i) {
+      if (i < n_tiles) load_stage(i, k_lo + i * kKeyTile);
+      cp_async_commit();  // the first step's first group carries q's copies
     }
 
-    // codes: column j of S = Q C^T times key j's scale, before mask and softmax
-    if constexpr (Sh::kCodes) {
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float2 k2 = *reinterpret_cast<const float2*>(ksm + cur * kKeyTile + n * 8 + 2 * t4);
-        sc[n][0] *= k2.x;
-        sc[n][1] *= k2.y;
-        sc[n][2] *= k2.x;
-        sc[n][3] *= k2.y;
+#pragma unroll 1
+    for (int it = 0; it < n_tiles; ++it) {
+      const int cur = it % Sh::kStages;
+      cp_async_wait<Sh::kStages - 2>();  // tile `it` has landed (this thread's part)
+      __syncthreads();                   // ... everyone's; and tile it-1 is consumed
+      if constexpr (Sh::kCodes)          // this thread's chunks, as bf16 of the codes
+        convert_kv_tile<HD, KT>(kc8 + cur * Sh::kCodeTile, vc8 + cur * Sh::kCodeTile, sk, sv);
+      {
+        const int nt = it + Sh::kStages - 1;
+        if (nt < n_tiles) load_stage(nt % Sh::kStages, k_lo + nt * kKeyTile);
+        cp_async_commit();
       }
-    }
+      if constexpr (Sh::kCodes) __syncthreads();  // the bf16 tile of tile `it`
+      const bf16* ck = Sh::kCodes ? sk : sk + cur * Sh::kTileElems;
+      const bf16* cv = Sh::kCodes ? sv : sv + cur * Sh::kTileElems;
+      const int key0 = k_lo + it * kKeyTile;
 
-    // online softmax in the accumulator registers: rows g8 (h 0), g8+8 (h 1);
-    // a row that sees every key of the tile skips the per-key mask
+      // S = Q K^T: (16 rows, 64 keys) a warp, eight 8-key n tiles
+      float sc[8][4];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const bool all = key0 + kKeyTile <= k_hi && key0 + kKeyTile - 1 <= qpos[h] &&
-                       (window <= 0 || key0 > qpos[h] - window);
-      float mx = kNegInf;
+      for (int n = 0; n < 8; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
+      for (int kc = 0; kc < kKC; ++kc) {
+        uint32_t a[4];
+        if constexpr (Sh::kQRegs) {
+          a[0] = qa[kc][0]; a[1] = qa[kc][1]; a[2] = qa[kc][2]; a[3] = qa[kc][3];
+        } else {
+          ldmatrix_x4(a, smem_u32(sq + a_row * Sh::kStride + kc * 16 + a_col));
+        }
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kpos = key0 + n * 8 + 2 * t4 + e;
-          float& x = sc[n][2 * h + e];
-          if (!all) x = kpos < k_hi && visible(kpos, qpos[h], window) ? x : kNegInf;
-          mx = fmaxf(mx, x);
+        for (int np = 0; np < 4; ++np) {
+          uint32_t bk[4];
+          ldmatrix_x4(bk, smem_u32(ck + (np * 16 + k_row) * Sh::kStride + kc * 16 + k_col));
+          mma_bf16(sc[2 * np], a, bk[0], bk[1]);
+          mma_bf16(sc[2 * np + 1], a, bk[2], bk[3]);
         }
       }
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m_r[h], mx);
-      const float alpha = expf(m_r[h] - m_new);
-      float sum = 0.f;
+
+      // codes: column j of S = Q C^T times key j's scale, before mask and softmax
+      if constexpr (Sh::kCodes) {
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kpos = key0 + n * 8 + 2 * t4 + e;
-          float& x = sc[n][2 * h + e];
-          x = all || (kpos < k_hi && visible(kpos, qpos[h], window)) ? expf(x - m_new) : 0.f;
-          sum += x;
+        for (int n = 0; n < 8; ++n) {
+          const float2 k2 = *reinterpret_cast<const float2*>(ksm + cur * kKeyTile + n * 8 + 2 * t4);
+          sc[n][0] *= k2.x;
+          sc[n][1] *= k2.y;
+          sc[n][2] *= k2.x;
+          sc[n][3] *= k2.y;
         }
       }
-      l_r[h] = l_r[h] * alpha + sum;
-      m_r[h] = m_new;
-#pragma unroll
-      for (int n = 0; n < kDN; ++n) {
-        o[n][2 * h] *= alpha;
-        o[n][2 * h + 1] *= alpha;
-      }
-    }
 
-    // codes: p_j times key j's V scale, after p joined l (P V then multiplies
-    // the V codes themselves)
-    if constexpr (Sh::kCodes) {
+      // online softmax in the accumulator registers: rows g8 (h 0), g8+8 (h 1);
+      // a row that sees every key of the tile skips the per-key mask
 #pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const float2 v2 = *reinterpret_cast<const float2*>(vsm + cur * kKeyTile + n * 8 + 2 * t4);
-        sc[n][0] *= v2.x;
-        sc[n][1] *= v2.y;
-        sc[n][2] *= v2.x;
-        sc[n][3] *= v2.y;
+      for (int h = 0; h < 2; ++h) {
+        const bool all = key0 + kKeyTile <= k_hi && key0 + kKeyTile - 1 <= qpos[h] &&
+                         (window <= 0 || key0 > qpos[h] - window);
+        float mx = kNegInf;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kpos = key0 + n * 8 + 2 * t4 + e;
+            float& x = sc[n][2 * h + e];
+            if (!all) x = kpos < k_hi && visible(kpos, qpos[h], window) ? x : kNegInf;
+            mx = fmaxf(mx, x);
+          }
+        }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_r[h], mx);
+        const float alpha = expf(m_r[h] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kpos = key0 + n * 8 + 2 * t4 + e;
+            float& x = sc[n][2 * h + e];
+            x = all || (kpos < k_hi && visible(kpos, qpos[h], window)) ? expf(x - m_new) : 0.f;
+            sum += x;
+          }
+        }
+        l_r[h] = l_r[h] * alpha + sum;
+        m_r[h] = m_new;
+#pragma unroll
+        for (int n = 0; n < kDN; ++n) {
+          o[n][2 * h] *= alpha;
+          o[n][2 * h + 1] *= alpha;
+        }
       }
-    }
 
-    // O += P V, P as a bf16 high part, then its bf16 low part (the second
-    // pass reloads V, so that no MMA waits on the one before it)
+      // codes: p_j times key j's V scale, after p joined l (P V then multiplies
+      // the V codes themselves)
+      if constexpr (Sh::kCodes) {
 #pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t ph[4], pl[4];
-      split_bf16(sc[2 * kc][0], sc[2 * kc][1], &ph[0], &pl[0]);
-      split_bf16(sc[2 * kc][2], sc[2 * kc][3], &ph[1], &pl[1]);
-      split_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1], &ph[2], &pl[2]);
-      split_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3], &ph[3], &pl[3]);
+        for (int n = 0; n < 8; ++n) {
+          const float2 v2 = *reinterpret_cast<const float2*>(vsm + cur * kKeyTile + n * 8 + 2 * t4);
+          sc[n][0] *= v2.x;
+          sc[n][1] *= v2.y;
+          sc[n][2] *= v2.x;
+          sc[n][3] *= v2.y;
+        }
+      }
+
+      // O += P V, P as a bf16 high part, then its bf16 low part (the second
+      // pass reloads V, so that no MMA waits on the one before it)
 #pragma unroll
-      for (int part = 0; part < 2; ++part) {
+      for (int kc = 0; kc < 4; ++kc) {
+        uint32_t ph[4], pl[4];
+        split_bf16(sc[2 * kc][0], sc[2 * kc][1], &ph[0], &pl[0]);
+        split_bf16(sc[2 * kc][2], sc[2 * kc][3], &ph[1], &pl[1]);
+        split_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1], &ph[2], &pl[2]);
+        split_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3], &ph[3], &pl[3]);
 #pragma unroll
-        for (int dp = 0; dp < HD / 16; ++dp) {
-          uint32_t bv[4];
-          ldmatrix_x4_trans(bv, smem_u32(cv + (kc * 16 + v_row) * Sh::kStride + dp * 16 +
-                                         v_col));
-          mma_bf16(o[2 * dp], part ? pl : ph, bv[0], bv[1]);
-          mma_bf16(o[2 * dp + 1], part ? pl : ph, bv[2], bv[3]);
+        for (int part = 0; part < 2; ++part) {
+#pragma unroll
+          for (int dp = 0; dp < HD / 16; ++dp) {
+            uint32_t bv[4];
+            ldmatrix_x4_trans(bv, smem_u32(cv + (kc * 16 + v_row) * Sh::kStride + dp * 16 +
+                                           v_col));
+            mma_bf16(o[2 * dp], part ? pl : ph, bv[0], bv[1]);
+            mma_bf16(o[2 * dp + 1], part ? pl : ph, bv[2], bv[3]);
+          }
         }
       }
     }
+    cp_async_wait<0>();
   }
-  cp_async_wait<0>();
 
   // the split's partials of the tile's real rows
 #pragma unroll
@@ -918,11 +990,13 @@ paged_prefill_mma_kernel(const bf16* __restrict__ q, const KT* __restrict__ kp,
 }
 
 // ------------------------------------------------------------ combine
-// Row `row`'s splits first .. first+count-1, merged in a fixed order:
+// Row `row`'s splits in columns first .. first+count-1, merged in a fixed order:
 // out = sum_k w_k acc_k / max(sum_k w_k l_k, 1e-30), w_k = exp(m_k - max m).
 // One warp a row: lane j reads splits j, j+32, ... for m and l (a fixed
-// shuffle tree sums them), and HD/32 columns of every split's acc, all
-// loads issued before any is needed; each column sums its splits in order.
+// shuffle tree sums them), and HD/32 columns of every split's acc, kLoads
+// splits' columns loaded before the first of them is summed (a loop that
+// leaves this to the compiler kept fewer in flight when its registers
+// changed); each column sums its splits in order.
 template <typename T, int HD>
 __device__ __forceinline__ void combine_row(const float* __restrict__ ws_acc,
                                             const float* __restrict__ ws_ml,
@@ -946,15 +1020,26 @@ __device__ __forceinline__ void combine_row(const float* __restrict__ ws_acc,
   float a[kC];
 #pragma unroll
   for (int c = 0; c < kC; ++c) a[c] = 0.f;
+  constexpr int kLoads = 8;
   for (int k0 = 0; k0 < count; k0 += 32) {
     const float w_lane = k0 + lane < count ? expf(ml[2 * (k0 + lane)] - mx) : 0.f;
     const int n = min(32, count - k0);
-#pragma unroll 8
-    for (int k = 0; k < n; ++k) {
-      const float w = __shfl_sync(0xffffffffu, w_lane, k);
-      if (has_col) {
+#pragma unroll 1
+    for (int k = 0; k < n; k += kLoads) {
+      float v[kLoads][kC];
 #pragma unroll
-        for (int c = 0; c < kC; ++c) a[c] = fmaf(w, acc[(long)(k0 + k) * HD + c], a[c]);
+      for (int j = 0; j < kLoads; ++j) {
+#pragma unroll
+        for (int c = 0; c < kC; ++c)
+          v[j][c] = has_col && k + j < n ? acc[(long)(k0 + k + j) * HD + c] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < kLoads; ++j) {
+        const float w = __shfl_sync(0xffffffffu, w_lane, (k + j) % 32);
+        if (k + j < n) {
+#pragma unroll
+          for (int c = 0; c < kC; ++c) a[c] = fmaf(w, v[j][c], a[c]);
+        }
       }
     }
   }
@@ -976,9 +1061,9 @@ paged_decode_combine_kernel(const float* __restrict__ ws_acc, const float* __res
   const long row = (long)blockIdx.x * kCombineRows + threadIdx.x / 32;
   if (row >= R) return;
   const int b = row / (Kv * G);
-  int first, count;
-  splits_of(keys_of(lengths[b] - 1, window, P * page), kDecodeSplit, &first, &count);
-  combine_row<T, HD>(ws_acc, ws_ml, out, row, S, first, count);
+  const Plan plan =
+      plan_of(keys_of(lengths[b] - 1, window, P * page), kDecodeSplit, kDecodeMaxSplits, S);
+  combine_row<T, HD>(ws_acc, ws_ml, out, row, S, plan.col0, plan.count);
 }
 
 // K6's combine: rows (B, T, Kv, G); the splits of the row's own position (f32,
@@ -994,16 +1079,13 @@ paged_prefill_combine_kernel(const float* __restrict__ ws_acc, const float* __re
   const int g = row % G;
   const int t = (row / ((long)G * Kv)) % Tq;
   const int b = row / ((long)G * Kv * Tq);
-  int first, count;
-  if (mma) {
-    const int tile = (t * G + g) / kMmaRows;
-    splits_of(tile_keys(tile, Tq, G, start[b], q_len[b], window, P * page), kPrefillSplit,
-              &first, &count);
-  } else {
-    splits_of(keys_of(prefill_qpos(start, q_len, b, t), window, P * page),
-              kDecodeSplit, &first, &count);
-  }
-  combine_row<T, HD>(ws_acc, ws_ml, out, row, S, first, count);
+  const Plan plan =
+      mma ? plan_of(tile_keys((t * G + g) / kMmaRows, Tq, G, start[b], q_len[b], window,
+                              P * page),
+                    kPrefillSplit, kPrefillMaxSplits, S)
+          : plan_of(keys_of(prefill_qpos(start, q_len, b, t), window, P * page), kDecodeSplit,
+                    kDecodeMaxSplits, S);
+  combine_row<T, HD>(ws_acc, ws_ml, out, row, S, plan.col0, plan.count);
 }
 
 // ------------------------------------------------------------ launchers
@@ -1043,12 +1125,13 @@ int decode_hd(const void* q, const void* kp, const void* vp, const float* ks, co
   const KT* vt = static_cast<const KT*>(vp);
   const int* tb = static_cast<const int*>(tables);
   const int* ln = static_cast<const int*>(lengths);
-  if (G <= 4)
-    paged_decode_split_kernel<T, KT, HD, 4><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, ks, vs, tb, ln, ws_acc, ws_ml, Kv, G, page, P, window);
-  else
-    paged_decode_split_kernel<T, KT, HD, 8><<<grid, kThreads, 0, stream>>>(
-        qt, kt, vt, ks, vs, tb, ln, ws_acc, ws_ml, Kv, G, page, P, window);
+  const bool capped = (P * page + kDecodeSplit - 1) / kDecodeSplit > S;
+  auto kernel = G <= 4 ? (capped ? paged_decode_split_kernel<T, KT, HD, 4, true>
+                                 : paged_decode_split_kernel<T, KT, HD, 4, false>)
+                       : (capped ? paged_decode_split_kernel<T, KT, HD, 8, true>
+                                 : paged_decode_split_kernel<T, KT, HD, 8, false>);
+  kernel<<<grid, kThreads, 0, stream>>>(qt, kt, vt, ks, vs, tb, ln, ws_acc, ws_ml, Kv, G, page,
+                                        P, window);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int err = launch_combine(paged_decode_combine_kernel<T, HD>, R, stream, ws_acc,
@@ -1082,12 +1165,13 @@ int prefill_hd(const void* q, const void* kp, const void* vp, const float* ks, c
         qt, kt, vt, ks, vs, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window, S);
   } else {  // f32 q: the CUDA cores, one block a position
     const dim3 grid(S, Kv * row_chunks(G), B * Tq);
-    if (G <= 4)
-      paged_prefill_rows_kernel<T, KT, HD, 4><<<grid, kThreads, 0, stream>>>(
-          qt, kt, vt, ks, vs, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window);
-    else
-      paged_prefill_rows_kernel<T, KT, HD, 8><<<grid, kThreads, 0, stream>>>(
-          qt, kt, vt, ks, vs, tb, st, ql, ws_acc, ws_ml, Tq, Kv, G, page, P, window);
+    const bool capped = (P * page + kDecodeSplit - 1) / kDecodeSplit > S;
+    auto kernel = G <= 4 ? (capped ? paged_prefill_rows_kernel<T, KT, HD, 4, true>
+                                   : paged_prefill_rows_kernel<T, KT, HD, 4, false>)
+                         : (capped ? paged_prefill_rows_kernel<T, KT, HD, 8, true>
+                                   : paged_prefill_rows_kernel<T, KT, HD, 8, false>);
+    kernel<<<grid, kThreads, 0, stream>>>(qt, kt, vt, ks, vs, tb, st, ql, ws_acc, ws_ml, Tq,
+                                          Kv, G, page, P, window);
   }
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -1137,12 +1221,15 @@ int prefill_pool(int code, const void* q, const void* kp, const void* vp, const 
 extern "C" {
 
 // The kernel's constants, which the wrapper's split plan must match:
-// 0 keys per K5 split, 1 keys per bf16 K6 split, 2 rows per K6 block.
+// 0 keys per K5 split, 1 keys per bf16 K6 split, 2 rows per K6 block,
+// 3 split columns of a K5 / f32 K6 grid at most, 4 of a bf16 K6 grid.
 int paged_attention_constant(int which) {
   switch (which) {
     case 0: return kDecodeSplit;
     case 1: return kPrefillSplit;
     case 2: return kMmaRows;
+    case 3: return kDecodeMaxSplits;
+    case 4: return kPrefillMaxSplits;
   }
   return -1;
 }
@@ -1150,7 +1237,7 @@ int paged_attention_constant(int which) {
 // dtype (q's and the output's): 0 = float32, 1 = bfloat16. code (the pool's):
 // 0 = q's dtype (ks, vs null), 1 = int8, 2 = fp8-e4m3, with ks, vs the f32
 // scales (N, page, Kv). ws: the wrapper's f32 workspace of B*Kv*G*S*(hd+2)
-// floats, S = ceil(P*page / 64). Returns cudaGetLastError().
+// floats, S = min(ceil(P*page / 64), 32). Returns cudaGetLastError().
 int paged_decode_attention(const void* q, const void* kp, const void* vp, const void* ks,
                            const void* vs, const void* tables, const void* lengths, void* out,
                            void* ws, int B, int Kv, int G, int hd, int page, int P, int window,
@@ -1172,8 +1259,8 @@ int paged_decode_attention(const void* q, const void* kp, const void* vp, const 
   return (int)cudaErrorInvalidValue;
 }
 
-// ws: B*T*Kv*G*S*(hd+2) floats, S = ceil(P*page / 128) for bf16 q and
-// ceil(P*page / 64) for f32 q; pool code and scales as for decode.
+// ws: B*T*Kv*G*S*(hd+2) floats, S = min(ceil(P*page / 128), 16) for bf16 q
+// and min(ceil(P*page / 64), 32) for f32 q; pool code and scales as for decode.
 int paged_prefill_attention(const void* q, const void* kp, const void* vp, const void* ks,
                             const void* vs, const void* tables, const void* start,
                             const void* q_len, void* out, void* ws, int B, int Tq, int Kv,

@@ -13,18 +13,20 @@ templated on the code type, and counts under its own key
 ran; q and the output stay f32 or bf16.
 
 The split plan: K5 (and f32 K6, per query position) splits a slot's keys
-into fixed ranges of ``DECODE_SPLIT`` keys; bf16 K6 splits each row tile of
+into ranges of ``DECODE_SPLIT`` keys; bf16 K6 splits each row tile of
 ``PREFILL_TILE_ROWS`` rows into ranges of ``PREFILL_SPLIT`` keys. The grid and
-the workspace hold ``S = ceil(P * page / split)`` splits, from the table's
-width alone; which splits a row uses depends on its own slot's length (or
-start and q_len) alone, and the kernel finds them itself (``splits_of``
-mirrors it here).
+the workspace hold ``S = min(ceil(P * page / split), max_splits)`` columns
+(``DECODE_MAX_SPLITS``, ``PREFILL_MAX_SPLITS``), so that the workspace is
+bounded whatever the table's width; a row whose keys meet more than
+``max_splits`` ranges takes longer ones, a multiple of ``split`` keys. Which
+ranges a row uses depends on its own slot's length (or start and q_len)
+alone, and the kernel finds them itself (``splits_of`` mirrors it here).
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -45,6 +47,8 @@ LAUNCHES: Dict[str, int] = {
 DECODE_SPLIT = 64        # keys per K5 split, and per f32 K6 split
 PREFILL_SPLIT = 128      # keys per bf16 K6 split
 PREFILL_TILE_ROWS = 64   # flattened (t, g) rows per bf16 K6 block
+DECODE_MAX_SPLITS = 32   # split columns of a K5 / f32 K6 grid, at most
+PREFILL_MAX_SPLITS = 16  # split columns of a bf16 K6 grid, at most
 HEAD_DIMS = (16, 32, 64, 96, 128, 256)   # head sizes the source builds
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P = ctypes.c_void_p
@@ -65,24 +69,42 @@ def library() -> ctypes.CDLL:
         lib.paged_prefill_attention.restype = _I
         lib.paged_attention_constant.argtypes = [_I]
         lib.paged_attention_constant.restype = _I
-        got = tuple(lib.paged_attention_constant(i) for i in range(3))
-        if got != (DECODE_SPLIT, PREFILL_SPLIT, PREFILL_TILE_ROWS):
+        got = tuple(lib.paged_attention_constant(i) for i in range(5))
+        if got != (DECODE_SPLIT, PREFILL_SPLIT, PREFILL_TILE_ROWS, DECODE_MAX_SPLITS,
+                   PREFILL_MAX_SPLITS):
             raise RuntimeError(f"{SOURCE} splits {got} != the wrapper's plan")
         lib._typed = True
     return lib
 
 
-def n_splits(split: int, page: int, P: int) -> int:
-    """Split columns of the grid and the workspace: the table's width alone."""
-    return max(1, math.ceil(P * page / split))
+def n_splits(split: int, page: int, P: int, max_splits: int) -> int:
+    """Split columns of the grid and the workspace: the table's width, capped
+    at ``max_splits``."""
+    return max(1, min(math.ceil(P * page / split), max_splits))
 
 
-def splits_of(lo: int, hi: int, split: int) -> Tuple[int, int]:
-    """(first, count) of the ``split``-key ranges that cover keys [lo, hi);
-    the kernel's ``splits_of``."""
+class SplitPlan(NamedTuple):
+    """A row's ranges: ``count`` of ``length`` keys from key ``first``, range
+    i in grid column ``col0 + i``."""
+    length: int
+    first: int
+    count: int
+    col0: int
+
+
+def splits_of(lo: int, hi: int, split: int, max_splits: int, S: int) -> SplitPlan:
+    """The ranges that cover keys [lo, hi) in a grid of ``S`` columns; the
+    kernel's ``plan_of``. A row whose keys meet at most ``max_splits``
+    ``split``-key ranges (from lo rounded down to ``split``) takes them; a
+    longer row takes ranges of ``split * ceil(n / max_splits)`` keys for its
+    n, so that it needs at most ``max_splits`` columns."""
     if lo >= hi:
-        return 0, 0
-    return lo // split, -(-hi // split) - lo // split
+        return SplitPlan(split, 0, 0, 0)
+    first = lo // split
+    n = -(-hi // split) - first
+    k = -(-n // max_splits)
+    count = -(-n // k)
+    return SplitPlan(split * k, first * split, count, min(first, S - count))
 
 
 def decode_keys(length: int, window: int, page: int, P: int) -> Tuple[int, int]:
@@ -182,7 +204,7 @@ def paged_decode_attention_cuda(
         raise ValueError("shapes of q, pools, tables and lengths disagree")
     _check(q, k_pages, v_pages, tables, (("lengths", lengths),), G, hd, page)
     code, ks, vs = _scale_ptrs(q, k_pages, k_scale, v_scale)
-    S = n_splits(DECODE_SPLIT, page, P)
+    S = n_splits(DECODE_SPLIT, page, P, DECODE_MAX_SPLITS)
     out = torch.empty_like(q)
     ws = torch.empty(workspace_floats(B * Kv * G, S, hd), dtype=torch.float32,
                      device=q.device)
@@ -224,8 +246,10 @@ def paged_prefill_attention_cuda(
     _check(q, k_pages, v_pages, tables, (("start", start), ("q_len", q_len)),
            G, hd, page)
     code, ks, vs = _scale_ptrs(q, k_pages, k_scale, v_scale)
-    split = PREFILL_SPLIT if q.dtype == torch.bfloat16 else DECODE_SPLIT
-    S = n_splits(split, page, P)
+    if q.dtype == torch.bfloat16:
+        S = n_splits(PREFILL_SPLIT, page, P, PREFILL_MAX_SPLITS)
+    else:
+        S = n_splits(DECODE_SPLIT, page, P, DECODE_MAX_SPLITS)
     out = torch.empty_like(q)
     ws = torch.empty(workspace_floats(B * T * Kv * G, S, hd), dtype=torch.float32,
                      device=q.device)

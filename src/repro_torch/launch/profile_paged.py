@@ -3,15 +3,22 @@
 kernels phase, under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_paged [--reps 20] \
-        [--kv-dtype bf16|int8|fp8]
+        [--kv-dtype bf16|int8|fp8] [--shapes serve|long]
 
 For each shape: ``reps`` calls of the op, each after a 64 MB write that
 flushes the L2 (as ``chip_smoke.py`` times them), and one JSON line with the
 mean device time per call of every kernel the op launched, their sum, the
 median span of one call on the card (first kernel's start to last one's
-end), and the CUDA-event times of 0, 1, 2 and 8 calls queued behind a spin
-kernel (L2 warm). ``--kv-dtype int8|fp8`` quantizes the same pools with
+end), the CUDA-event median of one call (``timing.time_ms``), the bytes
+the call allocates beyond its output (the split partials' workspace: the
+peak of ``torch.cuda.max_memory_allocated`` across one call), and the
+CUDA-event times of 0, 1, 2 and 8 calls queued behind a spin kernel (L2
+warm). ``--kv-dtype int8|fp8`` quantizes the same pools with
 ``quant.kv_quantize`` and times the quantized kernels (q stays bf16).
+``--shapes long`` takes ``LONG_SHAPES``: granite-8b's decode and 128-token
+chunk beside a slot at ~32k keys of a 32,768-key table. The script uses
+only the wrappers' public names, so a copy of it and of ``timing.py`` times
+an older tree's kernels the same way.
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import subprocess
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.launch.timing import time_ms
 
 # (model, kind, shape): chip_smoke.py's bf16 serving shapes
 SHAPES = [
@@ -36,6 +45,15 @@ SHAPES = [
                                  lengths=[1030, 1100, 1250, 1400], window=512)),
     ("gemma3-1b", "prefill", dict(B=1, T=128, Kv=1, G=4, hd=256, page=16, P=90,
                                   starts=[1000], qlens=[128], window=512)),
+]
+# granite-8b at a 32,768-key table (P 2,048 of page 16): the decode step
+# with one slot at 32,700 keys beside serving's lengths, and a 128-token
+# chunk at 32,640
+LONG_SHAPES = [
+    ("granite-8b", "decode", dict(B=4, Kv=8, G=4, hd=128, page=16, P=2048,
+                                  lengths=[32_700, 590, 600, 633], window=0)),
+    ("granite-8b", "prefill", dict(B=1, T=128, Kv=8, G=4, hd=128, page=16, P=2048,
+                                   starts=[32_640], qlens=[128], window=0)),
 ]
 
 
@@ -84,6 +102,7 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8", "fp8"))
+    ap.add_argument("--shapes", default="serve", choices=("serve", "long"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_paged measures the card; CUDA is not available")
@@ -94,7 +113,7 @@ def main(argv=None) -> None:
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    for model, kind, s in SHAPES:
+    for model, kind, s in SHAPES if args.shapes == "serve" else LONG_SHAPES:
         a, sc = make_args(kind, s, kv_dtype=args.kv_dtype)
         op = cuda.paged_decode_attention_cuda if kind == "decode" else \
             cuda.paged_prefill_attention_cuda
@@ -125,10 +144,18 @@ def main(argv=None) -> None:
         for i in range(0, per * args.reps, max(per, 1)):
             spans.append((evts[i + per - 1].time_range.end - evts[i].time_range.start) / 1e3)
         busy = {n: sorted(busy_call_ms(fn, n) for _ in range(11))[5] for n in (0, 1, 2, 8)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        ws_bytes = torch.cuda.max_memory_allocated() - before - out.numel() * out.element_size()
+        del out
         print(json.dumps(dict(card=card, kv_dtype=args.kv_dtype, model=model, kind=kind,
                               shape=s, kernels=kernels,
                               kernels_ms=sum(k["ms_per_call"] for k in kernels.values()),
                               span_ms=sorted(spans)[len(spans) // 2] if spans else None,
+                              event_ms=time_ms(fn, flush), workspace_bytes=ws_bytes,
                               busy_calls_ms=busy)), flush=True)
 
 

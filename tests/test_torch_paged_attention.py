@@ -351,46 +351,83 @@ def test_kernel_modules_import_without_triton_nvcc_or_cuda():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
-# serving shapes of the split plan: (lengths, window, page, P)
+# shapes of the split plan: (lengths, window, page, P). Serving's, the
+# split edges, and a 32,768-key table (P 2,048 of page 16) whose grid is
+# capped, with and without a window; "cap edges": rows at and just past the
+# cap, and a window of 32 splits' keys that starts off a split boundary and
+# so meets 33 of them
 PLAN_SHAPES = [
     ([561, 590, 600, 633], 0, 16, 40),          # granite-8b decode
     ([1030, 1100, 1250, 1400], 512, 16, 90),    # gemma3-1b decode
     ([64, 63, 65, 1, 128, 129], 6, 16, 16),     # split edges
+    ([1, 1024, 2047, 2048, 2049, 32768], 0, 16, 2048),
+    ([1, 1024, 2047, 2048, 2049, 32768], 4096, 16, 2048),
+    ([2048, 2049, 2112, 3000, 4097, 20000], 2048, 16, 2048),
 ]
+PLAN_IDS = ["granite", "gemma3", "edges", "long", "long-w4096", "cap-edges"]
+# (split, max_splits): K5 and f32 K6's plan, and bf16 K6's over a row
+# tile's keys
+PLAN_KINDS = {"decode": (cuda.DECODE_SPLIT, cuda.DECODE_MAX_SPLITS),
+              "prefill": (cuda.PREFILL_SPLIT, cuda.PREFILL_MAX_SPLITS)}
 
 
-@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=["granite", "gemma3", "edges"])
-def test_decode_split_plan_fits_the_grid_and_covers_each_slot(shape):
-    """The grid's split count comes from the table's width alone, and each
-    slot's splits, from its own length alone, lie inside it and cover
-    exactly its keys — for the serving shapes and for the inactive slots the
-    engine leaves (length 1 on a zeroed row, 0, and past the table's P *
-    page keys)."""
+@pytest.mark.parametrize("kind", list(PLAN_KINDS))
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=PLAN_IDS)
+def test_decode_split_plan_fits_the_grid_and_covers_each_slot(shape, kind):
+    """The grid's split count comes from the table's width, capped, and each
+    slot's ranges, from its own keys alone, lie inside it and cover exactly
+    its keys — for the serving shapes, a 32,768-key table and the inactive
+    slots the engine leaves (length 1 on a zeroed row, 0, and past the
+    table's P * page keys). A slot whose keys meet at most max_splits
+    ranges keeps the fixed-split plan: ``split``-key ranges from lo's, each
+    in its own column when the grid is not capped."""
     lengths, window, page, P = shape
-    split = cuda.DECODE_SPLIT
-    S = cuda.n_splits(split, page, P)
-    assert S == -(-P * page // split)
+    split, cap = PLAN_KINDS[kind]
+    S = cuda.n_splits(split, page, P, cap)
+    assert S == min(-(-P * page // split), cap)
     inactive = [0, 1, P * page, P * page + 1, P * page + 500]
     for L in lengths + inactive:
         lo, hi = cuda.decode_keys(L, window, page, P)
-        first, count = cuda.splits_of(lo, hi, split)
-        assert 0 <= first and first + count <= S, (L, first, count, S)
-        if hi > lo:
-            assert first * split <= lo < (first + 1) * split
-            assert (first + count - 1) * split < hi <= (first + count) * split
-            assert hi <= P * page and (window == 0 or hi - lo <= window)
+        plan = cuda.splits_of(lo, hi, split, cap, S)
+        assert 0 <= plan.col0 and plan.col0 + plan.count <= S, (L, plan, S)
+        if hi <= lo:
+            assert plan.count == 0
+            continue
+        assert plan.length % split == 0 and plan.first == lo // split * split
+        assert plan.first <= lo < plan.first + plan.length           # the first holds lo
+        end = plan.first + plan.count * plan.length
+        assert end - plan.length < hi <= end, (L, plan)              # the last holds hi - 1
+        assert hi <= P * page and (window == 0 or hi - lo <= window)
+        fixed = (split, lo // split * split, -(-hi // split) - lo // split)
+        if fixed[2] <= cap:
+            assert plan[:3] == fixed, (L, plan, fixed)
+            if S == -(-P * page // split):
+                assert plan.col0 == lo // split
         else:
-            assert count == 0
+            assert plan.count <= cap and plan.length > split
 
 
-def test_workspace_holds_every_split_partial():
+@pytest.mark.parametrize("P, decode_S, prefill_S", [(40, 10, 5), (2048, 32, 16)],
+                         ids=["serve-tables", "32768-keys"])
+def test_workspace_holds_every_split_partial(P, decode_S, prefill_S):
     """acc (rows, S, hd) and (m, l) (rows, S, 2) in f32, from shapes alone:
-    granite-8b's decode (B 4, Kv 8, G 4) and its bf16 and f32 q_len-128 chunk."""
-    S = cuda.n_splits(cuda.DECODE_SPLIT, 16, 40)
-    assert S == 10
-    assert cuda.workspace_floats(4 * 8 * 4, S, 128) == 128 * 10 * 130
-    assert cuda.n_splits(cuda.PREFILL_SPLIT, 16, 40) == 5
-    assert cuda.workspace_floats(128 * 8 * 4, 5, 128) == 4096 * 5 * 130
+    granite-8b's decode (B 4, Kv 8, G 4) and its bf16 and f32 q_len-128
+    chunk (4,096 rows), at the serve workload's tables (P 40 of page 16) and
+    at a 32,768-key table, where the capped grid bounds them: 2.1 MB for the
+    decode and 34 MB for the bf16 chunk, against 34 MB and 545 MB uncapped."""
+    S = cuda.n_splits(cuda.DECODE_SPLIT, 16, P, cuda.DECODE_MAX_SPLITS)
+    assert S == decode_S
+    assert cuda.workspace_floats(4 * 8 * 4, S, 128) == 128 * decode_S * 130
+    Sp = cuda.n_splits(cuda.PREFILL_SPLIT, 16, P, cuda.PREFILL_MAX_SPLITS)
+    assert Sp == prefill_S
+    assert cuda.workspace_floats(128 * 8 * 4, Sp, 128) == 4096 * prefill_S * 130
+    if P == 40:       # unchanged by the cap
+        assert 4 * cuda.workspace_floats(4096, Sp, 128) == 10_649_600
+    else:
+        assert 4 * cuda.workspace_floats(128, S, 128) == 2_129_920 <= 4 * 2**20
+        assert 4 * cuda.workspace_floats(4096, Sp, 128) == 34_078_720 <= 64 * 2**20
+        assert 4 * cuda.workspace_floats(4096, 256, 128) == 545_259_520   # uncapped
+        assert 4 * cuda.workspace_floats(4096, S, 128) == 68_157_440      # f32 chunk
 
 
 @pytest.mark.parametrize("kernel, family", [

@@ -33,7 +33,15 @@ Phases, in order (any failure exits nonzero and prints no result line):
                windows 0, 1,000 and 4,096; pools at q's dtype and int8, f32
                and bf16 q): against the plain versions, batched == alone
                bitwise, and each call's workspace bytes beside the uncapped
-               grid's;
+               grid's; and (bf16, window 0) K5 and one K6 chunk there timed
+               beside their plain versions and SDPA, with their bounds;
+  3a. kernels prefill — K1 against its plain version at whole-prompt
+               serving shapes: one prompt of 1, 37, 129, 500 and 512 tokens,
+               granite-8b's heads at window 0 and gemma3-1b's at window 512,
+               f32 (2e-5) and bf16 (atol 4e-3, rtol one bf16 ulp, 2**-7: a
+               prompt's first rows average a few values, |o| up to 2-3);
+               timed at granite-8b's 128, 256, 384 and 512 beside the plain
+               version and SDPA's causal path, with its bound;
   4. train kernels — K1 (flash forward), K2 (its delta, dq and dk/dv
                launches), K3 and K4 (RMSNorm forward, backward) against their
                plain versions: f32 on the JAX suites' shapes and hd 96
@@ -68,7 +76,10 @@ Phases, in order (any failure exits nonzero and prints no result line):
   7. model   — reduced granite-8b on the card (kernels) against the same
                model on the CPU (plain versions), f32, rtol 1e-3, with the
                pool at f32 and as int8 and fp8 codes (the share of codes that
-               differ card vs CPU printed);
+               differ card vs CPU printed); then model-dense: reduced
+               granite-8b and gemma3-1b, lm.prefill's logits and collected
+               rings over a 70-token prompt (past gemma3-1b's 64 window) and
+               four dense decode steps, card vs CPU, 1e-3;
   8. train-parity — reduced gemma3-1b, f32 with TF32 off: three training
                steps on the card against the same steps on the CPU, rtol 1e-3,
                with AdamW, and with adam8bit and adam4bit on a 24-layer,
@@ -106,7 +117,21 @@ Phases, in order (any failure exits nonzero and prints no result line):
  16. serve-int8, serve-fp8 — the same workload with the pool as int8 / fp8
                codes (the same weights): exact launch counts of the quantized
                K5/K6 (the bf16 variants at 0) and K3, tokens/s, TTFT, pool
-               bytes and peak memory; each followed by its alone phase.
+               bytes and peak memory; each followed by its alone phase;
+ 17. serve-whole, serve-whole-int8 — the serve workload admitted by
+               whole-prompt prefill (launch/workload.py's
+               granite_serve_whole_workload: prompts padded to 128), bf16 and
+               int8 pools: exact launch counts (K1 36 an admission, K6 none,
+               K5 36 a decode step, K3 73 a pass), tokens/s, TTFT, each
+               request's prefill time, pool bytes and peak memory; each
+               followed by its alone phase (batched == alone, bitwise);
+ 18. generate-dense — train.serve.generate over dense rings at full width:
+               granite-8b bf16 (4 prompts of 512, 32 new tokens) and
+               gemma3-1b f32 (2 prompts of 700, past its 512 window, 16 new):
+               exact launch counts (K1 36 / 26, K5 and K6 none), the tokens
+               against the card's own lm.forward argmax over the
+               teacher-forced sequence (a first difference in a row only at
+               a top-2 margin below 1e-4), the logit error against forward.
 The line before last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -238,8 +263,9 @@ def max_err(out, ref, qlens=None) -> float:
     )
 
 
-def check(name, out, ref, tol, qlens=None) -> float:
-    """Kernel vs plain; rows t >= q_len of a prefill chunk are garbage."""
+def check(name, out, ref, tol, qlens=None, rtol=None) -> float:
+    """Kernel vs plain (atol ``tol``, rtol ``rtol`` or ``tol``); rows t >=
+    q_len of a prefill chunk are garbage."""
     torch.cuda.synchronize()
     if qlens is None:
         pairs = [(out, ref)]
@@ -248,7 +274,8 @@ def check(name, out, ref, tol, qlens=None) -> float:
     for o, r in pairs:
         if not torch.isfinite(o).all():
             raise AssertionError(f"{name}: non-finite kernel output")
-        torch.testing.assert_close(o.float(), r.float(), atol=tol, rtol=tol,
+        torch.testing.assert_close(o.float(), r.float(), atol=tol,
+                                   rtol=tol if rtol is None else rtol,
                                    msg=lambda m: f"{name}: {m}")
     return max_err(out, ref, qlens)
 
@@ -756,7 +783,9 @@ def phase_kernels_long():
     """K5 and K6 at LONG's 32,768-key table against their plain versions
     (f32 q 2e-5, bf16 q BF16_TOL) over pools at q's dtype and int8 pools,
     batched == alone bitwise at each window; prints each call's workspace
-    bytes beside the uncapped grid's, and each decode slot's plan."""
+    bytes beside the uncapped grid's, and each decode slot's plan. Then, in
+    bf16 at window 0, K5 over the four slots and K6 over one 128-token chunk
+    at 32,640 timed beside their plain versions and SDPA, with their bounds."""
     from repro_torch.kernels.paged_attention import cuda, ref
 
     dec, pre = cuda.paged_decode_attention_cuda, cuda.paged_prefill_attention_cuda
@@ -805,6 +834,33 @@ def phase_kernels_long():
     emit(phase="kernels_long", keys=P * page, shape=s, cases=n_checked,
          batched_equals_alone=n_checked, tols={"f32 q": 2e-5, "bf16 q": BF16_TOL},
          workspace=workspace, decode_plans=plans)
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    dargs, _ = as_dtype(bf)(dcase)
+    del dcase, pcase
+    T, st = s["T"], s["starts"][0]
+    pargs = make_prefill_case(1, T, Kv, G, hd, page, 1 + -(-(st + T) // page), P, [st], [T],
+                              bf, seed=53)
+    cases = (("K5", "paged_decode_attention", dargs, dec, ref.paged_attention_plain,
+              decode_bound(dargs[0], dargs[1], dargs[3], dargs[4], 0),
+              (dargs[4].long() - 1)[:, None], dargs[0][:, None]),
+             ("K6", "paged_prefill_attention", pargs, pre, ref.paged_prefill_attention_plain,
+              prefill_bound(pargs[0], pargs[1], pargs[3], pargs[4], pargs[5], 0),
+              pargs[4].long()[:, None] + torch.arange(T, device="cuda")[None], pargs[0]))
+    for tag, name, args, kern_fn, plain_fn, (nbytes, flops), qpos, q5 in cases:
+        kern = lambda a=args, f=kern_fn: f(*a, window=0)        # noqa: E731
+        plain = lambda a=args, f=plain_fn: f(*a, window=0)      # noqa: E731
+        err = check(f"{tag} long timed", kern(), plain(), BF16_TOL)
+        qd, kd, vd, mask = sdpa_inputs(q5, args[1], args[2], args[3], qpos, 0)
+        lib = lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,  # noqa: E731
+                                                     scale=1.0)
+        bms, by = bound(nbytes, flops, bf)
+        emit(phase="kernels_long_bf16", kernel=name, keys=P * page, max_abs_err=err,
+             kernel_ms=time_ms(kern, flush), plain_ms=time_ms(plain, flush, warmup=2, reps=5),
+             library_ms=time_ms(lib, flush), bound_ms=bms, bound_by=by, bytes=nbytes,
+             flops=flops)
+        del qd, kd, vd, mask
+        torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------ training kernels
@@ -1082,6 +1138,70 @@ def phase_train_kernels():
             emit(phase="train_kernels_bf16", tol=RN_BF16_TOL, dscale_tol=RN_DSCALE_TOL, **row)
             results.setdefault(name, []).append(row)
     return main_path_rows(results)
+
+
+# ------------------------------------------- K1 at whole-prompt serving shapes
+# one prompt (B 1) of ragged length, causal: granite-8b's heads at window 0
+# and gemma3-1b's at its 512 window; times at granite-8b's bucketed lengths
+PREFILL_FA_LENGTHS = (1, 37, 129, 500, 512)
+PREFILL_FA_HEADS = {"granite-8b": dict(Kv=8, G=4, hd=128, window=0),
+                    "gemma3-1b": dict(Kv=1, G=4, hd=256, window=512)}
+PREFILL_FA_TIMED = (128, 256, 384, 512)
+# a prompt's first rows attend a few keys, so |o| reaches 2-3 there, where
+# BF16_TOL is less than one bf16 ulp (2**-8..2**-7 relative): bf16 outputs
+# are held to atol BF16_TOL and one ulp, rtol 2**-7
+PREFILL_FA_BF16_RTOL = 2.0 ** -7
+
+
+def phase_kernels_prefill():
+    """K1 against its plain version at the whole-prompt admission's shapes
+    (o and lse; f32 2e-5, bf16 BF16_TOL), then timed in bf16 at granite-8b's
+    bucketed lengths beside the plain version and SDPA (GQA expanded,
+    is_causal), with its bound."""
+    from repro_torch.kernels.flash_attention import cuda as fa
+    from repro_torch.kernels.flash_attention import ref as far
+
+    f32, bf = torch.float32, torch.bfloat16
+    n, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
+    for model, h in PREFILL_FA_HEADS.items():
+        for S in PREFILL_FA_LENGTHS:
+            for dt, tol, rtol in ((f32, FA_F32_TOL, FA_F32_TOL),
+                                  (bf, BF16_TOL, PREFILL_FA_BF16_RTOL)):
+                q, k, v, _ = fa_flat(1, S, h["Kv"], h["G"], h["hd"], dt, seed=S)
+                kw = dict(group=h["G"], causal=True, window=h["window"])
+                o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+                po, plse = far.flash_attention_fwd_plain(q, k, v, **kw)
+                err = check(f"K1 prefill {model} S {S} {dt} o", o, po, tol, rtol=rtol)
+                check(f"K1 prefill {model} S {S} {dt} lse", lse, plse, tol)
+                worst[str(dt).split(".")[-1]] = max(worst[str(dt).split(".")[-1]], err)
+                n += 1
+    emit(phase="kernels_prefill", cases=n, lengths=PREFILL_FA_LENGTHS, heads=PREFILL_FA_HEADS,
+         tols={"f32": FA_F32_TOL, "bf16": BF16_TOL, "bf16_rtol": PREFILL_FA_BF16_RTOL},
+         max_abs_err=worst)
+
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    h = PREFILL_FA_HEADS["granite-8b"]
+    Kv, G, hd = h["Kv"], h["G"], h["hd"]
+    rows = []
+    for S in PREFILL_FA_TIMED:
+        q, k, v, _ = fa_flat(1, S, Kv, G, hd, bf, seed=S)
+        kw = dict(group=G, causal=True, window=0)
+        err = check(f"K1 prefill timed S {S}", fa.flash_attention_fwd_cuda(q, k, v, **kw)[0],
+                    far.flash_attention_fwd_plain(q, k, v, **kw)[0], BF16_TOL,
+                    rtol=PREFILL_FA_BF16_RTOL)
+        qd = q.view(1, Kv * G, S, hd)
+        kd, vd = (t.repeat_interleave(G, 0).view(1, Kv * G, S, hd) for t in (k, v))
+        nbytes, flops = fa_bounds(1, S, Kv, G, hd, 0, 2)["flash_attention_fwd"]
+        bms, by = bound(nbytes, flops, bf)
+        row = dict(model="granite-8b", kernel="flash_attention_fwd", S=S, max_abs_err=err,
+                   kernel_ms=time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw), flush),
+                   plain_ms=time_ms(lambda: far.flash_attention_fwd_plain(q, k, v, **kw), flush),
+                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                       qd, kd, vd, is_causal=True, scale=1.0), flush),
+                   bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
+        emit(phase="kernels_prefill_bf16", tol=BF16_TOL, rtol=PREFILL_FA_BF16_RTOL, **row)
+        rows.append(row)
+    return rows
 
 
 def main_path_rows(results):
@@ -1926,18 +2046,67 @@ def phase_model() -> None:
         emit(**row)
 
 
-def phase_serve(kv_dtype: str = "bf16", params=None):
+def phase_model_dense() -> None:
+    """Reduced granite-8b (2 kv heads) and gemma3-1b, f32, TF32 off: the
+    port on the card against the port on the CPU for ``lm.prefill``'s
+    logits and collected rings (k, v; pos exactly) over a 70-token prompt
+    (past gemma3-1b's 64 window, not a multiple of it), then four dense
+    ``decode_step``s, rtol/atol 1e-3."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Runtime, decode_step, init_params, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rt = Runtime(dtype=torch.float32)
+    S, new = 70, 4
+    for name, over in (("granite-8b", {"n_kv_heads": 2}), ("gemma3-1b", {})):
+        cfg = get_reduced(name, **over)
+        prompt = np.random.RandomState(9).randint(0, cfg.vocab_size, (2, S)).astype(np.int32)
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = init_params(cfg, seed=4, device="cpu", dtype=torch.float32).to(dev)
+            logits, st = prefill(cfg, params, {"tokens": torch.from_numpy(prompt).to(dev)}, rt,
+                                 max_len=S + new)
+            # a copy: the decode steps below write the rings in place
+            caches = [{k: v.to("cpu", copy=True) for k, v in c.items()} for c in st["caches"]]
+            seq = [logits.cpu()]
+            tok = logits.argmax(-1).int()
+            for _ in range(new):
+                logits = decode_step(cfg, params, st, tok, rt, S + new)
+                seq.append(logits.cpu())
+                tok = logits.argmax(-1).int()
+            runs[dev] = (seq, caches)
+        worst = 0.0
+        for a, b in zip(runs["cpu"][0], runs["cuda"][0]):
+            if not torch.isfinite(b).all():
+                raise AssertionError(f"{name}: non-finite dense logits on the card")
+            torch.testing.assert_close(b, a, atol=1e-3, rtol=1e-3)
+            worst = max(worst, float((a - b).abs().max() / a.abs().max()))
+        for ca, cb in zip(runs["cpu"][1], runs["cuda"][1]):
+            if not torch.equal(ca["pos"], cb["pos"]):
+                raise AssertionError(f"{name}: ring positions differ card vs CPU")
+            for k in "kv":
+                torch.testing.assert_close(cb[k], ca[k], atol=1e-3, rtol=1e-3)
+        emit(phase="model-dense", config=cfg.name, prompt=S, decode_steps=new,
+             ring_rows=sorted({c["pos"].numel() for c in runs["cpu"][1]}),
+             max_rel_err=worst, tol=1e-3)
+
+
+def phase_serve(kv_dtype: str = "bf16", params=None, whole: bool = False):
     """launch/workload.py's granite-8b serving workload with the pool at
     ``kv_dtype``: the requests' tokens, exact launch counts of the pool's
-    K5/K6 variant (the other variants at 0) and K3, tokens/s, TTFT, pool
-    bytes and peak memory. ``params`` from an earlier serve phase are reused
-    (the same seed)."""
+    K5/K6 variant (the other variants at 0), K1 and K3, tokens/s, TTFT, pool
+    bytes and peak memory. ``whole``: the whole-prompt admission workload
+    (K1 once a layer an admission, K6 never), with each request's prefill
+    time. ``params`` from an earlier serve phase are reused (the same
+    seed)."""
+    from repro_torch.kernels.flash_attention import cuda as fa
     from repro_torch.kernels.paged_attention import cuda
     from repro_torch.kernels.rmsnorm import cuda as rn
-    from repro_torch.launch.workload import granite_serve_workload
+    from repro_torch.launch.workload import (granite_serve_whole_workload,
+                                             granite_serve_workload)
     from repro_torch.serve import ServeEngine
 
-    wl = granite_serve_workload(kv_dtype=kv_dtype)
+    wl = (granite_serve_whole_workload if whole else granite_serve_workload)(kv_dtype=kv_dtype)
     cfg, rt, ecfg, prompts, new = wl.cfg, wl.rt, wl.ecfg, wl.prompts, wl.new_tokens
     t0 = time.perf_counter()
     if params is None:
@@ -1948,13 +2117,17 @@ def phase_serve(kv_dtype: str = "bf16", params=None):
     eng.submit(prompts[0][:32], 4)         # warm-up: cuBLAS handles, allocator
     eng.run()
     torch.cuda.reset_peak_memory_stats()
-    chunks0 = eng.stats["prefill_chunks"]
+    chunks0 = eng.stats.get("prefill_chunks", 0)
+    admits0 = eng._admit_count
     rids = [eng.submit(p, new) for p in prompts]
     cuda.reset_launches()                  # counts of the main path only
     rn.reset_launches()
+    fa.reset_launches()
     out = eng.run()
     launches = dict(cuda.LAUNCHES)
     k3 = rn.LAUNCHES["rmsnorm_fwd"]
+    k1 = fa.LAUNCHES[fa.FWD]
+    admissions = eng._admit_count - admits0
     s = eng.stats
     for rid in rids:
         if out[rid].shape != (new,):
@@ -1964,31 +2137,155 @@ def phase_serve(kv_dtype: str = "bf16", params=None):
     L = cfg.n_layers
     pool_dtype = eng._dev["caches"]["k"].dtype
     k5, k6 = cuda.variant(cuda.DECODE, pool_dtype), cuda.variant(cuda.PREFILL, pool_dtype)
-    if launches[k5] <= 0 or launches[k6] <= 0:
-        raise AssertionError(f"a kernel was not launched on the main path: {launches}")
-    others = {k: v for k, v in launches.items() if k not in (k5, k6) and v}
+    used = (k5,) if whole else (k5, k6)
+    if any(launches[k] <= 0 for k in used) or (whole and k1 <= 0):
+        raise AssertionError(f"a kernel was not launched on the main path: {launches}, "
+                             f"K1 {k1}")
+    others = {k: v for k, v in launches.items() if k not in used and v}
     if others:
         raise AssertionError(f"{kv_dtype} pool launched other variants: {others}")
-    chunks = s["prefill_chunks"] - chunks0
-    if launches[k6] != L * chunks:
-        raise AssertionError(f"K6 launches {launches} != {L} x {chunks}")
+    chunks = s.get("prefill_chunks", 0) - chunks0
+    prefills = admissions if whole else chunks
+    if whole and (chunks or k1 != L * admissions):
+        raise AssertionError(f"K1 launches {k1} != {L} x {admissions} admissions, or "
+                             f"{chunks} chunks")
+    if not whole and (launches[k6] != L * chunks or k1):
+        raise AssertionError(f"K6 launches {launches} != {L} x {chunks}, or K1 {k1}")
     if launches[k5] % L:
         raise AssertionError(f"K5 launches {launches} not a multiple of {L}")
-    passes = chunks + launches[k5] // L
+    passes = prefills + launches[k5] // L
     if k3 != passes * (2 * L + 1):         # two norms per layer and the final one
         raise AssertionError(f"K3 launches {k3} != {passes} passes x {2 * L + 1}")
-    emit(phase="serve" if kv_dtype == "bf16" else f"serve-{kv_dtype}", config=cfg.name,
-         dtype="bf16", kv_dtype=kv_dtype, pool_dtype=str(pool_dtype), params_init_s=init_s,
-         requests=len(rids), new_tokens=new, num_pages=ecfg.num_pages,
-         tokens_per_s=s["tokens_per_s"], run_mean_ttft_s=s["run_mean_ttft_s"],
-         wall_s=s["wall_s"], prefill_chunks=chunks, decode_steps=launches[k5] // L,
-         launches=launches, rmsnorm_fwd_launches=k3,
-         kv_pool_bytes=s["kv_pool_bytes_per_device"],
-         kv_bytes_per_token=eng._kv_bytes_per_page() // ecfg.page_size,
-         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    name = "serve-whole" if whole else "serve"
+    row = dict(phase=name if kv_dtype == "bf16" else f"{name}-{kv_dtype}", config=cfg.name,
+               dtype="bf16", kv_dtype=kv_dtype, pool_dtype=str(pool_dtype),
+               params_init_s=init_s, requests=len(rids), new_tokens=new,
+               num_pages=ecfg.num_pages, tokens_per_s=s["tokens_per_s"],
+               run_mean_ttft_s=s["run_mean_ttft_s"], wall_s=s["wall_s"],
+               prefill_chunks=chunks, admissions=admissions,
+               decode_steps=launches[k5] // L, launches=launches,
+               flash_attention_fwd_launches=k1, rmsnorm_fwd_launches=k3,
+               kv_pool_bytes=s["kv_pool_bytes_per_device"],
+               kv_bytes_per_token=eng._kv_bytes_per_page() // ecfg.page_size,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    if whole:
+        row.update(prefill_s={r: s["prefill_s"][r] for r in rids},
+                   prompt_lens=[len(p) for p in prompts], bucket=ecfg.prefill_bucket)
+    emit(**row)
     del eng
     torch.cuda.empty_cache()
-    return wl, params, rids, out, {k5: launches[k5], k6: launches[k6]}
+    counts = {k5: launches[k5], fa.FWD: k1} if whole else {k5: launches[k5], k6: launches[k6]}
+    return wl, params, rids, out, counts
+
+
+# dense generation at full width: (config, dtype, batch, prompt, new tokens).
+# gemma3-1b's 700-token prompts run past its 512 window, not a multiple of it
+GENERATE_DENSE = [("granite-8b", torch.bfloat16, 4, 512, 32),
+                  ("gemma3-1b", torch.float32, 2, 700, 16)]
+TIE_MARGIN = 1e-4                 # f32: tests/test_torch_serve_engine.py::MARGIN
+# bf16: the dense decode and forward round activations to bf16 in different
+# places (the decode's attention is plain bf16 with JAX's casts, forward's is
+# K1; 4-row against 2,176-row GEMMs), so their logits differ at bf16
+# precision and argmaxes can part well above an f32 tie. The dense logits are
+# held within BF16_LOGIT_REL of max|logit| of forward's (JAX's limit for an
+# int8 pool's logits, tests/test_torch_serve_engine.py::QUANT_REL_TOL), and a
+# first difference is allowed where forward's top-2 margin is below twice
+# that share of max|logit| (QUANT_MARGIN's rule).
+BF16_LOGIT_REL = 0.04
+
+
+def top2_margin(row: torch.Tensor) -> float:
+    top = torch.topk(row, 2).values
+    return float(top[0] - top[1])
+
+
+def phase_generate_dense(granite_params) -> None:
+    """``train.serve.generate`` (dense rings) at full width, GENERATE_DENSE:
+    exact launch counts (K1 once a layer, K3 twice a layer and once more a
+    pass, K5 and K6 never), the greedy tokens against the card's own
+    ``lm.forward`` argmax over the teacher-forced sequence, and the dense
+    path's logits (prefill, then decode steps fed the same tokens) against
+    forward's. A first difference in a row is allowed in f32 only where
+    forward's top-2 margin is below TIE_MARGIN, in bf16 only below
+    2 * BF16_LOGIT_REL of max|logit|, where the logits must agree within
+    BF16_LOGIT_REL of max|logit|. Both cases run before a failure is
+    raised."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import cuda as fa
+    from repro_torch.kernels.paged_attention import cuda
+    from repro_torch.kernels.rmsnorm import cuda as rn
+    from repro_torch.models import Runtime, decode_step, forward, init_params, prefill
+    from repro_torch.train.serve import generate
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    failures = []
+    for name, dtype, B, S, new in GENERATE_DENSE:
+        cfg = get_config(name)
+        params = granite_params if name == "granite-8b" else init_params(
+            cfg, seed=0, device="cuda", dtype=dtype)
+        rt = Runtime(dtype=dtype)
+        L, V = cfg.n_layers, cfg.vocab_size
+        prompt = np.random.RandomState(7).randint(0, V, (B, S)).astype(np.int32)
+        generate(cfg, params, {"tokens": prompt[:, :16]}, rt, 2)     # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for m in (cuda, fa, rn):
+            m.reset_launches()
+        t0 = time.perf_counter()
+        out, state = generate(cfg, params, {"tokens": prompt}, rt, new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        k1, k3 = fa.LAUNCHES[fa.FWD], rn.LAUNCHES["rmsnorm_fwd"]
+        paged = {k: v for k, v in cuda.LAUNCHES.items() if v}
+        if k1 != L or paged or k3 != new * (2 * L + 1) or state["t"] != S + new - 1:
+            raise AssertionError(f"{name} dense: K1 {k1} (want {L}), paged {paged}, K3 {k3} "
+                                 f"(want {new * (2 * L + 1)}), t {state['t']}")
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        toks = torch.from_numpy(prompt).to("cuda")
+        with torch.no_grad():
+            ref, _ = forward(cfg, params, {"tokens": torch.cat([toks, out[:, :-1]], 1)}, rt)
+            ref = ref[:, S - 1:, :V]                                  # (B, new, V)
+            lg, st = prefill(cfg, params, {"tokens": toks}, rt, max_len=S + new)
+            dense = [lg[:, :V]]
+            for i in range(1, new):
+                dense.append(decode_step(cfg, params, st, out[:, i - 1], rt, S + new)[:, :V])
+            dense = torch.stack(dense, 1)
+        if not (torch.isfinite(dense).all() and torch.isfinite(ref).all()):
+            raise AssertionError(f"{name} dense: non-finite logits")
+        if not torch.equal(dense.argmax(-1).int(), out):
+            raise AssertionError(f"{name} dense: generate's tokens are not its logits' argmax")
+        want = ref.argmax(-1).int()
+        bf16 = dtype == torch.bfloat16
+        first = []
+        for b in range(B):
+            diff = torch.nonzero(want[b] != out[b]).flatten().tolist()
+            if diff:
+                i = diff[0]
+                m = top2_margin(ref[b, i])
+                first.append(dict(row=b, step=i, margin=m,
+                                  margin_rel=m / float(ref[b, i].abs().max())))
+        rel = float(((dense - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
+        emit(phase="generate-dense", config=cfg.name, dtype=str(dtype).split(".")[-1],
+             batch=B, prompt=S, new_tokens=new, window=cfg.sliding_window, wall_s=wall,
+             tokens_per_s=B * new / wall, peak_mem_gb=peak, flash_attention_fwd_launches=k1,
+             rmsnorm_fwd_launches=k3, first_differences=first,
+             tie=(f"margin_rel < {2 * BF16_LOGIT_REL}" if bf16 else f"margin < {TIE_MARGIN}"),
+             logit_max_abs_err=float((dense - ref).abs().max()), logit_max_rel_err=rel,
+             logit_rel_tol=BF16_LOGIT_REL if bf16 else None, rows_identical=B - len(first))
+        if bf16:
+            bad = [f for f in first if f["margin_rel"] >= 2 * BF16_LOGIT_REL]
+            if rel > BF16_LOGIT_REL:
+                failures.append(f"{name}: dense logits {rel} of max|logit| from forward's")
+        else:
+            bad = [f for f in first if f["margin"] >= TIE_MARGIN]
+        if bad:
+            failures.append(f"{name}: tokens differ from forward's argmax beyond a tie: {bad}")
+        del ref, dense, out, state, st
+        if name != "granite-8b":
+            del params
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError("generate-dense: " + "; ".join(failures))
 
 
 def phase_alone(wl, params, rids, out) -> None:
@@ -2016,10 +2313,12 @@ def main() -> int:
     kern = phase_kernels()
     kern.update(phase_kernels_quant())
     phase_kernels_long()
+    phase_kernels_prefill()
     kern.update(phase_train_kernels())
     kern.update(phase_quant_kernels())
     kern.update(phase_stash_kernels())
     phase_model()
+    phase_model_dense()
     phase_train_parity()
     phase_pipe_parity()
     launches = phase_train(gemma_train_workload(), "train")     # K1-K4
@@ -2036,6 +2335,10 @@ def main() -> int:
         wl, params, rids, out, serve_launches = phase_serve(kv_dtype, params)
         phase_alone(wl, params, rids, out)
         launches.update(serve_launches)
+    for kv_dtype in ("bf16", "int8"):      # whole-prompt admission: K1, K3, K5
+        wl, params, rids, out, _ = phase_serve(kv_dtype, params, whole=True)
+        phase_alone(wl, params, rids, out)
+    phase_generate_dense(params)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kern[name]

@@ -2,14 +2,17 @@
 serving workload, under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--out DIR] \
-        [--kv-dtype bf16|int8|fp8]
+        [--kv-dtype bf16|int8|fp8] [--admission chunked|whole ...]
 
 Runs ``workload.granite_serve_workload(kv_dtype=...)`` (the workload of
-``chip_smoke.py``'s serve phases) once to warm up, then once under the
-profiler, and prints one JSON line: wall time, device-busy time and idle share of the
-window, the device time of each kernel family, and the isolated times of
-one decode step (4 slots at 500 cached tokens) and one 128-token prefill
-chunk from CUDA events. The full operator table goes to ``DIR``.
+``chip_smoke.py``'s serve phases; ``--admission whole`` its whole-prompt
+twin, ``granite_serve_whole_workload``) once to warm up, then once under the
+profiler, and prints one JSON line for each admission given, in order: wall
+time, device-busy time and idle share of the window, the device time of each
+kernel family, and the isolated times of one decode step (4 slots at 500
+cached tokens), one 128-token prefill chunk and one whole-prompt admission's
+prefill of 512 tokens (``lm.prefill``, full caches) from CUDA events. The
+full operator table goes to ``DIR/<admission>``.
 """
 from __future__ import annotations
 
@@ -46,6 +49,10 @@ def _family(name: str) -> str:
             if "combine" in name:
                 return f"{k} {op}_combine"
             return f"{k} {op}_kernel{_pool(name)}"
+    if "fa_fwd" in name:
+        return "K1 flash_attention_fwd"
+    if "rmsnorm_fwd" in name:
+        return "K3 rmsnorm_fwd"
     low = name.lower()
     if any(k in low for k in ("gemm", "gemv", "nvjet", "cutlass", "splitkreduce")):
         return "matmul (cuBLAS)"
@@ -67,36 +74,25 @@ def _events_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def main(argv=None) -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default="profile_serve_out")
-    ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8", "fp8"))
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_serve measures the card; CUDA is not available")
-
-    from repro_torch.launch.workload import granite_serve_workload
-    from repro_torch.models import decode_step_paged, init_paged_state, prefill_chunk_paged
+def profile_one(wl, params, card: str, out: Path) -> dict:
+    """One workload's profiled run and isolated step times (see above)."""
+    from repro_torch.models import (decode_step_paged, init_paged_state, prefill,
+                                    prefill_chunk_paged)
     from repro_torch.serve import ServeEngine
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
-    wl = granite_serve_workload(kv_dtype=args.kv_dtype)
     cfg, rt, ecfg = wl.cfg, wl.rt, wl.ecfg
-    params = wl.params("cuda")
     eng = ServeEngine(cfg, params, rt, ecfg, device="cuda")
     for p in wl.prompts:                               # warm-up run
         eng.submit(p, wl.new_tokens)
     eng.run()
-    for p in wl.prompts:
-        eng.submit(p, wl.new_tokens)
+    rids = [eng.submit(p, wl.new_tokens) for p in wl.prompts]
+    torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
     stats = dict(eng.stats)
     families: dict = {}
     busy_us = 0.0
@@ -109,12 +105,13 @@ def main(argv=None) -> None:
         fam = families.setdefault(_family(evt.key), {"ms": 0.0, "calls": 0})
         fam["ms"] += us / 1e3
         fam["calls"] += evt.count
-    out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     (out / "key_averages.txt").write_text(averages.table(
         sort_by="self_cuda_time_total", row_limit=60))
+    del eng
 
-    # isolated step times: 4 slots decoding at 500 cached tokens; one chunk
+    # isolated step times: 4 slots decoding at 500 cached tokens; one chunk;
+    # one whole-prompt prefill of 512 tokens
     state = init_paged_state(cfg, 4, rt, num_pages=ecfg.num_pages, page_size=16,
                              max_len=ecfg.max_len, device="cuda")
     width = state["tables"].shape[1]
@@ -123,25 +120,64 @@ def main(argv=None) -> None:
     state["lengths"].fill_(500)
     tok = torch.zeros(4, dtype=torch.int32, device="cuda")
     chunk = torch.zeros(128, dtype=torch.int32, device="cuda")
+    prompt = {"tokens": torch.zeros((1, 512), dtype=torch.int32, device="cuda")}
 
     def decode():
         decode_step_paged(cfg, params, state, tok, rt, ecfg.max_len)
         state["lengths"].fill_(500)
 
-    def prefill():
+    def chunk_prefill():
         prefill_chunk_paged(cfg, params, state["caches"], state["tables"][0], chunk,
                             384, 128, rt, ecfg.max_len)
 
-    decode(), prefill()
-    print(json.dumps({
-        "card": card, "config": cfg.name, "kv_dtype": args.kv_dtype, "wall_s": wall_s,
-        "device_busy_s": busy_us / 1e6, "idle_share": 1 - busy_us / 1e6 / wall_s,
+    def whole_prefill():
+        prefill(cfg, params, prompt, rt, max_len=512, full_cache=True)
+
+    with torch.no_grad():
+        decode(), chunk_prefill(), whole_prefill()
+        times = {"decode_step_ms": _events_ms(decode),
+                 "prefill_chunk_ms": _events_ms(chunk_prefill),
+                 "whole_prefill_512_ms": _events_ms(whole_prefill)}
+    return {
+        "card": card, "config": cfg.name, "kv_dtype": ecfg.kv_dtype,
+        "admission": "chunked" if ecfg.prefill_chunk else "whole",
+        "wall_s": wall_s, "device_busy_s": busy_us / 1e6,
+        "idle_share": 1 - busy_us / 1e6 / wall_s,
         "tokens_per_s": stats["tokens_per_s"],
         "run_mean_ttft_s": stats["run_mean_ttft_s"],
+        "prefill_s": [stats["prefill_s"][r] for r in rids], "peak_mem_bytes": peak,
         "kernel_launches": stats["kernel_launches"],
-        "families": families,
-        "decode_step_ms": _events_ms(decode), "prefill_chunk_ms": _events_ms(prefill),
-    }), flush=True)
+        "families": families, **times,
+    }
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="profile_serve_out")
+    ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8", "fp8"))
+    ap.add_argument("--admission", nargs="+", default=["chunked"],
+                    choices=("chunked", "whole"),
+                    help="chunked prefill (the serve workload) and/or whole-prompt "
+                         "admission, profiled in this order with the same weights")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_serve measures the card; CUDA is not available")
+
+    from repro_torch.launch.workload import granite_serve_workload
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    params = None
+    for admission in args.admission:
+        wl = granite_serve_workload(kv_dtype=args.kv_dtype,
+                                    prefill_chunk=128 if admission == "chunked" else 0)
+        if params is None:
+            params = wl.params("cuda")
+        row = profile_one(wl, params, card, Path(args.out) / admission)
+        print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

@@ -1,23 +1,33 @@
-"""Serving launcher of the PyTorch port: the paged continuous-batching engine.
+"""Serving launcher of the PyTorch port: the paged continuous-batching
+engine, or batched dense generation.
 
-    # full granite-8b on the card, random weights from --seed
+    # full granite-8b on the card, random weights from --seed, whole-prompt
+    # admission (K1, K3, then K5); add --prefill-chunk 128 for chunked (K6)
     PYTHONPATH=src python -m repro_torch.launch.serve --full --arch granite-8b \
-        --paged --prefill-chunk 128
+        --paged
 
     # reduced config on the CPU (plain versions of the kernels), int8 pool
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --paged --prefill-chunk 8 --device cpu --kv-dtype int8
 
-Counterpart of the ``--paged`` branch of ``repro.launch.serve``. Requests of
-random length (uniform in ``[prompt_len // 2, prompt_len]``, after an
-optional shared system prompt) are admitted into ``--slots`` decode slots
-over the paged KV pool, prefilled in chunks and decoded together. It runs on
-CUDA unless ``--device cpu`` is given, and in bf16 at full size (``--full``),
-f32 when reduced. ``--kv-dtype int8|fp8`` stores the pool as codes and
-scales (``bf16``, the default, at the compute dtype); the launcher prints the
-pool's dtype, bytes per request and capacity against bf16, as the JAX
-launcher does. Modes of the JAX launcher that belong to later slices of the
-port exit with an error naming the slice.
+    # dense generation: --batch prompts of --prompt-len tokens over ring caches
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
+        --device cpu --batch 4
+
+Counterpart of ``repro.launch.serve``. With ``--paged``, requests of random
+length (uniform in ``[prompt_len // 2, prompt_len]``, after an optional
+shared system prompt) are admitted into ``--slots`` decode slots over the
+paged KV pool and decoded together; a request is prefilled whole (padded to
+a multiple of ``--page-size``), or in chunks of ``--prefill-chunk`` tokens,
+or through the prefix cache (``--prefix-cache``). Without it, ``--batch``
+random prompts of ``--prompt-len`` tokens generate together through
+``train.serve.generate``. It runs on CUDA unless ``--device cpu`` is given,
+and in bf16 at full size (``--full``), f32 when reduced. ``--kv-dtype
+int8|fp8`` stores the pool as codes and scales (``bf16``, the default, at
+the compute dtype); the launcher prints the pool's dtype, bytes per request
+and capacity against bf16, as the JAX launcher does. Modes of the JAX
+launcher that belong to later slices of the port exit with an error naming
+the slice.
 """
 from __future__ import annotations
 
@@ -27,9 +37,9 @@ import numpy as np
 import torch
 
 LATER = {
-    "spec": "--spec (speculative decoding)",
-    "mesh": "--mesh (memory techniques and multi-device)",
-    "trace": "--trace (the async front-end and its traces)",
+    "spec": "--spec (speculative decoding) is ROADMAP queue 1 item 3",
+    "mesh": "--mesh (memory techniques and multi-device) is ROADMAP queue 1 item 6",
+    "trace": "--trace (the async front-end and its traces) is ROADMAP queue 1 item 5",
 }
 
 
@@ -40,6 +50,8 @@ def main(argv=None) -> None:
     ap.add_argument("--full", dest="reduced", action="store_false")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default: the hand kernels) or cpu")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="dense generation (without --paged): prompts a batch")
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--new-tokens", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.8)
@@ -60,15 +72,9 @@ def main(argv=None) -> None:
     ap.add_argument("--trace", default="")
     args = ap.parse_args(argv)
 
-    if not args.paged:
-        ap.error("the port serves only --paged so far; batched dense generation "
-                 "is ROADMAP queue 1, 'the dense fallback and the other families'")
     for flag in ("spec", "mesh", "trace"):
         if getattr(args, flag):
-            ap.error(f"{LATER[flag]} is a later slice of the port (ROADMAP queue 1)")
-    if args.prefill_chunk == 0 and not args.prefix_cache:
-        ap.error("--prefill-chunk 0 without --prefix-cache is whole-prompt "
-                 "admission, a later slice of the port (ROADMAP queue 1)")
+            ap.error(f"{LATER[flag]}, a later slice of the port")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("CUDA is not available; pass --device cpu to run on the CPU")
 
@@ -82,6 +88,10 @@ def main(argv=None) -> None:
     dtype = torch.float32 if args.reduced else torch.bfloat16
     params = init_params(cfg, seed=args.seed, device=args.device, dtype=dtype)
     rng = np.random.RandomState(args.seed)
+    where = torch.cuda.get_device_name(0) if args.device == "cuda" else "cpu"
+    if not args.paged:
+        _generate_dense(args, cfg, params, Runtime(dtype=dtype), rng, where)
+        return
     max_prompt = args.prompt_len + args.shared_prefix
     ecfg = EngineConfig.capacity(
         max_prompt, args.new_tokens, slots=args.slots, page_size=args.page_size,
@@ -102,10 +112,10 @@ def main(argv=None) -> None:
         rids.append(eng.submit(tokens, args.new_tokens))
     out = eng.run()
     s = eng.stats
-    where = (torch.cuda.get_device_name(0) if eng.device.type == "cuda"
-             else "cpu")
+    admission = ("prefix cache" if args.prefix_cache else
+                 f"chunks of {args.prefill_chunk}" if args.prefill_chunk else "whole prompt")
     print(
-        f"{cfg.name} [{cfg.family}] on {where}: "
+        f"{cfg.name} [{cfg.family}] on {where}, admission by {admission}: "
         f"{sum(len(v) for v in out.values())} tokens, "
         f"{s['tokens_per_s']:.1f} tok/s, mean TTFT "
         f"{s['run_mean_ttft_s'] * 1e3:.0f}ms, evictions={s.get('evictions', 0)}, "
@@ -130,6 +140,25 @@ def main(argv=None) -> None:
         )
     for rid in rids[:2]:
         print(f"  req[{rid}]: {out[rid][:12].tolist()}...")
+
+
+def _generate_dense(args, cfg, params, rt, rng, where) -> None:
+    """``--batch`` prompts of ``--prompt-len`` tokens through the dense path."""
+    import time
+
+    from repro_torch.train.serve import generate
+
+    batch = {"tokens": rng.randint(0, cfg.vocab_size, (args.batch, args.prompt_len))}
+    t0 = time.perf_counter()
+    tokens, _ = generate(cfg, params, batch, rt, max_new_tokens=args.new_tokens,
+                         temperature=args.temperature, seed=args.seed)
+    if tokens.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"{cfg.name} [{cfg.family}] on {where}, dense: {tokens.numel()} tokens in "
+          f"{dt:.1f}s")
+    for b in range(min(2, args.batch)):
+        print(f"  seq[{b}]: {tokens[b].tolist()}")
 
 
 if __name__ == "__main__":

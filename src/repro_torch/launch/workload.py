@@ -7,6 +7,9 @@ each, greedy; 4 slots, page 16, chunked prefill of 128 tokens, 8 decode
 steps per tick, a pool sized by ``EngineConfig.capacity(..., headroom=2.0)``.
 ``kv_dtype`` "int8" / "fp8" stores that pool as codes and scales: the same
 requests, slots, page size, chunk and number of pages, fewer pool bytes.
+``granite_serve_whole_workload`` is the same workload admitted by
+whole-prompt prefill (``prefill_chunk`` 0, prompts padded to a bucket of
+128): one K1 launch a layer an admission, no K6.
 
 Training: gemma3-1b at full width and depth (26 layers, d 1152, 4 query
 heads over 1 kv head of hd 256, window 512 on 22 layers, tied vocabulary of
@@ -55,18 +58,24 @@ class ServeWorkload:
                            dtype=self.rt.dtype)
 
 
-def granite_serve_workload(seed: int = 0, kv_dtype: str = "bf16") -> ServeWorkload:
+def granite_serve_workload(seed: int = 0, kv_dtype: str = "bf16",
+                           prefill_chunk: int = 128) -> ServeWorkload:
     cfg = get_config("granite-8b")
     new_tokens, slots, page = 64, 4, 16
     ecfg = EngineConfig.capacity(
         512, new_tokens, slots=slots, page_size=page, headroom=2.0, cfg=cfg,
         kv_dtype=kv_dtype,
-    ).engine(prefill_chunk=128, inner_steps=8, temperature=0.0, seed=seed)
+    ).engine(prefill_chunk=prefill_chunk, prefill_bucket=0 if prefill_chunk else 128,
+             inner_steps=8, temperature=0.0, seed=seed)
     rng = np.random.RandomState(seed)
     prompts = [rng.randint(0, cfg.vocab_size, (int(n),)).astype(np.int32)
                for n in rng.randint(128, 513, size=8)]
     rt = Runtime(dtype=torch.bfloat16, kv_dtype=normalize_kv_dtype(kv_dtype))
     return ServeWorkload(cfg, rt, ecfg, prompts, new_tokens, seed)
+
+
+def granite_serve_whole_workload(seed: int = 0, kv_dtype: str = "bf16") -> ServeWorkload:
+    return granite_serve_workload(seed, kv_dtype, prefill_chunk=0)
 
 
 @dataclass(frozen=True)

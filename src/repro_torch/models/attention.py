@@ -1,11 +1,23 @@
-"""GQA attention: the full-sequence training path and the paged serving
-halves of ``repro.models.attention``.
+"""GQA attention: the full-sequence path (training and whole-prompt
+prefill), the dense ring cache and the paged serving halves of
+``repro.models.attention``.
 
 ``attention_apply`` is the self-attention half of the JAX function: q, k and
 v projections, RoPE, q pre-scaled by ``hd**-0.5``, then ``flash_attention``
 over the (B, S, Kv, G, hd) layout (K1/K2 on a CUDA tensor, the plain version
 on a CPU tensor). It computes the same function as the JAX banded
-query-chunk scan without copying it.
+query-chunk scan without copying it. With ``collect_kv`` it also returns the
+roped k and the v that K1 consumed, for a prefill's cache.
+
+The dense ring cache (``init_kv_cache``, ``fill_kv_cache``,
+``attention_decode``) holds ``cache_len`` rows with an explicit position
+array. Position p always lives in row ``p % cache_len``, in the prefill's
+fill as in every decode write, so a decode write replaces the oldest row.
+(The JAX ``fill_kv_cache`` keeps the trailing rows in order instead, which
+puts a decode write on a row still inside the window whenever the prompt is
+longer than the ring and not a multiple of it; ROADMAP queue 3.) The
+one-token dense decode is plain PyTorch, as the JAX function is plain jnp
+outside any Pallas kernel; it updates the cache in place.
 
 The page pools are updated in place (JAX returned new pools and donated the
 old buffers; here the write lands in the caller's tensor). The order is the
@@ -22,7 +34,7 @@ its gather (K5/K6 on the card).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -34,6 +46,9 @@ from repro_torch.kernels.paged_attention import (
     quant,
 )
 from repro_torch.models.layers import dense_init, frozen, rope_apply
+
+NEG_INF = -1e30
+INVALID_POS = -(2**30)
 
 
 class Attention(nn.Module):
@@ -69,9 +84,11 @@ def attention_apply(
     causal: bool = True,
     positions: Optional[torch.Tensor] = None,
     memory: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Full-sequence self-attention (training). x: (B, S, d); positions
-    (B, S), default 0..S-1. Returns (B, S, d)."""
+    collect_kv: bool = False,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Full-sequence self-attention (training, prefill). x: (B, S, d);
+    positions (B, S), default 0..S-1. Returns (out (B, S, d), kv): kv is
+    ``{"k", "v"}`` (B, S, Kv, hd), k roped, when ``collect_kv``, else None."""
     if memory is not None:
         raise NotImplementedError(
             "cross-attention (encoder-decoder) is ROADMAP queue 1 item 4, "
@@ -89,7 +106,77 @@ def attention_apply(
     k = rope_apply(k, positions, theta)
     q = q.reshape(B, S, n_kv, G, head_dim) * (head_dim ** -0.5)
     out = flash_attention(q, k, v, causal, window)
-    return out.reshape(B, S, n_heads * head_dim) @ p.wo.to(dtype)
+    kv = {"k": k, "v": v} if collect_kv else None
+    return out.reshape(B, S, n_heads * head_dim) @ p.wo.to(dtype), kv
+
+
+# ------------------------------------------------------------- dense caching
+def init_kv_cache(
+    B: int, cache_len: int, n_kv: int, head_dim: int, dtype, device
+) -> Dict[str, torch.Tensor]:
+    """An empty ring: zero rows, every position ``INVALID_POS``."""
+    return {
+        "k": torch.zeros((B, cache_len, n_kv, head_dim), dtype=dtype, device=device),
+        "v": torch.zeros((B, cache_len, n_kv, head_dim), dtype=dtype, device=device),
+        "pos": torch.full((cache_len,), INVALID_POS, dtype=torch.int32, device=device),
+    }
+
+
+def fill_kv_cache(
+    cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor,
+    positions: torch.Tensor,
+) -> Dict[str, torch.Tensor]:
+    """Fill a fresh ring from prefill k/v (B, S, Kv, hd), in place: the
+    trailing ``min(S, cache_len)`` positions, each at row ``pos %
+    cache_len``. positions: (B, S), shared by the batch (row 0 is used)."""
+    S_c, S = cache["k"].shape[1], k.shape[1]
+    keep = min(S, S_c)
+    pos = positions[0, S - keep:].to(torch.int32)
+    rows = (pos % S_c).long()
+    cache["k"][:, rows] = k[:, S - keep:]
+    cache["v"][:, rows] = v[:, S - keep:]
+    cache["pos"][rows] = pos
+    return cache
+
+
+def attention_decode(
+    p: Attention,
+    x: torch.Tensor,
+    cache: Dict[str, torch.Tensor],
+    t: int,
+    *,
+    n_heads: int,
+    n_kv: int,
+    head_dim: int,
+    theta: float,
+    window: int = 0,
+) -> torch.Tensor:
+    """One-token decode over a dense ring. x: (B, 1, d); t: this token's
+    position, shared by the batch. Writes the roped k and the v into row
+    ``t % cache_len`` (in place) and attends every valid row, masked by the
+    position array (and the window). Returns (B, 1, d)."""
+    B = x.shape[0]
+    dtype = x.dtype
+    G = n_heads // n_kv
+    pos = torch.full((B, 1), t, dtype=torch.int32, device=x.device)
+    q = rope_apply(_split_heads(x @ p.wq.to(dtype), n_heads, head_dim), pos, theta)
+    k_new = rope_apply(_split_heads(x @ p.wk.to(dtype), n_kv, head_dim), pos, theta)
+    v_new = _split_heads(x @ p.wv.to(dtype), n_kv, head_dim)
+
+    slot = t % cache["k"].shape[1]
+    cache["k"][:, slot] = k_new[:, 0]
+    cache["v"][:, slot] = v_new[:, 0]
+    cache["pos"][slot] = t
+
+    q = q.reshape(B, n_kv, G, head_dim) * (head_dim ** -0.5)
+    scores = torch.einsum("bkgh,bskh->bkgs", q.float(), cache["k"].float())
+    pos_c = cache["pos"]
+    valid = (pos_c >= 0) & (pos_c <= t)
+    if window > 0:
+        valid = valid & (pos_c > t - window)
+    w = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1).to(dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", w, cache["v"]).reshape(B, 1, n_heads * head_dim)
+    return out @ p.wo.to(dtype)
 
 
 def _write_rows(kp, vp, ksc, vsc, pid, slot, k_new, v_new):

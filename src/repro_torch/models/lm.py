@@ -2,16 +2,18 @@
 
 Counterpart of the training forward and loss (``forward_hidden``,
 ``forward``, ``masked_token_ce``, ``loss_fn``), the pipeline's stage
-functions (``pipeline_fns``) and the paged serving entry points of
-``repro.models.lm``.
+functions (``pipeline_fns``), the whole-prompt prefill and dense decode
+(``prefill``, ``init_decode_state``, ``decode_step``) and the paged serving
+entry points of ``repro.models.lm``.
 Parameters are an :class:`LM` module holding the same tree as the JAX
 package (``embed/table``, the per-layer blocks, ``final_norm/scale``,
 ``head/w``); ``checkpoint.convert.params_from_jax`` carries a JAX tree
 across, and :func:`init_params` draws a fresh one from a seeded
 ``torch.Generator`` on the target device.
 
-The paged state is updated in place: pool pages by the attention writes,
-``lengths`` by :func:`decode_step_paged`.
+Decode states are updated in place: pool pages and dense rings by the
+attention writes, ``lengths`` by :func:`decode_step_paged` and ``t`` (a
+host int, the position the next token takes) by :func:`decode_step`.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.chunked_ce import chunked_ce
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import stack as stack_mod
 from repro_torch.models.layers import (
     Embed,
@@ -184,6 +187,70 @@ def pipeline_fns(cfg: ArchConfig, rt: Runtime):
 
 
 # ------------------------------------------------------------------- serving
+def prefill(
+    cfg: ArchConfig,
+    params: LM,
+    batch: Dict[str, torch.Tensor],
+    rt: Runtime,
+    max_len: Optional[int] = None,
+    gather_pos: Optional[int] = None,
+    full_cache: bool = False,
+) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Forward over the prompt; returns the f32 logits (B, V) of one
+    position and the dense decode state ``{"caches", "t"}``.
+
+    ``max_len`` sizes the rings for the decode horizon (default the prompt
+    length). ``gather_pos`` picks the position whose logits are returned
+    (default the last): a prompt right-padded to a bucket gathers its true
+    last position. ``full_cache`` sizes every attention ring, sliding-window
+    ones too, to the horizon, as the page pool keeps every position. The
+    final norm and the head run on that one row."""
+    x = embed_apply(params.embed, batch["tokens"], rt.dtype)
+    S = x.shape[1]
+    specs = layer_specs(cfg, seq_len=S, long_variant=rt.long_variant)
+    cache_specs = layer_specs(cfg, seq_len=max_len or S, long_variant=rt.long_variant)
+    if full_cache:
+        cache_specs = tuple(s._replace(cache_len=max_len or S) for s in cache_specs)
+    x, _, caches = stack_mod.stack_forward(
+        cfg, params.stack, x, rt, specs, collect_cache=True, cache_specs=cache_specs,
+    )
+    i = S - 1 if gather_pos is None else gather_pos
+    logits = _logits(cfg, params, x[:, i: i + 1].contiguous())
+    return logits[:, 0], {"caches": caches, "t": S}
+
+
+def init_decode_state(
+    cfg: ArchConfig, params: LM, B: int, seq_len: int, rt: Runtime
+) -> Dict[str, Any]:
+    """Empty rings sized for a ``seq_len`` context, on the parameters'
+    device, at position ``seq_len - 1`` (the dry-run / bench entry)."""
+    dev = params.embed.table.device
+    specs = layer_specs(cfg, seq_len=seq_len, long_variant=rt.long_variant)
+    caches = [
+        attn_mod.init_kv_cache(B, s.cache_len, cfg.n_kv_heads, cfg.head_dim, rt.dtype, dev)
+        for s in specs
+    ]
+    return {"caches": caches, "t": seq_len - 1}
+
+
+def decode_step(
+    cfg: ArchConfig,
+    params: LM,
+    state: Dict[str, Any],
+    token: torch.Tensor,
+    rt: Runtime,
+    seq_len: int,
+) -> torch.Tensor:
+    """One dense decode step at ``state["t"]`` for the whole batch. token:
+    (B,) ids. Returns f32 logits (B, V); writes the rings and advances
+    ``state["t"]`` in place."""
+    specs = layer_specs(cfg, seq_len=seq_len, long_variant=rt.long_variant)
+    x = embed_apply(params.embed, token[:, None], rt.dtype)
+    x = stack_mod.stack_decode(cfg, params.stack, x, state["caches"], state["t"], rt, specs)
+    state["t"] += 1
+    return _logits(cfg, params, x)[:, 0]
+
+
 def init_paged_state(
     cfg: ArchConfig,
     B: int,

@@ -1,8 +1,10 @@
-"""Decoder stack: the full-sequence training forward and the paged serving
-steps, over per-layer blocks.
+"""Decoder stack: the full-sequence forward (training, and whole-prompt
+prefill with collected caches), the dense ring-cache decode and the paged
+serving steps, over per-layer blocks.
 
-Counterpart of ``stack_forward``, the paged parts and the pipeline stage of
-``repro.models.stack``. JAX scanned over stacked ``(L, ...)`` parameter
+Counterpart of ``stack_forward``, ``write_prefill_to_pool``,
+``stack_decode`` (dense and paged), the paged prefill and the pipeline stage
+of ``repro.models.stack``. JAX scanned over stacked ``(L, ...)`` parameter
 segments; here an ``nn.ModuleList`` holds one block per layer and a Python
 loop walks it. ``layer_specs`` gives each layer its mixer kind and window,
 exactly as in the JAX package. Remat is ``torch.utils.checkpoint`` over
@@ -15,7 +17,9 @@ The KV pools stay one K tensor and one V tensor of shape
 ``kv_dtype``, one K and one V scale tensor of shape ``(L, num_pages, page,
 Kv)``, so a copy-on-write page copy is a single ``pool[:, dst] =
 pool[:, src]`` per tensor and layer ``i`` works on the contiguous views
-``pool[i]``.
+``pool[i]``. Collected dense caches are a list with one ``{"k", "v",
+"pos"}`` ring per layer (``attention.init_kv_cache``), where JAX stacked
+them per segment.
 
 A pipeline stage is a slice of ``Stack.layers`` (the counterpart of
 ``stage_layer_params`` slicing the stacked leaves), applied by
@@ -69,17 +73,17 @@ def layer_specs(
 
 
 def check_served(cfg: ArchConfig) -> None:
-    """Raise for what this slice does not serve: non-attention mixers,
+    """Raise for what the port does not run yet: non-attention mixers,
     MoE or no FFN, encoder-decoder and modality-prefix configs."""
     if not all(k in ("attn", "local") for k in cfg.pattern) or not cfg.n_heads:
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.pattern} mixers are ROADMAP queue 1, "
+            f"{cfg.name}: {cfg.pattern} mixers are ROADMAP queue 1 item 4, "
             "'the other families'"
         )
     if cfg.ffn_kind != "dense" or cfg.is_encdec or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: ffn={cfg.ffn_kind!r}, enc-dec or frontend "
-            f"{cfg.frontend!r} is ROADMAP queue 1, 'the other families'"
+            f"{cfg.frontend!r} is ROADMAP queue 1 item 4, 'the other families'"
         )
 
 
@@ -170,20 +174,30 @@ def _layer_scales(pools: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Ten
 # --------------------------------------------------------------------- apply
 def _layer_apply(
     cfg: ArchConfig, bp: Block, x: torch.Tensor, spec: LayerSpec,
-    positions: torch.Tensor, causal: bool,
-) -> torch.Tensor:
+    positions: torch.Tensor, causal: bool, cache_len: int = 0,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """One layer; with ``cache_len`` > 0 also its ring of that many rows,
+    filled from the k/v that attention consumed."""
     h = norm_apply(bp.norm1, x, cfg.norm)
-    x = x + attn_mod.attention_apply(
+    out, kv = attn_mod.attention_apply(
         bp.mixer, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
         head_dim=cfg.head_dim, theta=cfg.rope_theta, window=spec.window,
-        causal=causal, positions=positions,
+        causal=causal, positions=positions, collect_kv=cache_len > 0,
     )
-    return _ffn_apply(cfg, bp, x)
+    cache = None
+    if cache_len:
+        k = kv["k"]
+        cache = attn_mod.fill_kv_cache(
+            attn_mod.init_kv_cache(k.shape[0], cache_len, cfg.n_kv_heads,
+                                   cfg.head_dim, k.dtype, k.device),
+            k, kv["v"], positions,
+        )
+    return _ffn_apply(cfg, bp, x + out), cache
 
 
 def _group_apply(cfg, blocks, specs, positions, causal, x):
     for bp, spec in zip(blocks, specs):
-        x = _layer_apply(cfg, bp, x, spec, positions, causal)
+        x, _ = _layer_apply(cfg, bp, x, spec, positions, causal)
     return x
 
 
@@ -200,11 +214,16 @@ def stack_forward(
     *,
     positions: Optional[torch.Tensor] = None,
     memory: Optional[torch.Tensor] = None,
+    collect_cache: bool = False,
     causal: bool = True,
-) -> Tuple[torch.Tensor, torch.Tensor, None]:
-    """Full-sequence forward. x: (B, S, d) embedded. Returns (x, aux, None):
-    the router aux loss is 0 for the dense families this slice covers, and
-    cache collection belongs to the whole-prompt prefill (ROADMAP queue 1)."""
+    cache_specs: Optional[Tuple[LayerSpec, ...]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, Optional[List[Dict[str, torch.Tensor]]]]:
+    """Full-sequence forward. x: (B, S, d) embedded. Returns (x, aux,
+    caches): the router aux loss is 0 for the dense families served, and
+    ``caches`` (with ``collect_cache``, else None) holds one ring per layer,
+    of ``cache_specs[i].cache_len`` rows (default ``specs``), so a prefill
+    can size its caches for a longer decode horizon. Collection is for
+    serving: it runs the layers without remat."""
     check_served(cfg)
     if memory is not None:
         raise NotImplementedError(
@@ -215,6 +234,15 @@ def stack_forward(
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     layers = list(stack.layers)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if collect_cache:
+        cache_specs = specs if cache_specs is None else cache_specs
+        caches = []
+        for bp, spec, cspec in zip(layers, specs, cache_specs):
+            x, cache = _layer_apply(cfg, bp, x, spec, positions, causal,
+                                    cache_len=cspec.cache_len)
+            caches.append(cache)
+        return x, zero, caches
     k = rt.remat_period
     for i in range(0, len(layers), k):
         fn = functools.partial(_group_apply, cfg, layers[i:i + k], specs[i:i + k],
@@ -225,7 +253,32 @@ def stack_forward(
             x = checkpoint(fn, x, use_reentrant=False)
         else:
             x = checkpoint(fn, x, use_reentrant=False, context_fn=_save_matmuls)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device), None
+    return x, zero, None
+
+
+def write_prefill_to_pool(
+    pools: Dict[str, torch.Tensor],
+    caches: List[Dict[str, torch.Tensor]],
+    table: torch.Tensor,
+    page_size: int,
+) -> None:
+    """Scatter ONE request's collected caches into its block-table pages,
+    in place. Each ring's ``pos`` places its rows (pool position = token
+    position); invalid positions, and positions past the table's pages, go
+    to the null page 0 (a clip would clobber the last real page). Over a
+    quantized pool each row is quantized once, by ``attention._write_rows``,
+    the same codes and scales as the chunked and decode writes. table: (P,)
+    int32 page ids."""
+    P = table.shape[0]
+    for i, c in enumerate(caches):
+        pos = c["pos"]
+        page_idx = pos // page_size
+        valid = (pos >= 0) & (page_idx < P)
+        pid = torch.where(valid, table[page_idx.clamp(0, P - 1).long()], 0).long()
+        slot = torch.where(valid, pos % page_size, 0).long()
+        sc = _layer_scales(pools, i)
+        attn_mod._write_rows(pools["k"][i], pools["v"][i], sc.get("ksc"), sc.get("vsc"),
+                             pid, slot, c["k"][0], c["v"][0])
 
 
 def stack_prefill_paged(
@@ -256,17 +309,30 @@ def stack_decode(
     cfg: ArchConfig,
     stack: Stack,
     x: torch.Tensor,
-    pools: Dict[str, torch.Tensor],
-    lengths: torch.Tensor,
+    caches,
+    t,
     rt: Runtime,
     specs: Tuple[LayerSpec, ...],
     *,
-    tables: torch.Tensor,
+    tables: Optional[torch.Tensor] = None,
     active: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One-token paged decode (the paged branch of the JAX ``stack_decode``).
-    x: (B, 1, d); ``lengths`` the per-slot positions; each slot decodes at
-    its own depth. Pools are written in place."""
+    """One-token decode. x: (B, 1, d). Caches are written in place.
+
+    Dense (``tables`` None): ``caches`` are the per-layer rings of
+    ``stack_forward(collect_cache=True)`` and ``t`` the int position shared
+    by the batch. Paged: ``caches`` are the page pools, ``t`` the (B,)
+    per-slot lengths, and each slot decodes at its own depth."""
+    if tables is None:
+        for bp, spec, cache in zip(stack.layers, specs, caches):
+            hn = norm_apply(bp.norm1, x, cfg.norm)
+            x = x + attn_mod.attention_decode(
+                bp.mixer, hn, cache, t, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                head_dim=cfg.head_dim, theta=cfg.rope_theta, window=spec.window,
+            )
+            x = _ffn_apply(cfg, bp, x)
+        return x
+    pools, lengths = caches, t
     if active is None:
         active = torch.ones(lengths.shape, dtype=torch.bool, device=x.device)
     for i, (bp, spec) in enumerate(zip(stack.layers, specs)):

@@ -1,13 +1,23 @@
-"""Continuous-batching serve engine over the paged KV pool, with chunked
-prefill and the radix prefix cache.
+"""Continuous-batching serve engine over the paged KV pool, with
+whole-prompt or chunked prefill and the radix prefix cache, and the dense
+fallback.
 
-Counterpart of the paged path of ``repro.serve.engine``. A fixed number of
-decode *slots* is fed from a QoS/FIFO scheduler. An admitted request adopts
-its longest cached prompt prefix (prefix cache on) and is then prefilled in
-chunks of ``EngineConfig.chunk_tokens``; one engine tick runs one prefill
-chunk for the oldest prefilling slot, then ``inner_steps`` decode steps for
-every decoding slot — each slot at its own depth. The host only intervenes
+Counterpart of ``repro.serve.engine``. A fixed number of decode *slots* is
+fed from a QoS/FIFO scheduler. With ``prefill_chunk`` 0 and no prefix cache
+(the default) a request is admitted by one whole-prompt prefill
+(``lm.prefill`` with full-horizon caches, the prompt right-padded to a
+multiple of ``prefill_bucket``), whose collected K/V is scattered into the
+slot's pages (``stack.write_prefill_to_pool``); its first token is sampled
+there. Otherwise an admitted request adopts its longest cached prompt prefix
+(prefix cache on) and is then prefilled in chunks of
+``EngineConfig.chunk_tokens``; one engine tick runs one prefill chunk for
+the oldest prefilling slot, then ``inner_steps`` decode steps for every
+decoding slot — each slot at its own depth. The host only intervenes
 between ticks to retire finished requests and admit new ones.
+
+``paged=False`` is the dense fallback: a tick pops the head request and the
+queued ones of its (prompt length, max_new) shape, up to ``max_slots``, and
+runs them as one ``serve.dense.generate_dense`` batch over ring caches.
 
 Where JAX ran one jitted program with a ``lax.scan`` over the decode steps
 and donated the pool buffers, this engine runs a Python loop and writes the
@@ -17,9 +27,10 @@ and no other synchronisation; a request's first token is read back when its
 last prompt chunk ends (its TTFT).
 
 Each request's sample stream depends only on (seed, rid, step), so engine
-output equals running the request alone. On a CUDA device every attention
-call goes through the hand-written paged kernels and every RMSNorm through
-K3; ``stats["kernel_launches"]`` counts their launches in the run window.
+output equals running the request alone. On a CUDA device every paged
+attention call goes through K5/K6, every whole-prompt attention through K1
+and every RMSNorm through K3; ``stats["kernel_launches"]`` counts their
+launches in the run window.
 
 The pool's dtype is ``EngineConfig.kv_dtype`` (else the runtime's), as in
 the JAX engine: "bf16" keeps the pools at the compute dtype; "int8" and
@@ -29,11 +40,10 @@ gathers. Scales are indexed by page id like the codes, so the pool's
 allocator, copy-on-write copies and the prefix cache's adoption carry them
 unchanged.
 
-Not in this slice (each raises ``NotImplementedError`` naming its ROADMAP
-item): the dense fallback (``paged=False`` and the non-attention families),
-whole-prompt admission (``prefill_chunk=0`` with ``prefix_cache=False``),
-speculative decoding, meshes and replicated engines, and modality-prefix
-configs.
+Not ported yet (each raises ``NotImplementedError`` at construction,
+naming its ROADMAP item): the families whose mixers or FFN are not ported
+(SSM, RG-LRU, MoE, encoder-decoder, modality prefix), speculative decoding,
+and meshes and replicated engines.
 """
 from __future__ import annotations
 
@@ -46,6 +56,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.flash_attention import cuda as fa_cuda
 from repro_torch.kernels.paged_attention import cuda as pa_cuda
 from repro_torch.kernels.paged_attention.quant import normalize_kv_dtype
 from repro_torch.kernels.rmsnorm import cuda as rn_cuda
@@ -54,8 +65,11 @@ from repro_torch.models import (
     Runtime,
     decode_step_paged,
     init_paged_state,
+    prefill,
     prefill_chunk_paged,
 )
+from repro_torch.models.stack import check_served, layer_specs, write_prefill_to_pool
+from repro_torch.serve.dense import generate_dense
 from repro_torch.serve.pool import PagePool, PoolExhausted, kv_page_bytes
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.sampling import SamplingPolicy
@@ -64,8 +78,9 @@ from repro_torch.serve.scheduler import Request, Scheduler
 
 def _launches() -> Dict[str, int]:
     """The launch counters of the serving path's kernels: K5 and K6 by pool
-    variant (bf16, int8, fp8), and K3."""
-    return {**pa_cuda.LAUNCHES, "rmsnorm_fwd": rn_cuda.LAUNCHES["rmsnorm_fwd"]}
+    variant (bf16, int8, fp8), K1 and K3."""
+    return {**pa_cuda.LAUNCHES, fa_cuda.FWD: fa_cuda.LAUNCHES[fa_cuda.FWD],
+            "rmsnorm_fwd": rn_cuda.LAUNCHES["rmsnorm_fwd"]}
 
 
 def paged_supported(cfg: ArchConfig) -> bool:
@@ -78,6 +93,16 @@ def paged_supported(cfg: ArchConfig) -> bool:
     )
 
 
+def dense_kv_bytes(cfg: ArchConfig, rt: Runtime, total: int) -> int:
+    """Dense per-request cache bytes for a ``total``-token horizon: every
+    attention layer holds its whole ``cache_len`` ring (window-sized for
+    local layers) at the compute dtype, whatever the request's length."""
+    itemsize = torch.empty((), dtype=rt.dtype).element_size()
+    specs = layer_specs(cfg, seq_len=total, long_variant=rt.long_variant)
+    tokens = sum(s.cache_len for s in specs if s.kind in ("attn", "local"))
+    return tokens * cfg.n_kv_heads * cfg.head_dim * 2 * itemsize
+
+
 def _later(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not in the PyTorch port yet (ROADMAP.md queue 1: {item})"
@@ -86,7 +111,7 @@ def _later(what: str, item: str) -> NotImplementedError:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    max_slots: int = 4        # decode batch width
+    max_slots: int = 4        # decode batch width (dense: requests a batch)
     page_size: int = 16       # tokens per KV page
     num_pages: int = 129      # pool size incl. reserved null page 0
     max_len: int = 256        # per-request horizon; block-table width
@@ -94,7 +119,8 @@ class EngineConfig:
     temperature: float = 0.0
     seed: int = 0
     policy: str = "reserve"   # admission policy (see serve.scheduler)
-    # chunk width when prefill_chunk is 0 and the prefix cache is on
+    # whole-prompt admission pads prompts to a multiple of this (0 = exact
+    # length); the chunk width when prefill_chunk is 0 and the prefix cache is on
     prefill_bucket: int = 0
     # radix-tree KV prefix reuse across requests
     prefix_cache: bool = False
@@ -206,18 +232,10 @@ class ServeEngine:
             )
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        if paged is False or not paged_supported(cfg):
-            raise _later(f"{cfg.name}: the dense fallback (paged=False)",
-                         "the dense fallback and the other families")
-        if cfg.frontend is not None:
-            raise _later(f"{cfg.name}: modality-prefix configs",
-                         "the other families")
-        if not (engine.prefix_cache or engine.prefill_chunk):
-            raise _later("whole-prompt admission (prefill_chunk=0 without "
-                         "prefix_cache)", "the training step and whole-prompt prefill")
+        check_served(cfg)             # the families the port runs, paged or dense
         if engine.spec_tokens:
             raise _later("speculative decoding (spec_tokens>0)",
-                         "speculative decoding")
+                         "item 3, speculative decoding")
         if params.embed.table.device != self.device:
             raise ValueError(
                 f"params on {params.embed.table.device}, engine on {self.device}"
@@ -225,6 +243,7 @@ class ServeEngine:
         self.cfg = cfg
         self.params = params
         self.ecfg = engine
+        self.paged = paged is not False
         rt = rt if rt is not None else Runtime()
         self.rt = rt.replace(kv_dtype=normalize_kv_dtype(engine.kv_dtype or rt.kv_dtype))
         self._policy = SamplingPolicy(
@@ -233,7 +252,7 @@ class ServeEngine:
         self.pool = PagePool(engine.num_pages, engine.page_size)
         self.scheduler = Scheduler(policy=engine.policy, max_queue=engine.max_queue)
         self.prefix: Optional[PrefixCache] = (
-            PrefixCache(self.pool) if engine.prefix_cache else None
+            PrefixCache(self.pool) if self.paged and engine.prefix_cache else None
         )
         self._next_rid = 0
         self._admit_count = 0
@@ -245,6 +264,8 @@ class ServeEngine:
         self._completed_run: set = set()
         self._run_t0: Optional[float] = None
         self.stats: Dict[str, Any] = {"ttft_s": {}, "prefill_s": {}, "kv_bytes": {}}
+        if not self.paged:
+            return
         # device state: pools, block tables, per-slot lengths, pending token
         self._dev = init_paged_state(
             cfg, B, self.rt, num_pages=engine.num_pages,
@@ -279,11 +300,11 @@ class ServeEngine:
             t_submit=time.perf_counter(),
         )
         total = req.prompt_len + req.max_new - 1
-        if total > self.ecfg.max_len:
+        if self.paged and total > self.ecfg.max_len:
             raise ValueError(
                 f"request needs {total} tokens > max_len={self.ecfg.max_len}"
             )
-        if self.pool.pages_for(total) > self.pool.budget:
+        if self.paged and self.pool.pages_for(total) > self.pool.budget:
             raise ValueError(
                 f"request needs {self.pool.pages_for(total)} pages "
                 f"> pool budget {self.pool.budget}"
@@ -296,7 +317,8 @@ class ServeEngine:
 
     @property
     def busy(self) -> bool:
-        """Work pending: queued requests or seated slots."""
+        """Work pending: queued requests or seated slots (the dense fallback
+        seats none between ticks)."""
         return bool(len(self.scheduler) or any(s is not None for s in self._slots))
 
     def run_begin(self) -> None:
@@ -309,13 +331,17 @@ class ServeEngine:
         self._run_decode_tokens = 0
         self._run_launch0 = _launches()
 
+    @torch.no_grad()
     def step(self) -> Dict[str, Any]:
         """ONE engine tick: admit -> top-up -> prefill chunk + decode steps
-        -> collect -> retire. An idle engine returns ``busy=False``."""
+        -> collect -> retire (dense: one batched generation). An idle engine
+        returns ``busy=False``."""
         if not self.busy:
             return {"busy": False, "finished": [], "decoded": 0}
         if self._run_t0 is None:
             self.run_begin()
+        if not self.paged:
+            return self._step_dense()
         self._admit_free_slots()
         self._topup_or_evict()
         emits = self._device_step()
@@ -385,6 +411,8 @@ class ServeEngine:
         return False
 
     def kv_pool_bytes_per_device(self) -> int:
+        if not self.paged:
+            return 0
         return sum(
             t.numel() * t.element_size() for t in self._dev["caches"].values()
         )
@@ -487,6 +515,9 @@ class ServeEngine:
     def _admit(self, slot_id: int, req: Request, cached: int, sid: Optional[int]) -> None:
         reserve = self.scheduler.reserve_tokens(req, req.prompt_len)
         self.stats["prompt_tokens"] = self.stats.get("prompt_tokens", 0) + req.prompt_len
+        if not (self.prefix is not None or self.ecfg.prefill_chunk):
+            self._admit_whole(slot_id, req, reserve)
+            return
         if self.prefix is not None:
             self.prefix.note_lookup(cached)   # once per admission
         if sid is None:
@@ -501,6 +532,41 @@ class ServeEngine:
             t_admit=time.perf_counter(),
         )
         self._admit_count += 1
+
+    def _admit_whole(self, slot_id: int, req: Request, reserve: int) -> None:
+        """Whole-prompt admission: one prefill of the prompt (right-padded to
+        a multiple of ``prefill_bucket``) with caches over its whole length,
+        the first token sampled from its true last position (step 0 of the
+        request's stream; the TTFT), the caches scattered into the slot's
+        pages, and the slot flipped straight to decode. Padded positions
+        inside the table are overwritten by decode before any query attends
+        them; those past it land on the null page."""
+        sid = self.pool.alloc(reserve)
+        t0 = time.perf_counter()
+        tokens = req.tokens
+        bucket = self.ecfg.prefill_bucket
+        if bucket:
+            tokens = np.pad(tokens, (0, -len(tokens) % bucket))
+        batch = {"tokens": torch.from_numpy(tokens[None]).to(self.device)}
+        logits, pstate = prefill(
+            self.cfg, self.params, batch, self.rt, max_len=len(tokens),
+            gather_pos=req.prompt_len - 1, full_cache=True,
+        )
+        first = int(self._policy.sample_rows(logits, [req.rid], [0])[0])
+        now = time.perf_counter()
+        self.stats["ttft_s"].setdefault(req.rid, now - req.t_submit)
+        self.stats["prefill_s"][req.rid] = now - t0
+        self._write_table(slot_id, sid)
+        write_prefill_to_pool(self._dev["caches"], pstate["caches"],
+                              self._dev["tables"][slot_id], self.ecfg.page_size)
+        self._set_slot(slot_id, length=req.prompt_len, remaining=req.max_new - 1)
+        self._tok[slot_id] = first
+        self._steps[slot_id] = 1
+        self._slots[slot_id] = _Slot(req.rid, sid, req, self._admit_count,
+                                     phase="decode", t_admit=t0)
+        self._admit_count += 1
+        self._outputs[req.rid] = [first]
+        self._deliver(req.rid)   # last: a callback may cancel() this slot
 
     def _topup_or_evict(self) -> None:
         """Make every active slot's pages cover this tick's writes; preempt
@@ -685,9 +751,41 @@ class ServeEngine:
         return finished
 
 
+    def _step_dense(self) -> Dict[str, Any]:
+        """One dense-fallback tick: the head request and every queued request
+        of its (prompt_len, max_new) shape, up to ``max_slots``, generate as
+        one batch over ring caches; each row samples its own request's
+        stream. Whole outputs are delivered at the end."""
+        part = self.scheduler.pop_batch(self.ecfg.max_slots)
+        max_new = part[0].max_new
+        tokens = torch.from_numpy(np.stack([r.tokens for r in part])).to(self.device)
+        t_call = time.perf_counter()
+        out, _, pf_s = generate_dense(
+            self.cfg, self.params, {"tokens": tokens}, self.rt, max_new,
+            temperature=self.ecfg.temperature, seed=self.ecfg.seed,
+            stream_ids=[r.rid for r in part],
+        )
+        out = out.cpu().numpy()
+        kv = dense_kv_bytes(self.cfg, self.rt, part[0].prompt_len + max_new)
+        finished: List[int] = []
+        for b, r in enumerate(part):
+            self._outputs[r.rid] = [int(t) for t in out[b]]
+            # TTFT from submit: the queue wait before this tick, then the
+            # batch's prefill and first sample
+            self.stats["ttft_s"][r.rid] = t_call + pf_s - r.t_submit
+            self.stats["prefill_s"][r.rid] = pf_s
+            self.stats["kv_bytes"][r.rid] = kv
+            self._run_decode_tokens += max_new - 1
+            self._admit_count += 1
+            self._completed_run.add(r.rid)
+            finished.append(r.rid)
+            self._deliver_done(r.rid, "complete")
+        return {"busy": True, "finished": finished, "decoded": len(part) * max_new}
+
+
 class ReplicatedServeEngine:
     """Data-parallel serving over a mesh: a later slice."""
 
     def __init__(self, *args, **kwargs):
         raise _later("ReplicatedServeEngine (a mesh of replicas)",
-                     "memory techniques and multi-device")
+                     "item 6, memory techniques and multi-device")

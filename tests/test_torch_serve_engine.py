@@ -16,7 +16,9 @@ invariants, all on the CPU in f32 (plain attention).
   the pool's codes and scales bitwise equal to ``kv_quantize`` of the rows
   written, carried by adopted pages.
 * Host modules: the port's pool, scheduler and radix cache invariants.
-* Rejections: each mode this slice leaves out raises NotImplementedError.
+* Rejections: each mode the port leaves out raises NotImplementedError.
+  Whole-prompt admission and the dense fallback are served: their tests are
+  in tests/test_torch_serve_whole.py.
 """
 import jax
 import jax.numpy as jnp
@@ -439,12 +441,6 @@ def test_radix_split_and_lru_eviction_of_idle_leaves():
 
 # ---------------------------------------------------------------- rejections
 REJECT = {
-    "paged=False": lambda m: ServeEngine(*m("granite-8b")[2:], TRT,
-                                         EngineConfig(**BASE), paged=False,
-                                         device="cpu"),
-    "whole-prompt admission": lambda m: ServeEngine(
-        *m("granite-8b")[2:], TRT, EngineConfig(**dict(BASE, prefill_chunk=0)),
-        device="cpu"),
     "spec_tokens": lambda m: ServeEngine(
         *m("granite-8b")[2:], TRT, EngineConfig(**dict(BASE, spec_tokens=2)),
         device="cpu"),
@@ -468,8 +464,6 @@ def test_modes_left_out_raise_not_implemented(models, mode):
     ["--paged", "--prefill-chunk", "8", "--spec", "2"],
     ["--paged", "--prefill-chunk", "8", "--mesh", "2x2"],
     ["--paged", "--prefill-chunk", "8", "--trace", "poisson"],
-    ["--paged"],
-    ["--prefill-chunk", "8"],
 ])
 def test_launcher_rejects_later_slices(argv, capsys):
     with pytest.raises(SystemExit) as e:

@@ -19,16 +19,23 @@ Phases, in order (any failure exits nonzero and prints no result line):
                64-key tile and a 128-key split, windows 0, 6 and 64, the
                poisoned null page, K6 at T = 1 against K5, inactive slots
                (a read past the table would fault), and batched == alone
-               bitwise; groups past 8 rows (recurrentgemma-2b's G 10 at hd
-               256, granite-34b's G 48 at hd 128) across split edges, batched
-               == alone; then bf16 at the serving path's shapes (and
-               granite-34b's) with times, bounds and a library yardstick;
+               bitwise; K6 at the verify pass's shapes (4 slots of T = k + 1
+               rows, k 1, 3, 4 and 7, one slot at q_len 0, starts on and
+               across page and split edges, windows 0 and 64; batched ==
+               alone) and at T = 5 against 5 sequential K5 steps; groups
+               past 8 rows (recurrentgemma-2b's G 10 at hd 256, granite-34b's
+               G 48 at hd 128) across split edges, batched == alone; then
+               bf16 at the serving path's shapes (and granite-34b's) with
+               times, bounds and a library yardstick;
                then over int8 and fp8 pools (codes and f32 scales from
                kv_quantize), f32 q at 2e-5 and bf16 q at 4e-3: the same cases,
                a poisoned null page (NaN codes and scales) that must not leak,
                batched == alone bitwise, and timed at the serve workload's
                decode and 128-token prefill shapes beside the bf16 kernel;
-               then at a 32,768-key table, where the split grid is capped
+               then K6 at serve-spec's verify shape (4 slots at 561-633
+               keys, T = 5), bf16 and int8 pools, timed beside its plain
+               version, SDPA over the gathered band (bf16) and 5 sequential
+               K5 calls, with its bound; then at a 32,768-key table, where the split grid is capped
                (granite-8b's heads, one slot at ~32k keys beside short ones,
                windows 0, 1,000 and 4,096; pools at q's dtype and int8, f32
                and bf16 q): against the plain versions, batched == alone
@@ -79,7 +86,13 @@ Phases, in order (any failure exits nonzero and prints no result line):
                differ card vs CPU printed); then model-dense: reduced
                granite-8b and gemma3-1b, lm.prefill's logits and collected
                rings over a 70-token prompt (past gemma3-1b's 64 window) and
-               four dense decode steps, card vs CPU, 1e-3;
+               four dense decode steps, card vs CPU, 1e-3; then model-spec:
+               speculative decoding (k = 3) on the card against the card's
+               spec-off engine and the CPU's spec-on engine, prompt lookup
+               on a vocab-2 model and the paired 1-layer drafter, tokens
+               equal or a first difference at an f32 tie (the card's
+               teacher-forced forward's top-2 margin < 1e-4), the spec
+               counters;
   8. train-parity — reduced gemma3-1b, f32 with TF32 off: three training
                steps on the card against the same steps on the CPU, rtol 1e-3,
                with AdamW, and with adam8bit and adam4bit on a 24-layer,
@@ -131,12 +144,28 @@ Phases, in order (any failure exits nonzero and prints no result line):
                exact launch counts (K1 36 / 26, K5 and K6 none), the tokens
                against the card's own lm.forward argmax over the
                teacher-forced sequence (a first difference in a row only at
-               a top-2 margin below 1e-4), the logit error against forward.
+               a top-2 margin below 1e-4), the logit error against forward
+               (run last, after the phases below);
+ 19. serve-spec, serve-spec-model — the serve-whole workload with k = 4
+               drafts a tick (launch/workload.py's
+               granite_serve_spec_workload), by prompt lookup and by the
+               paired 1-layer drafter: exact launch counts (K1 36 an
+               admission, and 1 more for the drafter; K6 36 a verify tick; K5
+               0, or 1 a drafter step; K3 73 a target pass and 3 a drafter
+               pass), the spec counters, tokens/s, TTFT, pool bytes, peak
+               memory, and each request's stream against serve-whole's
+               (a first difference only at a top-2 margin of the card's
+               teacher-forced forward below 0.08 of max|logit|: decode's K5
+               and the verify's K6 round bf16 differently); each followed by
+               its alone phase;
+ 20. serve-spec-self — two of those requests with the drafter equal to the
+               target: accept rate > 0.8 and > 2 tokens a verify.
 The line before last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import statistics
@@ -259,7 +288,7 @@ def max_err(out, ref, qlens=None) -> float:
         return float((out.float() - ref.float()).abs().max())
     return max(
         float((out[b, :L].float() - ref[b, :L].float()).abs().max())
-        for b, L in enumerate(qlens.tolist())
+        for b, L in enumerate(qlens.tolist()) if L
     )
 
 
@@ -475,6 +504,23 @@ LARGE_G_PREFILL = [(2, 16, 1, 10, 256, 16, 16, 16, [57, 120], [16, 11]),
                    (2, 8, 1, 48, 128, 16, 24, 20, [60, 250], [8, 8])]
 
 
+# K6 at the verify pass's shape (speculative decoding): B 4 slots of T = k + 1
+# rows over granite-8b's group of 4 at hd 128 (2 kv heads), one slot at q_len 0
+# (it reads and writes nothing); the others start on a page edge (16), across
+# the 64-key decode split and f32 tile (64), and across a 256-key split, and the
+# fourth on the 128-key split edge when it is active
+VERIFY_KS = (1, 3, 4, 7)
+
+
+def verify_shape_case(k):
+    T = k + 1
+    starts = [16, 64 - T // 2, 256 - T // 2, 128]
+    qlens = [T] * 4
+    qlens[k % 4] = 0
+    N = 1 + sum(-(-(st + T) // 16) for st in starts)
+    return (4, T, 2, 4, 128, 16, N, 20, starts, qlens)
+
+
 def inactive_decode_case(dtype):
     """Two active slots and two inactive ones, as the engine leaves them: a
     zeroed table row at length 1, and a table row at a length past its P *
@@ -560,6 +606,25 @@ def paged_case_checks(tag, prep, tol, poison) -> int:
     q, kp, vp, tb, st, ql = args
     check(f"K6 {tag} T=1 vs K5", pre(*args, **sc)[:, 0],
           dec(q[:, 0].contiguous(), kp, vp, tb, st + 1, **sc), tol)
+    # the verify pass's shapes, and batched == alone there
+    for k in VERIFY_KS:
+        for window in (0, 64):
+            prefill(f"K6 {tag} verify k{k} w{window}",
+                    make_prefill_case(*verify_shape_case(k), f32, seed=60 + k), window)
+            n_checked += 1
+        alone(f"K6 {tag} verify k{k}", pre,
+              make_prefill_case(*verify_shape_case(k), f32, seed=70 + k), 64, chunk=True)
+    # a verify pass of T = 5 rows == 5 sequential decode steps over the same
+    # pool: row t is the step at length start + t + 1
+    for window in (0, 64):
+        args, sc = prep(make_prefill_case(4, 5, 2, 4, 128, 16, 40, 20, [16, 60, 252, 128],
+                                          [5] * 4, f32, seed=61))
+        q, kp, vp, tb, st, ql = args
+        out = pre(*args, window=window, **sc)
+        for t in range(5):
+            check(f"K6 {tag} verify row {t} vs K5 w{window}", out[:, t],
+                  dec(q[:, t].contiguous(), kp, vp, tb, st + t + 1, window=window, **sc), tol)
+        n_checked += 1
     # inactive slots stay in bounds and finite; every row holds the plain
     decode(f"K5 {tag} inactive slots", inactive_decode_case(f32))
     n_checked += 4
@@ -604,7 +669,8 @@ def phase_kernels():
         tag = "f32" if dtype == f32 else "bf16"
         n_checked = paged_case_checks(tag, as_dtype(dtype), tol, poison_large)
         emit(phase="kernels_cases", dtype=tag, cases=n_checked, tol=tol,
-             batched_equals_alone=4 + len(LARGE_G_DECODE) + len(LARGE_G_PREFILL),
+             batched_equals_alone=4 + len(LARGE_G_DECODE) + len(LARGE_G_PREFILL)
+             + len(VERIFY_KS), verify_ks=VERIFY_KS,
              large_groups=[c[2] for c in LARGE_G_DECODE])
 
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
@@ -716,8 +782,9 @@ def phase_kernels_quant():
                 tag, lambda a, st=storage, dt=dtype: quantize_case(a, st, dt), tol,
                 poison_codes)
             emit(phase="kernels_quant_cases", pool=sname, q_dtype=str(dtype).split(".")[1],
-                 cases=n_checked, tol=tol, poisoned_null_page=True,
-                 batched_equals_alone=4 + len(LARGE_G_DECODE) + len(LARGE_G_PREFILL))
+                 cases=n_checked, tol=tol, poisoned_null_page=True, verify_ks=VERIFY_KS,
+                 batched_equals_alone=4 + len(LARGE_G_DECODE) + len(LARGE_G_PREFILL)
+                 + len(VERIFY_KS))
 
     # timed at the serve workload's decode and 128-token prefill shapes, bf16 q,
     # beside the bf16 kernel on the same values
@@ -763,6 +830,61 @@ def phase_kernels_quant():
 # lengths 561-633 and one 128-token chunk at 384, granite-8b's Kv 8, G 4, hd 128
 QUANT_TIMED = dict(B=4, Kv=8, G=4, hd=128, page=16, P=40, lengths=[561, 590, 600, 633],
                    T=128, start=384)
+
+
+# K6 at serve-spec's verify pass (launch/workload.py's granite_serve_spec_workload:
+# 4 slots at the serve workload's decode lengths, k = 4 drafts, T = 5 rows)
+VERIFY_TIMED = dict(B=4, Kv=8, G=4, hd=128, page=16, P=40, starts=[561, 590, 600, 633], T=5)
+
+
+def phase_kernels_verify():
+    """K6 at the verify pass's shape, bf16 q over bf16 and int8 pools: held
+    against its plain version (BF16_TOL) and timed beside it, beside SDPA
+    over the gathered band (bf16 pool), beside T sequential K5 calls at the
+    rows' lengths (what T decode steps' attention costs), with its bound.
+    Returns one row per pool, keyed by its K6 variant."""
+    from repro_torch.kernels.paged_attention import cuda, ref
+
+    dec, pre = cuda.paged_decode_attention_cuda, cuda.paged_prefill_attention_cuda
+    f32, bf = torch.float32, torch.bfloat16
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    s = VERIFY_TIMED
+    T, B = s["T"], s["B"]
+    N = 1 + sum(-(-(st + T) // s["page"]) for st in s["starts"])
+    base = make_prefill_case(B, T, s["Kv"], s["G"], s["hd"], s["page"], N, s["P"], s["starts"],
+                             [T] * B, f32, seed=13)
+    rows = {}
+    for pool in ("bf16", "int8"):
+        if pool == "bf16":
+            args, sc = [t.to(bf) if t.is_floating_point() else t for t in base], {}
+        else:
+            args, sc = quantize_case(base, QUANT_STORAGE[pool], bf)
+        q, kp, vp, tb, st, ql = args
+        kern = lambda a=args, sc=sc: pre(*a, **sc)                       # noqa: E731
+        plain = lambda a=args, sc=sc: ref.paged_prefill_attention_plain(*a, **sc)  # noqa: E731
+        err = check(f"K6 {pool} verify shape", kern(), plain(), BF16_TOL, ql)
+        qs = [q[:, t].contiguous() for t in range(T)]
+
+        def decodes(qs=qs, kp=kp, vp=vp, tb=tb, st=st, sc=sc):
+            for t in range(T):
+                dec(qs[t], kp, vp, tb, st + t + 1, **sc)
+
+        nbytes, flops = prefill_bound(q, kp, tb, st, ql, 0)
+        bms, by = bound(nbytes, flops, bf)
+        row = dict(model="granite-8b", kernel=cuda.variant(cuda.PREFILL, kp.dtype), shape=s,
+                   pool=pool, max_abs_err=err, kernel_ms=time_ms(kern, flush),
+                   plain_ms=time_ms(plain, flush), k5_x_T_ms=time_ms(decodes, flush),
+                   bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops, library_ms=None)
+        if pool == "bf16":
+            qpos = st.long()[:, None] + torch.arange(T, device="cuda")[None]
+            qd, kd, vd, mask = sdpa_inputs(q, kp, vp, tb, qpos, 0)
+            row["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask, scale=1.0), flush)
+        else:
+            row["library"] = "none: no single PyTorch call dequantizes and attends"
+        emit(phase="kernels_verify", tol=BF16_TOL, **row)
+        rows[row["kernel"]] = row
+    return rows
 
 
 # ------------------------------------------ K5 / K6 at a 32,768-key table
@@ -2091,6 +2213,84 @@ def phase_model_dense() -> None:
              max_rel_err=worst, tol=1e-3)
 
 
+def phase_model_spec() -> None:
+    """Reduced granite-8b, f32, TF32 off: speculative decoding (k = 3) on the
+    card against the card's spec-off engine and the CPU's spec-on engine,
+    over the scenarios of tests/test_torch_serve_spec.py: prompt lookup on a
+    vocab-2 model (its greedy streams cycle, so drafts land) and the paired
+    1-layer drafter on the full vocabulary. Tokens equal, or a first
+    difference only where the card's teacher-forced forward has a top-2
+    margin below TIE_MARGIN; the spec counters of each engine printed."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.base import reduced
+    from repro_torch.models import Runtime, init_params
+    from repro_torch.serve import EngineConfig, ServeEngine, paired_drafter_cfg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rt = Runtime(dtype=torch.float32)
+    base = dict(max_slots=2, page_size=8, num_pages=33, max_len=64, inner_steps=4)
+    granite = get_reduced("granite-8b")
+    rng = np.random.RandomState(7)
+    bin_prompts = [rng.randint(0, 2, (n,)).astype(np.int32) for n in (12, 7, 15)]
+    rng = np.random.RandomState(2)
+    cyc = rng.randint(0, granite.vocab_size, (4,)).astype(np.int32)
+    prompts = [np.tile(cyc, 4)] + [rng.randint(0, granite.vocab_size, (n,)).astype(np.int32)
+                                   for n in (11, 17, 6)]
+    cases = [("ngram", reduced(granite, name="granite-8b-bin", vocab_size=2), bin_prompts,
+              [24, 16, 20]), ("model", granite, prompts, [10, 6, 9, 8])]
+    failures = []
+    for drafter, cfg, prompts, news in cases:
+        params = {dev: init_params(cfg, seed=3, device="cpu", dtype=torch.float32).to(dev)
+                  for dev in ("cpu", "cuda")}
+        dcfg = paired_drafter_cfg(cfg)
+        runs = {}
+        for dev, spec in (("cuda", 3), ("cuda", 0), ("cpu", 3)):
+            kw = {}
+            if drafter == "model":
+                kw = dict(draft_cfg=dcfg, draft_params=init_params(
+                    dcfg, seed=4, device="cpu", dtype=torch.float32).to(dev))
+            eng = ServeEngine(cfg, params[dev], rt, EngineConfig(
+                spec_tokens=spec, spec_drafter=drafter, **base), device=dev, **kw)
+            rids = [eng.submit(p, m) for p, m in zip(prompts, news)]
+            out = eng.run()
+            runs[dev, spec] = ([out[r] for r in rids], {
+                k: v for k, v in eng.stats.items() if k.startswith("spec_")})
+        card = runs["cuda", 3][0]
+        first = {}
+        for other in (("cuda", 0), ("cpu", 3)):
+            ties = stream_ties(cfg, params["cuda"], rt, prompts, card, runs[other][0])
+            first["_".join(map(str, other))] = ties
+            failures += [f"{drafter} vs {other}: {t}" for t in ties if t["margin"] >= TIE_MARGIN]
+        emit(phase="model-spec", config=cfg.name, drafter=drafter, spec_tokens=3,
+             requests=len(prompts), first_differences=first, tie=f"margin < {TIE_MARGIN}",
+             card_spec=runs["cuda", 3][1], cpu_spec=runs["cpu", 3][1],
+             tokens=int(sum(len(o) for o in card)))
+    if failures:
+        raise AssertionError("model-spec: tokens differ beyond an f32 tie: " + "; ".join(failures))
+
+
+def stream_ties(cfg, params, rt, prompts, want, got) -> list:
+    """Each request whose ``got`` stream differs from ``want``: the first
+    differing step and the top-2 margin there of the card's own lm.forward
+    over the prompt and the shared prefix (absolute, and relative to
+    max|logit|)."""
+    from repro_torch.models import forward
+
+    first = []
+    for i, (p, w, g) in enumerate(zip(prompts, want, got)):
+        diff = np.nonzero(np.asarray(w) != np.asarray(g))[0]
+        if len(diff) == 0:
+            continue
+        j = int(diff[0])
+        seq = torch.from_numpy(np.concatenate([p, w[:j]]).astype(np.int32)[None]).to("cuda")
+        with torch.no_grad():
+            logits, _ = forward(cfg, params, {"tokens": seq}, rt)
+        row = logits[0, -1, :cfg.vocab_size].float()
+        m = top2_margin(row)
+        first.append(dict(request=i, step=j, margin=m, margin_rel=m / float(row.abs().max())))
+    return first
+
+
 def phase_serve(kv_dtype: str = "bf16", params=None, whole: bool = False):
     """launch/workload.py's granite-8b serving workload with the pool at
     ``kv_dtype``: the requests' tokens, exact launch counts of the pool's
@@ -2288,17 +2488,137 @@ def phase_generate_dense(granite_params) -> None:
         raise AssertionError("generate-dense: " + "; ".join(failures))
 
 
-def phase_alone(wl, params, rids, out) -> None:
+def phase_serve_spec(params, whole_out, drafter: str = "ngram"):
+    """launch/workload.py's granite_serve_spec_workload: the serve-whole
+    workload (full granite-8b, bf16, 8 requests, 4 slots) with k = 4 drafts
+    a tick by prompt lookup, or by the paired 1-layer drafter (weights from
+    the workload's seed + 1). Exact launch counts: K1 once a target layer
+    an admission (and once a drafter layer), K6 once a layer a verify tick,
+    K5 once a drafter layer a drafter step (none with prompt lookup), K3
+    twice a layer and once more a pass of either model. The spec counters,
+    tokens/s, TTFT, pool bytes and peak memory. Each request's stream against
+    serve-whole's (``whole_out``, the same weights): decode runs K5 and the
+    verify K6, whose bf16 roundings differ, so a first difference is allowed
+    only where the card's teacher-forced forward has a top-2 margin below
+    2 * BF16_LOGIT_REL of max|logit|. Returns (wl, rids, out, launches,
+    draft) for the alone phase and the kernels line."""
+    from repro_torch.kernels.flash_attention import cuda as fa
+    from repro_torch.kernels.paged_attention import cuda
+    from repro_torch.kernels.rmsnorm import cuda as rn
+    from repro_torch.launch.workload import granite_serve_spec_workload
+    from repro_torch.models import init_params
+    from repro_torch.serve import ServeEngine, paired_drafter_cfg
+
+    wl = granite_serve_spec_workload(drafter=drafter)
+    cfg, rt, ecfg, prompts, new = wl.cfg, wl.rt, wl.ecfg, wl.prompts, wl.new_tokens
+    draft, DL = {}, 0
+    if drafter == "model":
+        dcfg = paired_drafter_cfg(cfg)
+        draft = dict(draft_cfg=dcfg, draft_params=init_params(
+            dcfg, seed=wl.seed + 1, device="cuda", dtype=rt.dtype))
+        DL = dcfg.n_layers
+    eng = ServeEngine(cfg, params, rt, ecfg, device="cuda", **draft)
+    eng.submit(prompts[0][:32], 4)         # warm-up: cuBLAS handles, allocator
+    eng.run()
+    torch.cuda.reset_peak_memory_stats()
+    admits0 = eng._admit_count
+    spec0 = {k: eng.stats.get(k, 0) for k in ("spec_verify_calls", "spec_drafted_tokens",
+                                              "spec_accepted_tokens", "spec_draft_steps")}
+    rids = [eng.submit(p, new) for p in prompts]
+    for m in (cuda, fa, rn):               # counts of the main path only
+        m.reset_launches()
+    out = eng.run()
+    launches = {k: v for k, v in cuda.LAUNCHES.items() if v}
+    k1, k3 = fa.LAUNCHES[fa.FWD], rn.LAUNCHES["rmsnorm_fwd"]
+    s = eng.stats
+    spec = {k: s.get(k, 0) - v for k, v in spec0.items()}
+    admissions = eng._admit_count - admits0
+    L = cfg.n_layers
+    k6 = launches.get("paged_prefill_attention", 0)
+    k5 = launches.get("paged_decode_attention", 0)
+    ticks = k6 // L
+    passes = admissions + ticks                      # of the target
+    dpasses = (admissions + spec["spec_draft_steps"]) if DL else 0
+    if (set(launches) - {"paged_prefill_attention", "paged_decode_attention"} or k6 % L
+            or ticks <= 0 or k1 != admissions * (L + DL) or k5 != spec["spec_draft_steps"] * DL
+            or k3 != passes * (2 * L + 1) + dpasses * (2 * DL + 1)):
+        raise AssertionError(
+            f"serve-spec ({drafter}) launches: paged {launches}, K1 {k1}, K3 {k3}; "
+            f"{admissions} admissions, {ticks} verify ticks, {spec['spec_draft_steps']} "
+            f"drafter steps of {DL} layers")
+    for rid in rids:
+        if out[rid].shape != (new,) or not ((out[rid] >= 0) & (out[rid] < cfg.vocab_size)).all():
+            raise AssertionError(f"request {rid} produced {out[rid]}")
+    got = [out[r] for r in rids]
+    first = stream_ties(cfg, params, rt, prompts, whole_out, got)
+    bad = [f for f in first if f["margin_rel"] >= 2 * BF16_LOGIT_REL]
+    emit(phase="serve-spec" if drafter == "ngram" else "serve-spec-model", config=cfg.name,
+         dtype="bf16", drafter=drafter, spec_tokens=ecfg.spec_tokens, requests=len(rids),
+         new_tokens=new, admissions=admissions, verify_ticks=ticks, launches=launches,
+         flash_attention_fwd_launches=k1, rmsnorm_fwd_launches=k3,
+         spec_verify_calls=spec["spec_verify_calls"],
+         spec_drafted_tokens=spec["spec_drafted_tokens"],
+         spec_accepted_tokens=spec["spec_accepted_tokens"],
+         spec_draft_steps=spec["spec_draft_steps"], spec_accept_rate=s["spec_accept_rate"],
+         spec_accepted_per_verify=s["spec_accepted_per_verify"],
+         tokens_per_s=s["tokens_per_s"], run_mean_ttft_s=s["run_mean_ttft_s"],
+         wall_s=s["wall_s"], kv_pool_bytes=s["kv_pool_bytes_per_device"],
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+         streams_identical_to_serve_whole=len(rids) - len(first), first_differences=first,
+         tie=f"margin_rel < {2 * BF16_LOGIT_REL}")
+    if bad:
+        raise AssertionError(f"serve-spec ({drafter}): streams differ from serve-whole's "
+                             f"beyond a bf16 tie: {bad}")
+    del eng
+    torch.cuda.empty_cache()
+    return wl, rids, out, launches, draft
+
+
+def phase_self_draft(wl, params, whole_out) -> None:
+    """Two of the serve-spec requests with the drafter equal to the target:
+    every draft is the target's own argmax up to the bf16 roundings of K5
+    (the drafter's steps) against K6 (the verify), so acceptance must pass
+    0.8 and a verify must commit more than 2 tokens; the streams against
+    serve-whole's under the same tie rule."""
     from repro_torch.serve import ServeEngine
 
-    eng = ServeEngine(wl.cfg, params, wl.rt, wl.ecfg, device="cuda")
+    ecfg = dataclasses.replace(wl.ecfg, spec_drafter="model")
+    eng = ServeEngine(wl.cfg, params, wl.rt, ecfg, device="cuda", draft_params=params,
+                      draft_cfg=wl.cfg)
+    picks = (0, 5)
+    rids = [eng.submit(wl.prompts[i], wl.new_tokens) for i in picks]
+    out = eng.run()
+    s = eng.stats
+    first = stream_ties(wl.cfg, params, wl.rt, [wl.prompts[i] for i in picks],
+                        [whole_out[i] for i in picks], [out[r] for r in rids])
+    emit(phase="serve-spec-self", config=wl.cfg.name, requests=list(picks),
+         spec_accept_rate=s["spec_accept_rate"],
+         spec_accepted_per_verify=s["spec_accepted_per_verify"],
+         spec_verify_calls=s["spec_verify_calls"], tokens_per_s=s["tokens_per_s"],
+         streams_identical_to_serve_whole=len(picks) - len(first), first_differences=first)
+    if s["spec_accept_rate"] <= 0.8 or s["spec_accepted_per_verify"] <= 2:
+        raise AssertionError(f"self-draft: accept rate {s['spec_accept_rate']}, "
+                             f"{s['spec_accepted_per_verify']} a verify")
+    bad = [f for f in first if f["margin_rel"] >= 2 * BF16_LOGIT_REL]
+    if bad:
+        raise AssertionError(f"self-draft: streams differ beyond a bf16 tie: {bad}")
+    del eng
+    torch.cuda.empty_cache()
+
+
+def phase_alone(wl, params, rids, out, **draft) -> None:
+    from repro_torch.serve import ServeEngine
+
+    eng = ServeEngine(wl.cfg, params, wl.rt, wl.ecfg, device="cuda", **draft)
     for i in (0, 5):
         rid = eng.submit(wl.prompts[i], wl.new_tokens)
         alone = eng.run()[rid]
         if not np.array_equal(alone, out[rids[i]]):
             raise AssertionError(f"request {i} ({wl.ecfg.kv_dtype} pool): batched "
                                  f"{out[rids[i]][:8]} != alone {alone[:8]}")
-    emit(phase="alone", kv_dtype=wl.ecfg.kv_dtype, requests=[0, 5], identical=True)
+    emit(phase="alone", kv_dtype=wl.ecfg.kv_dtype, spec_tokens=wl.ecfg.spec_tokens,
+         drafter=wl.ecfg.spec_drafter if wl.ecfg.spec_tokens else None, requests=[0, 5],
+         identical=True)
 
 
 def main() -> int:
@@ -2312,6 +2632,7 @@ def main() -> int:
     phase_build()
     kern = phase_kernels()
     kern.update(phase_kernels_quant())
+    phase_kernels_verify()
     phase_kernels_long()
     phase_kernels_prefill()
     kern.update(phase_train_kernels())
@@ -2319,6 +2640,7 @@ def main() -> int:
     kern.update(phase_stash_kernels())
     phase_model()
     phase_model_dense()
+    phase_model_spec()
     phase_train_parity()
     phase_pipe_parity()
     launches = phase_train(gemma_train_workload(), "train")     # K1-K4
@@ -2335,9 +2657,15 @@ def main() -> int:
         wl, params, rids, out, serve_launches = phase_serve(kv_dtype, params)
         phase_alone(wl, params, rids, out)
         launches.update(serve_launches)
+    whole = {}
     for kv_dtype in ("bf16", "int8"):      # whole-prompt admission: K1, K3, K5
         wl, params, rids, out, _ = phase_serve(kv_dtype, params, whole=True)
         phase_alone(wl, params, rids, out)
+        whole[kv_dtype] = [out[r] for r in rids]
+    for drafter in ("ngram", "model"):     # speculative decoding: K6 at T = k + 1
+        wl, rids, out, _, draft = phase_serve_spec(params, whole["bf16"], drafter)
+        phase_alone(wl, params, rids, out, **draft)
+    phase_self_draft(wl, params, whole["bf16"])
     phase_generate_dense(params)
     rows = []
     for name, (source, replaces) in KERNELS.items():

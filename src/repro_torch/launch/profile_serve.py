@@ -2,7 +2,7 @@
 serving workload, under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--out DIR] \
-        [--kv-dtype bf16|int8|fp8] [--admission chunked|whole ...]
+        [--kv-dtype bf16|int8|fp8] [--admission chunked|whole ...] [--spec K]
 
 Runs ``workload.granite_serve_workload(kv_dtype=...)`` (the workload of
 ``chip_smoke.py``'s serve phases; ``--admission whole`` its whole-prompt
@@ -11,8 +11,13 @@ profiler, and prints one JSON line for each admission given, in order: wall
 time, device-busy time and idle share of the window, the device time of each
 kernel family, and the isolated times of one decode step (4 slots at 500
 cached tokens), one 128-token prefill chunk and one whole-prompt admission's
-prefill of 512 tokens (``lm.prefill``, full caches) from CUDA events. The
-full operator table goes to ``DIR/<admission>``.
+prefill of 512 tokens (``lm.prefill``, full caches) from CUDA events.
+``--spec K`` adds, after them and with the same weights, the speculative
+workload (``granite_serve_spec_workload``: whole-prompt admission, K drafts
+by prompt lookup): its row also gives the spec counters, decode steps
+against verify ticks (K5 and K6 launches a layer) and the isolated time of
+one verify pass (4 slots at 500 cached tokens, K + 1 rows). The full
+operator table goes to ``DIR/<admission>`` (``DIR/spec``).
 """
 from __future__ import annotations
 
@@ -77,17 +82,20 @@ def _events_ms(fn, reps: int = 10) -> float:
 def profile_one(wl, params, card: str, out: Path) -> dict:
     """One workload's profiled run and isolated step times (see above)."""
     from repro_torch.models import (decode_step_paged, init_paged_state, prefill,
-                                    prefill_chunk_paged)
+                                    prefill_chunk_paged, verify_step_paged)
     from repro_torch.serve import ServeEngine
+    from repro_torch.serve.engine import SPEC_COUNTERS
 
     cfg, rt, ecfg = wl.cfg, wl.rt, wl.ecfg
     eng = ServeEngine(cfg, params, rt, ecfg, device="cuda")
     for p in wl.prompts:                               # warm-up run
         eng.submit(p, wl.new_tokens)
     eng.run()
-    rids = [eng.submit(p, wl.new_tokens) for p in wl.prompts]
+    spec0 = {key: eng.stats.get(key, 0) for key in SPEC_COUNTERS}
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # submitted inside the window: the profiler's start-up is not a TTFT
+        rids = [eng.submit(p, wl.new_tokens) for p in wl.prompts]
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
@@ -133,14 +141,34 @@ def profile_one(wl, params, card: str, out: Path) -> dict:
     def whole_prefill():
         prefill(cfg, params, prompt, rt, max_len=512, full_cache=True)
 
+    k = ecfg.spec_tokens
+    rows = torch.zeros((4, k + 1), dtype=torch.int32, device="cuda")
+    q_len = torch.full((4,), k + 1, dtype=torch.int32, device="cuda")
+
+    def verify():
+        verify_step_paged(cfg, params, state, rows, q_len, rt, ecfg.max_len)
+
     with torch.no_grad():
         decode(), chunk_prefill(), whole_prefill()
         times = {"decode_step_ms": _events_ms(decode),
                  "prefill_chunk_ms": _events_ms(chunk_prefill),
                  "whole_prefill_512_ms": _events_ms(whole_prefill)}
+        if k:
+            verify()
+            times["verify_step_ms"] = _events_ms(verify)
+    launches, L = stats["kernel_launches"], cfg.n_layers
+    pool = "" if ecfg.kv_dtype == "bf16" else f"_{ecfg.kv_dtype}"
+    spec = {}
+    if k:
+        spec = {key: stats[key] - spec0[key] for key in SPEC_COUNTERS}
+        spec.update(spec_tokens=k, spec_drafter=ecfg.spec_drafter,
+                    spec_accept_rate=stats["spec_accept_rate"],
+                    spec_accepted_per_verify=stats["spec_accepted_per_verify"])
     return {
         "card": card, "config": cfg.name, "kv_dtype": ecfg.kv_dtype,
-        "admission": "chunked" if ecfg.prefill_chunk else "whole",
+        "admission": "chunked" if ecfg.prefill_chunk else "whole", **spec,
+        "decode_steps": launches[f"paged_decode_attention{pool}"] // L,
+        "verify_ticks": launches[f"paged_prefill_attention{pool}"] // L if k else 0,
         "wall_s": wall_s, "device_busy_s": busy_us / 1e6,
         "idle_share": 1 - busy_us / 1e6 / wall_s,
         "tokens_per_s": stats["tokens_per_s"],
@@ -159,23 +187,30 @@ def main(argv=None) -> None:
                     choices=("chunked", "whole"),
                     help="chunked prefill (the serve workload) and/or whole-prompt "
                          "admission, profiled in this order with the same weights")
+    ap.add_argument("--spec", type=int, default=0, metavar="K",
+                    help="then the speculative workload: K drafts a slot a tick")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the card; CUDA is not available")
 
-    from repro_torch.launch.workload import granite_serve_workload
+    from repro_torch.launch.workload import (granite_serve_spec_workload,
+                                             granite_serve_workload)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     params = None
-    for admission in args.admission:
-        wl = granite_serve_workload(kv_dtype=args.kv_dtype,
-                                    prefill_chunk=128 if admission == "chunked" else 0)
+    runs = [(a, granite_serve_workload(kv_dtype=args.kv_dtype,
+                                       prefill_chunk=128 if a == "chunked" else 0))
+            for a in args.admission]
+    if args.spec:
+        runs.append(("spec", granite_serve_spec_workload(kv_dtype=args.kv_dtype,
+                                                         spec_tokens=args.spec)))
+    for name, wl in runs:
         if params is None:
             params = wl.params("cuda")
-        row = profile_one(wl, params, card, Path(args.out) / admission)
+        row = profile_one(wl, params, card, Path(args.out) / name)
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
 

@@ -10,6 +10,11 @@ engine, or batched dense generation.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --paged --prefill-chunk 8 --device cpu --kv-dtype int8
 
+    # speculative decoding: 3 drafts a slot a tick, verified in one K6 pass
+    # (greedy), by prompt lookup or by a paired 1-layer drafter model
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
+        --paged --spec 3 --drafter model --device cpu
+
     # dense generation: --batch prompts of --prompt-len tokens over ring caches
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
         --device cpu --batch 4
@@ -25,7 +30,11 @@ random prompts of ``--prompt-len`` tokens generate together through
 and in bf16 at full size (``--full``), f32 when reduced. ``--kv-dtype
 int8|fp8`` stores the pool as codes and scales (``bf16``, the default, at
 the compute dtype); the launcher prints the pool's dtype, bytes per request
-and capacity against bf16, as the JAX launcher does. Modes of the JAX
+and capacity against bf16, as the JAX launcher does. ``--spec K`` drafts K
+tokens a slot a tick (``--drafter ngram``, prompt lookup, or ``model``, the
+paired config of ``serve.spec.paired_drafter_cfg`` with weights from
+``--seed`` + 1) and verifies them in one batched pass; it forces temperature
+0 and prints the accept rate and the tokens accepted a verify. Modes of the JAX
 launcher that belong to later slices of the port exit with an error naming
 the slice.
 """
@@ -37,7 +46,6 @@ import numpy as np
 import torch
 
 LATER = {
-    "spec": "--spec (speculative decoding) is ROADMAP queue 1 item 3",
     "mesh": "--mesh (memory techniques and multi-device) is ROADMAP queue 1 item 6",
     "trace": "--trace (the async front-end and its traces) is ROADMAP queue 1 item 5",
 }
@@ -67,20 +75,27 @@ def main(argv=None) -> None:
     ap.add_argument("--max-queue", type=int, default=0)
     ap.add_argument("--kv-dtype", default="bf16", choices=("bf16", "int8", "fp8"),
                     help="KV pool storage: the compute dtype, or int8 / fp8 codes")
-    ap.add_argument("--spec", type=int, default=0)
+    ap.add_argument("--spec", type=int, default=0, metavar="K",
+                    help="speculative decoding: draft K tokens a tick and commit the "
+                         "verified run (greedy: forces temperature 0; needs --paged)")
+    ap.add_argument("--drafter", default="ngram", choices=("ngram", "model"),
+                    help="--spec drafter: prompt lookup, or the paired reduced "
+                         "same-family model (serve.spec.paired_drafter_cfg)")
     ap.add_argument("--mesh", default="")
     ap.add_argument("--trace", default="")
     args = ap.parse_args(argv)
 
-    for flag in ("spec", "mesh", "trace"):
+    for flag in ("mesh", "trace"):
         if getattr(args, flag):
             ap.error(f"{LATER[flag]}, a later slice of the port")
+    if args.spec and not args.paged:
+        ap.error("--spec needs --paged (the verify pass is the paged-prefill path)")
     if args.device == "cuda" and not torch.cuda.is_available():
         ap.error("CUDA is not available; pass --device cpu to run on the CPU")
 
     from repro_torch.configs import ASSIGNED, get_config, get_reduced
     from repro_torch.models import Runtime, init_params
-    from repro_torch.serve import EngineConfig, ServeEngine
+    from repro_torch.serve import EngineConfig, ServeEngine, paired_drafter_cfg
 
     if args.arch not in ASSIGNED:
         ap.error(f"--arch must be one of {ASSIGNED}")
@@ -97,11 +112,18 @@ def main(argv=None) -> None:
         max_prompt, args.new_tokens, slots=args.slots, page_size=args.page_size,
         headroom=2.0, cfg=cfg, kv_dtype=args.kv_dtype,
     ).engine(
-        temperature=args.temperature, seed=args.seed,
+        temperature=0.0 if args.spec else args.temperature, seed=args.seed,
         prefill_bucket=args.page_size, prefix_cache=args.prefix_cache,
         prefill_chunk=args.prefill_chunk, max_queue=args.max_queue,
+        spec_tokens=args.spec, spec_drafter=args.drafter,
     )
-    eng = ServeEngine(cfg, params, Runtime(dtype=dtype), ecfg, device=args.device)
+    draft_params = draft_cfg = None
+    if args.spec and args.drafter == "model":
+        draft_cfg = paired_drafter_cfg(cfg)
+        draft_params = init_params(draft_cfg, seed=args.seed + 1, device=args.device,
+                                   dtype=dtype)
+    eng = ServeEngine(cfg, params, Runtime(dtype=dtype), ecfg, device=args.device,
+                      draft_params=draft_params, draft_cfg=draft_cfg)
     sys_prompt = rng.randint(0, cfg.vocab_size, (args.shared_prefix,)).astype(np.int32)
     rids = []
     for _ in range(args.requests):
@@ -133,6 +155,13 @@ def main(argv=None) -> None:
         f"capacity_factor_vs_bf16={cap_factor:.2f}x, "
         f"pool_bytes={s['kv_pool_bytes_per_device']}"
     )
+    if args.spec:
+        print(
+            f"  spec: k={args.spec} drafter={args.drafter} "
+            f"accept_rate={s['spec_accept_rate']:.2f} "
+            f"accepted_per_verify={s['spec_accepted_per_verify']:.2f} "
+            f"verify_calls={s.get('spec_verify_calls', 0)}"
+        )
     if args.prefix_cache:
         print(
             f"  prefix-cache: hits {s['prefix_hits']}/{s['prefix_lookups']}, "

@@ -10,6 +10,10 @@ requests, slots, page size, chunk and number of pages, fewer pool bytes.
 ``granite_serve_whole_workload`` is the same workload admitted by
 whole-prompt prefill (``prefill_chunk`` 0, prompts padded to a bucket of
 128): one K1 launch a layer an admission, no K6.
+``granite_serve_spec_workload`` is that workload with speculative decoding
+(``spec_tokens`` 4, the ngram drafter by default): every tick is one verify
+pass, one K6 launch a layer, and no K5 unless the drafter is the paired
+1-layer model, whose steps run K5.
 
 Training: gemma3-1b at full width and depth (26 layers, d 1152, 4 query
 heads over 1 kv head of hd 256, window 512 on 22 layers, tied vocabulary of
@@ -76,6 +80,12 @@ def granite_serve_workload(seed: int = 0, kv_dtype: str = "bf16",
 
 def granite_serve_whole_workload(seed: int = 0, kv_dtype: str = "bf16") -> ServeWorkload:
     return granite_serve_workload(seed, kv_dtype, prefill_chunk=0)
+
+
+def granite_serve_spec_workload(seed: int = 0, kv_dtype: str = "bf16", spec_tokens: int = 4,
+                                drafter: str = "ngram") -> ServeWorkload:
+    wl = granite_serve_whole_workload(seed, kv_dtype)
+    return replace(wl, ecfg=replace(wl.ecfg, spec_tokens=spec_tokens, spec_drafter=drafter))
 
 
 @dataclass(frozen=True)

@@ -13,5 +13,6 @@ from repro_torch.models.lm import (  # noqa: F401
     pipeline_shared,
     prefill,
     prefill_chunk_paged,
+    verify_step_paged,
 )
 from repro_torch.models.runtime import Runtime  # noqa: F401

@@ -12,8 +12,9 @@ across, and :func:`init_params` draws a fresh one from a seeded
 ``torch.Generator`` on the target device.
 
 Decode states are updated in place: pool pages and dense rings by the
-attention writes, ``lengths`` by :func:`decode_step_paged` and ``t`` (a
-host int, the position the next token takes) by :func:`decode_step`.
+attention writes, ``lengths`` by :func:`decode_step_paged` (not by
+:func:`verify_step_paged`, whose caller commits) and ``t`` (a host int, the
+position the next token takes) by :func:`decode_step`.
 """
 from __future__ import annotations
 
@@ -330,3 +331,35 @@ def decode_step_paged(
     logits = _logits(cfg, params, x)[:, 0]
     lengths += active.to(lengths.dtype)
     return logits
+
+
+def verify_step_paged(
+    cfg: ArchConfig,
+    params: LM,
+    state: Dict[str, Any],
+    tokens: torch.Tensor,
+    q_len: torch.Tensor,
+    rt: Runtime,
+    max_len: int,
+) -> torch.Tensor:
+    """Batched multi-token verify pass of speculative decoding.
+
+    tokens: (B, T) ids — per slot, the pending token followed by the k draft
+    tokens (T = k + 1), at absolute positions ``lengths[b] .. lengths[b] +
+    T - 1``; q_len: (B,) int32 valid rows a slot (0 disables a slot: its rows
+    write the null page). Returns the f32 logits (B, T, V); rows at or past
+    a slot's ``q_len`` are garbage.
+
+    This is the chunked prefill's write-then-attend path at T = k + 1 (K6 on
+    the card), so row t attends exactly positions ``<= lengths + t``, the
+    band a sequential decode step there would see. Rejected rows need no
+    rollback on the device: their KV lies past the committed length, is
+    never attended there, and is overwritten before any later attend.
+    ``lengths`` is NOT advanced: the caller commits the accepted run."""
+    specs = layer_specs(cfg, seq_len=max_len, long_variant=rt.long_variant)
+    x = embed_apply(params.embed, tokens, rt.dtype)                       # (B, T, d)
+    x = stack_mod.stack_prefill_paged(
+        cfg, params.stack, x, state["caches"], state["tables"], state["lengths"],
+        q_len, rt, specs,
+    )
+    return _logits(cfg, params, x)

@@ -13,3 +13,8 @@ from repro_torch.serve.scheduler import (  # noqa: F401
     Request,
     Scheduler,
 )
+from repro_torch.serve.spec import (  # noqa: F401
+    DRAFTER_KINDS,
+    ngram_draft,
+    paired_drafter_cfg,
+)

@@ -40,10 +40,23 @@ gathers. Scales are indexed by page id like the codes, so the pool's
 allocator, copy-on-write copies and the prefix cache's adoption carry them
 unchanged.
 
+With ``EngineConfig.spec_tokens = k`` (greedy only) a decode tick is
+speculative: a drafter proposes k tokens a slot (prompt lookup,
+``serve.spec.ngram_draft``, or a paired small model decoded k steps over
+its own pools through the target's block tables), and one batched verify
+pass (``lm.verify_step_paged``, K6 at T = k + 1) scores every slot's
+pending token and drafts. The leading drafts that equal the target's argmax
+chain commit with the verify pass's own next token, 1..k+1 tokens a slot a
+tick; each is the target's own argmax, so the stream is the spec-off
+stream. Rejected rows need no rollback on the device; under the optimistic
+policy ``PagePool.truncate`` hands back the pages they no longer need. A
+tick in which a slot is still prefilling in chunks runs the ordinary decode
+steps instead.
+
 Not ported yet (each raises ``NotImplementedError`` at construction,
 naming its ROADMAP item): the families whose mixers or FFN are not ported
-(SSM, RG-LRU, MoE, encoder-decoder, modality prefix), speculative decoding,
-and meshes and replicated engines.
+(SSM, RG-LRU, MoE, encoder-decoder, modality prefix), and meshes and
+replicated engines.
 """
 from __future__ import annotations
 
@@ -67,6 +80,7 @@ from repro_torch.models import (
     init_paged_state,
     prefill,
     prefill_chunk_paged,
+    verify_step_paged,
 )
 from repro_torch.models.stack import check_served, layer_specs, write_prefill_to_pool
 from repro_torch.serve.dense import generate_dense
@@ -74,6 +88,7 @@ from repro_torch.serve.pool import PagePool, PoolExhausted, kv_page_bytes
 from repro_torch.serve.prefix import PrefixCache
 from repro_torch.serve.sampling import SamplingPolicy
 from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.spec import DRAFTER_KINDS, ngram_draft, paired_drafter_cfg
 
 
 def _launches() -> Dict[str, int]:
@@ -103,6 +118,45 @@ def dense_kv_bytes(cfg: ArchConfig, rt: Runtime, total: int) -> int:
     return tokens * cfg.n_kv_heads * cfg.head_dim * 2 * itemsize
 
 
+SPEC_COUNTERS = ("spec_verify_calls", "spec_drafted_tokens", "spec_accepted_tokens")
+
+
+def _check_spec(cfg: ArchConfig, engine: "EngineConfig", paged: bool, draft_params) -> None:
+    """The JAX engine's refusals of speculative decoding's unsupported
+    combinations."""
+    if not paged:
+        raise ValueError(
+            "speculative decoding needs the paged engine (the verify pass is the "
+            "paged-prefill path); spec_tokens=0 for dense-fallback families"
+        )
+    if engine.temperature != 0.0:
+        raise ValueError(
+            "speculative decoding is greedy-acceptance only: spec_tokens>0 requires "
+            "temperature=0.0"
+        )
+    if engine.spec_drafter not in DRAFTER_KINDS:
+        raise ValueError(f"spec_drafter={engine.spec_drafter!r} not in {DRAFTER_KINDS}")
+    if engine.spec_drafter != "model":
+        return
+    if engine.prefix_cache or engine.prefill_chunk:
+        raise ValueError(
+            "spec_drafter='model' needs the whole-prompt admission (the drafter's "
+            "KV is built there); prefix_cache/prefill_chunk admit without it — use "
+            "the ngram drafter with those modes"
+        )
+    if cfg.frontend is not None:
+        raise ValueError(
+            "spec_drafter='model': modality-prefix embeddings are sized for the "
+            "target d_model and cannot feed the reduced drafter — use the ngram "
+            "drafter"
+        )
+    if draft_params is None:
+        raise ValueError(
+            "spec_drafter='model' needs draft_params (init the paired config from "
+            "spec.paired_drafter_cfg(cfg))"
+        )
+
+
 def _later(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not in the PyTorch port yet (ROADMAP.md queue 1: {item})"
@@ -128,7 +182,11 @@ class EngineConfig:
     prefill_chunk: int = 0
     kv_dtype: str = "bf16"    # "bf16" = pools at the compute dtype; "int8" | "fp8"
     max_queue: int = 0        # per-QoS-tier queue bound (0 = unbounded)
-    spec_tokens: int = 0      # speculative decoding: a later slice
+    # speculative decoding (greedy only): draft tokens a slot a tick, verified
+    # in one batched (k+1)-row pass; 0 = off
+    spec_tokens: int = 0
+    spec_drafter: str = "ngram"   # "ngram" (prompt lookup) | "model" (draft_params)
+    spec_ngram: int = 3       # longest n-gram the prompt-lookup drafter matches
 
     @property
     def chunk_tokens(self) -> int:
@@ -223,6 +281,8 @@ class ServeEngine:
         engine: EngineConfig = EngineConfig(),
         paged: Optional[bool] = None,
         device="cuda",
+        draft_params: Optional[LM] = None,
+        draft_cfg: Optional[ArchConfig] = None,
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -232,14 +292,15 @@ class ServeEngine:
             )
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        check_served(cfg)             # the families the port runs, paged or dense
         if engine.spec_tokens:
-            raise _later("speculative decoding (spec_tokens>0)",
-                         "item 3, speculative decoding")
-        if params.embed.table.device != self.device:
-            raise ValueError(
-                f"params on {params.embed.table.device}, engine on {self.device}"
-            )
+            _check_spec(cfg, engine, paged is not False and paged_supported(cfg),
+                        draft_params)
+        check_served(cfg)             # the families the port runs, paged or dense
+        for what, p in (("params", params), ("draft_params", draft_params)):
+            if p is not None and p.embed.table.device != self.device:
+                raise ValueError(
+                    f"{what} on {p.embed.table.device}, engine on {self.device}"
+                )
         self.cfg = cfg
         self.params = params
         self.ecfg = engine
@@ -277,6 +338,19 @@ class ServeEngine:
         self._rem = np.zeros(B, np.int64)
         self._steps = np.zeros(B, np.int64)
         self.stats["kv_pool_bytes_per_device"] = self.kv_pool_bytes_per_device()
+        if engine.spec_tokens and engine.spec_drafter == "model":
+            # the drafter's own pools, indexed by the TARGET's block tables
+            # (the same page ids), so the pool accounting is done once; its
+            # cached length trails the target's by at most one token
+            self._draft_cfg = draft_cfg if draft_cfg is not None else paired_drafter_cfg(cfg)
+            self._draft_params = draft_params
+            self._draft_policy = SamplingPolicy(vocab=self._draft_cfg.vocab_size)
+            self._draft_pools = init_paged_state(
+                self._draft_cfg, B, self.rt, num_pages=engine.num_pages,
+                page_size=engine.page_size, max_len=engine.max_len, device=self.device,
+            )["caches"]
+            self._draft_len = np.zeros(B, np.int64)
+            self._spec_catchup = np.full(B, -1, np.int64)
 
     # ------------------------------------------------------------- public
     def submit(
@@ -330,6 +404,7 @@ class ServeEngine:
         self._run_discard0 = self.stats.get("discarded_tokens", 0)
         self._run_decode_tokens = 0
         self._run_launch0 = _launches()
+        self._run_spec0 = {k: self.stats.get(k, 0) for k in SPEC_COUNTERS}
 
     @torch.no_grad()
     def step(self) -> Dict[str, Any]:
@@ -368,6 +443,13 @@ class ServeEngine:
             decode_tokens - discarded + n_prefill
         ) / max(wall, 1e-9)
         self.stats["pool_high_water_pages"] = self.pool.high_water
+        if self.ecfg.spec_tokens:
+            # accepted drafts over drafted; accepted-per-verify adds the verify
+            # pass's own token (the mean committed run a verify, 1..k+1)
+            verifies, drafted, acc = (self.stats.get(k, 0) - self._run_spec0[k]
+                                      for k in SPEC_COUNTERS)
+            self.stats["spec_accept_rate"] = acc / max(drafted, 1)
+            self.stats["spec_accepted_per_verify"] = (acc + verifies) / max(verifies, 1)
         self.stats["kernel_launches"] = {
             k: v - self._run_launch0.get(k, 0) for k, v in _launches().items()
         }
@@ -460,6 +542,15 @@ class ServeEngine:
         row = self.pool.table(sid, self._dev["tables"].shape[1])
         self._dev["tables"][slot_id] = torch.tensor(row, dtype=torch.int32)
 
+    @property
+    def _lookahead(self) -> int:
+        """Tokens one tick may write a slot: ``inner_steps`` decode steps, or
+        the k + 1 verify rows of a speculative tick (written at ``lengths ..
+        lengths + k`` however few commit)."""
+        if self.ecfg.spec_tokens:
+            return max(self.ecfg.inner_steps, self.ecfg.spec_tokens + 1)
+        return self.ecfg.inner_steps
+
     def _admission_headroom(self) -> int:
         """Free pages required beyond a newcomer's reservation under the
         optimistic policy (one tick of page crossings per running request)."""
@@ -468,7 +559,7 @@ class ServeEngine:
         n_active = sum(1 for s in self._slots if s is not None)
         if n_active == 0:
             return 0
-        per_slot = self.ecfg.inner_steps // self.ecfg.page_size + 1
+        per_slot = self._lookahead // self.ecfg.page_size + 1
         return (n_active + 1) * per_slot
 
     def _admit_free_slots(self) -> None:
@@ -559,6 +650,17 @@ class ServeEngine:
         self._write_table(slot_id, sid)
         write_prefill_to_pool(self._dev["caches"], pstate["caches"],
                               self._dev["tables"][slot_id], self.ecfg.page_size)
+        if self.ecfg.spec_tokens and self.ecfg.spec_drafter == "model":
+            # the drafter prefills the same prompt into its own pools through
+            # the same table row, level with the target
+            _, dstate = prefill(
+                self._draft_cfg, self._draft_params, batch, self.rt,
+                max_len=len(tokens), gather_pos=req.prompt_len - 1, full_cache=True,
+            )
+            write_prefill_to_pool(self._draft_pools, dstate["caches"],
+                                  self._dev["tables"][slot_id], self.ecfg.page_size)
+            self._draft_len[slot_id] = req.prompt_len
+            self._spec_catchup[slot_id] = -1
         self._set_slot(slot_id, length=req.prompt_len, remaining=req.max_new - 1)
         self._tok[slot_id] = first
         self._steps[slot_id] = 1
@@ -577,9 +679,7 @@ class ServeEngine:
         for slot_id, slot in enumerate(self._slots):
             if slot is None:
                 continue
-            need = int(self._len[slot_id]) + min(
-                int(self._rem[slot_id]), self.ecfg.inner_steps
-            )
+            need = int(self._len[slot_id]) + min(int(self._rem[slot_id]), self._lookahead)
             while self._slots[slot_id] is not None:
                 try:
                     self.pool.ensure(slot.sid, need)
@@ -642,6 +742,10 @@ class ServeEngine:
             (i, s) for i, s in enumerate(self._slots)
             if s is not None and s.phase == "prefill"
         ]
+        if not pf and self.ecfg.spec_tokens:
+            # the verify batch spans every slot, so speculative ticks wait
+            # until no prompt is chunking; both paths emit the same stream
+            return self._spec_step()
         pf_logits = None
         if pf:
             slot_id, slot = min(pf, key=lambda kv: kv[1].order)
@@ -700,6 +804,114 @@ class ServeEngine:
         self._rem -= taken
         self._steps += taken
         return torch.stack(emits).cpu().numpy()          # the tick's one read
+
+    def _spec_step(self) -> np.ndarray:
+        """One speculative tick over the decoding slots: k drafts a slot,
+        one verify pass over every slot's [pending, drafts] row run, and the
+        commit of the accepted drafts plus the verify pass's own next token.
+        Row j's argmax ``g[j]`` is what a sequential greedy decode emits after
+        token j of the run; the accepted count ``a`` is the number of leading
+        drafts equal to the argmax chain (``d[j] == g[j - 1]``), so committing
+        ``g[:c]``, ``c = min(a + 1, remaining)``, is the target's own greedy
+        stream whatever the drafts. Returns emits (k + 1, B), -1 where a slot
+        emitted nothing; one host read of g and a."""
+        ecfg = self.ecfg
+        k, B = ecfg.spec_tokens, ecfg.max_slots
+        active = np.array([s is not None for s in self._slots]) & (self._rem > 0)
+        n_act = int(active.sum())
+        if n_act == 0:
+            return np.full((0, B), -1, np.int32)
+        if ecfg.spec_drafter == "model":
+            drafts = self._run_draft(active)
+        else:
+            host = np.zeros((B, k), np.int32)
+            for slot_id, slot in enumerate(self._slots):
+                if active[slot_id]:
+                    ctx = np.concatenate(
+                        [slot.req.tokens, np.asarray(self._outputs[slot.rid], np.int32)])
+                    prop = ngram_draft(ctx, k, ecfg.spec_ngram)
+                    host[slot_id, :len(prop)] = prop
+            drafts = torch.from_numpy(host).to(self.device)
+        # row 0 is the pending token (sampled last tick, not yet cached); a
+        # junk or zero-padded draft commits only where it IS the argmax
+        tokens = torch.cat([self._tok[:, None], drafts], dim=1)
+        q_len = torch.from_numpy(np.where(active, k + 1, 0).astype(np.int32)).to(self.device)
+        logits = verify_step_paged(self.cfg, self.params, self._dev, tokens, q_len,
+                                   self.rt, ecfg.max_len)
+        g = self._policy.greedy_tokens(logits)                           # (B, k+1)
+        a = torch.cumprod((tokens[:, 1:] == g[:, :-1]).int(), dim=1).sum(dim=1)
+        ga = torch.cat([g, a[:, None].int()], dim=1).cpu().numpy()      # the tick's one read
+        g, a = ga[:, :-1], ga[:, -1]
+        emits = np.full((k + 1, B), -1, np.int32)
+        tok = np.zeros(B, np.int32)
+        accepted = 0
+        for slot_id, slot in enumerate(self._slots):
+            if not active[slot_id]:
+                continue
+            c = int(min(a[slot_id] + 1, self._rem[slot_id]))
+            emits[:c, slot_id] = g[slot_id, :c]
+            self._len[slot_id] += c
+            self._rem[slot_id] -= c
+            self._steps[slot_id] += c
+            tok[slot_id] = g[slot_id, c - 1]           # the new pending token
+            accepted += c - 1
+            if ecfg.policy == "optimistic":
+                # the pool half of the rollback: hand back the pages the
+                # rejected rows no longer need (table rows are rewritten from
+                # the pool every tick under this policy)
+                self.pool.truncate(slot.sid, int(self._len[slot_id]))
+            if ecfg.spec_drafter == "model":
+                if c == k + 1:
+                    # full accept: the drafter never cached g[k - 1] (it
+                    # consumed through its own (k-1)-th emit); force-feed it
+                    # next tick, then the new pending token
+                    self._spec_catchup[slot_id] = int(g[slot_id, k - 1])
+                    self._draft_len[slot_id] = self._len[slot_id] - 1
+                else:
+                    # partial accept: its accepted prefix is cached; rewind
+                    # past the rejected tail (masked by length, overwritten)
+                    self._spec_catchup[slot_id] = -1
+                    self._draft_len[slot_id] = self._len[slot_id]
+        self._tok = torch.from_numpy(tok).to(self.device)
+        self._dev["lengths"].copy_(torch.from_numpy(self._len.astype(np.int32)))
+        st = self.stats
+        st["spec_verify_calls"] = st.get("spec_verify_calls", 0) + n_act
+        st["spec_drafted_tokens"] = st.get("spec_drafted_tokens", 0) + n_act * k
+        st["spec_accepted_tokens"] = st.get("spec_accepted_tokens", 0) + accepted
+        return emits
+
+    def _run_draft(self, active: np.ndarray) -> torch.Tensor:
+        """k greedy steps of the paired drafter an active slot; returns its
+        proposals (B, k) on the device. The drafter trails the target by at
+        most one cached token, so 1-2 known tokens are force-fed first (the
+        catch-up token, then the pending one) and it then runs on its own
+        argmax: slot b takes ``n_forced - 1 + k`` active steps and proposes
+        emits ``n_forced - 1 .. n_forced - 2 + k``. Steps in which no slot is
+        active are skipped."""
+        k, dev = self.ecfg.spec_tokens, self.device
+        catch = self._spec_catchup
+        n_forced = np.where(active & (catch >= 0), 2, 1)
+        steps = np.arange(k + 1)[:, None]
+        act_host = active[None, :] & (steps < (n_forced - 1 + k)[None, :])   # (k+1, B)
+        acts = torch.from_numpy(act_host).to(dev)
+        pending = torch.from_numpy(steps < n_forced[None, :]).to(dev)       # feed self._tok
+        catch_dev = torch.from_numpy(catch.astype(np.int32)).to(dev)
+        tok = torch.where(catch_dev >= 0, catch_dev, self._tok)            # step 0's input
+        state = {"caches": self._draft_pools, "tables": self._dev["tables"],
+                 "lengths": torch.from_numpy(self._draft_len.astype(np.int32)).to(dev)}
+        emits = []
+        for i in range(k + 1):
+            if not act_host[i].any():
+                emits.append(tok)                  # a step no slot proposes from
+                continue
+            inp = tok if i == 0 else torch.where(pending[i], self._tok, tok)
+            logits = decode_step_paged(self._draft_cfg, self._draft_params, state, inp,
+                                       self.rt, max_len=self.ecfg.max_len, active=acts[i])
+            tok = self._draft_policy.greedy_tokens(logits)
+            emits.append(tok)
+            self.stats["spec_draft_steps"] = self.stats.get("spec_draft_steps", 0) + 1
+        idx = torch.from_numpy(n_forced - 1).to(dev)[:, None] + torch.arange(k, device=dev)
+        return torch.gather(torch.stack(emits, dim=1), 1, idx)
 
     def _finish_prefill(self, slot_id: int, slot: _Slot, pf_logits) -> None:
         """Last chunk done: sample the first token (step 0 of the request's

@@ -16,6 +16,8 @@ package's, on the CPU.
 The CUDA kernels themselves are held against the plain versions on the card
 (chip_smoke.py, and the ``cuda``-marked test below).
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,11 @@ from repro.kernels.flash_attention.kernel import flash_attention_fwd_flat
 from repro.kernels.flash_attention.ops import flash_attention as jax_flash
 from repro.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.flash_attention import cuda, flash_attention, ops, ref
+
+# pytest-xdist runs several workers on one machine: give torch this worker's share
+# of the cores (oversubscribed, the torch side runs many times slower)
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 # (B, S, Kv, G, hd, causal, window), as in tests/test_kernels_backward.py
 FA_CASES = [

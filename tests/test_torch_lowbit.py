@@ -22,6 +22,7 @@
 The CUDA kernels are held against the plain versions on the card
 (``chip_smoke.py``, and the ``cuda``-marked test below).
 """
+import os
 from unittest import mock
 
 import jax
@@ -54,6 +55,11 @@ from repro_torch.data import DataPipeline
 from repro_torch.kernels.blockwise_quant import cuda, dequantize, dynamic_map, ops, quantize, ref
 from repro_torch.optim import adam4bit, adam8bit, adamw, get, lowbit4, onebit_adam, state_bytes
 from repro_torch.train import TrainConfig, fit, make_state
+
+# pytest-xdist runs several workers on one machine: give torch this worker's share
+# of the cores (oversubscribed, the torch side runs many times slower)
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 LR = 1e-3
 STEPS = 3

@@ -12,6 +12,7 @@
 * Import isolation: the port and chip_smoke.py import neither jax nor repro.
 """
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -32,6 +33,11 @@ from repro_torch.configs import get_reduced as t_get_reduced
 from repro_torch.models import Runtime as TRuntime
 from repro_torch.models import decode_step_paged, init_paged_state, prefill_chunk_paged
 from repro_torch.models import layers as tl
+
+# pytest-xdist runs several workers on one machine: give torch this worker's share
+# of the cores (oversubscribed, the torch side runs many times slower)
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 ROOT = Path(__file__).resolve().parents[1]
 REL = 1e-4

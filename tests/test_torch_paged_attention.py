@@ -6,6 +6,7 @@ kv_quantize, handed to both packages). Also: the port's ops take the plain
 path for CPU tensors, and the kernel modules import without triton, nvcc or
 a card. The CUDA kernels themselves are held against the plain versions on
 the card (chip_smoke.py, and the ``cuda``-marked test below)."""
+import os
 import subprocess
 import sys
 
@@ -24,6 +25,11 @@ from repro.kernels.paged_attention.kernel import (
     paged_prefill_attention_kernel,
 )
 from repro_torch.kernels.paged_attention import cuda, ops, quant, ref
+
+# pytest-xdist runs several workers on one machine: give torch this worker's share
+# of the cores (oversubscribed, the torch side runs many times slower)
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 

@@ -16,6 +16,7 @@ step (~30 s a step on one CPU core), jitted one program (~19 s to compile,
 its eager codec (tests/test_torch_stash.py measures how often), which the
 int8 tolerances below cover; the port's codec equals the eager one bitwise.
 """
+import os
 from dataclasses import replace
 
 import jax
@@ -38,6 +39,11 @@ from repro_torch.configs import get_reduced as t_get_reduced
 from repro_torch.core.partitioner import ParallelPlan
 from repro_torch.launch.train import build_train_pipeline_host
 from repro_torch.train import TrainConfig, plan_fields
+
+# pytest-xdist runs several workers on one machine: give torch this worker's share
+# of the cores (oversubscribed, the torch side runs many times slower)
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 SMALL = dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16, d_ff=128,
              vocab_size=256)

@@ -15,6 +15,7 @@ package's, on the CPU.
 The CUDA kernels themselves are held against the plain versions on the card
 (chip_smoke.py, and the ``cuda``-marked test below).
 """
+import os
 import re
 from pathlib import Path
 
@@ -26,6 +27,11 @@ import torch
 
 from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm
 from repro_torch.kernels.rmsnorm import cuda, ops, ref, rmsnorm
+
+# pytest-xdist runs several workers on one machine: give torch this worker's share
+# of the cores (oversubscribed, the torch side runs many times slower)
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 SHAPES = [(8, 128), (2, 300, 64), (1, 7, 96)]
 # f32: both sides compute in f32 and differ only in summation order and

@@ -18,8 +18,11 @@ invariants, all on the CPU in f32 (plain attention).
 * Host modules: the port's pool, scheduler and radix cache invariants.
 * Rejections: each mode the port leaves out raises NotImplementedError.
   Whole-prompt admission and the dense fallback are served: their tests are
-  in tests/test_torch_serve_whole.py.
+  in tests/test_torch_serve_whole.py; speculative decoding's, with the
+  configurations it refuses, in tests/test_torch_serve_spec.py.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +48,11 @@ from repro_torch.serve import (
     ReplicatedServeEngine,
     ServeEngine,
 )
+
+# pytest-xdist runs several workers on one machine: give torch this worker's share
+# of the cores (oversubscribed, the torch side runs many times slower)
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 RT = Runtime(dtype=jnp.float32, chunk_q=32)
 TRT = TRuntime(dtype=torch.float32)
@@ -441,9 +449,6 @@ def test_radix_split_and_lru_eviction_of_idle_leaves():
 
 # ---------------------------------------------------------------- rejections
 REJECT = {
-    "spec_tokens": lambda m: ServeEngine(
-        *m("granite-8b")[2:], TRT, EngineConfig(**dict(BASE, spec_tokens=2)),
-        device="cpu"),
     "dense family": lambda m: ServeEngine(
         t_get_reduced("falcon-mamba-7b"), m("granite-8b")[3], TRT,
         EngineConfig(**BASE), device="cpu"),
@@ -461,7 +466,6 @@ def test_modes_left_out_raise_not_implemented(models, mode):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--paged", "--prefill-chunk", "8", "--spec", "2"],
     ["--paged", "--prefill-chunk", "8", "--mesh", "2x2"],
     ["--paged", "--prefill-chunk", "8", "--trace", "poisson"],
 ])

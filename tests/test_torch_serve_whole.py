@@ -23,6 +23,8 @@ package, on the CPU in f32 (plain attention), at reduced sizes.
 The JAX engines and prefills compile once per config and shape (module
 fixtures and JAX's own caches); prompts keep to a few lengths.
 """
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -49,6 +51,11 @@ from repro_torch.models.stack import write_prefill_to_pool
 from repro_torch.serve import EngineConfig, ServeEngine
 from repro_torch.train.serve import generate
 from test_torch_serve_engine import assert_same_or_quantized_tie, assert_same_or_tie
+
+# pytest-xdist runs several workers on one machine: give torch this worker's share
+# of the cores (oversubscribed, the torch side runs many times slower)
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 RT = Runtime(dtype=jnp.float32, chunk_q=32)
 TRT = TRuntime(dtype=torch.float32)

@@ -28,6 +28,7 @@ The CUDA kernels K7a / K7b are held against the plain version on the card
 import contextlib
 import dataclasses
 import io
+import os
 
 import jax
 import jax.numpy as jnp
@@ -49,6 +50,11 @@ from repro_torch.kernels.blockwise_quant import cuda, ops
 from repro_torch.kernels.paged_attention import quant
 from repro_torch.launch import train as launch_train
 from repro_torch.roofline import analysis
+
+# pytest-xdist runs several workers on one machine: give torch this worker's share
+# of the cores (oversubscribed, the torch side runs many times slower)
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 SHAPES = [(3, 7), (257,), (2, 2, 130), (64, 256), (33, 77), (100,)]
 DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}

@@ -21,6 +21,7 @@ the CPU (plain versions of the kernels).
 """
 import contextlib
 import io
+import os
 
 import jax
 import jax.numpy as jnp
@@ -54,6 +55,11 @@ from repro_torch.models.attention import Attention, attention_apply
 from repro_torch.models.stack import init_stack_pool, layer_specs
 from repro_torch.optim import Schedule, get
 from repro_torch.train import TrainConfig, fit, make_train_step
+
+# pytest-xdist runs several workers on one machine: give torch this worker's share
+# of the cores (oversubscribed, the torch side runs many times slower)
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
 
 LR = 1e-3
 STEPS = 3

@@ -92,7 +92,11 @@ Phases, in order (any failure exits nonzero and prints no result line):
                on a vocab-2 model and the paired 1-layer drafter, tokens
                equal or a first difference at an f32 tie (the card's
                teacher-forced forward's top-2 margin < 1e-4), the spec
-               counters;
+               counters; then model-moe: reduced qwen3-moe, moonshot (a
+               shared expert) and arctic (a dense residual FFN), three
+               prefill chunks then four decode steps beside two emptied
+               slots, card vs CPU, rtol 1e-3 and every MoE call's kept
+               (token, expert) slots identical;
   8. train-parity — reduced gemma3-1b, f32 with TF32 off: three training
                steps on the card against the same steps on the CPU, rtol 1e-3,
                with AdamW, and with adam8bit and adam4bit on a 24-layer,
@@ -159,8 +163,25 @@ Phases, in order (any failure exits nonzero and prints no result line):
                and the verify's K6 round bf16 differently); each followed by
                its alone phase;
  20. serve-spec-self — two of those requests with the drafter equal to the
-               target: accept rate > 0.8 and > 2 tokens a verify.
-The line before last lists every kernel as JSON; the last line is
+               target: accept rate > 0.8 and > 2 tokens a verify;
+ 21. moe-layer — one qwen3-moe MoE layer at full width (128 experts, top-8),
+               f32, card vs CPU at 4 and 512 rows: kept slots identical but
+               at a top-k margin under 1e-6 (printed), output within 1e-4 of
+               max|ref|, aux within 1e-6; then the same weights and inputs
+               in bf16: kept slots identical but where the two sides' bf16
+               router logits differ by at least half the token's top-k
+               logit margin, output within 2e-2 of max|ref|, aux within
+               1e-3; run after granite-8b's weights are freed;
+ 22. serve-moe — launch/workload.py's qwen3_moe_serve_workload: qwen3-moe-
+               30b-a3b at full width and depth, bf16, the serve workload's 8
+               requests admitted whole at exact shapes, twice in fresh
+               engines: bitwise-equal streams, finite logits in every active
+               row, exact launch counts (K1 48 an admission, K5 48 a decode
+               step, K3 97 a pass, K6 none), tokens/s, TTFT, the isolated
+               decode step, pool bytes and peak memory (batched == alone
+               does not hold under MoE capacity and is not run).
+Before the last two lines, one JSON line {"moe": ...} gives serve-moe's
+launches. The line before last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -2621,6 +2642,304 @@ def phase_alone(wl, params, rids, out, **draft) -> None:
          identical=True)
 
 
+# ------------------------------------------------------------------------ MoE
+def recording_routes(log: list):
+    """Patch ``models.moe.route`` so that every MoE call appends its kept
+    (token, expert) pairs to ``log``; returns the undo."""
+    from repro_torch.models import moe as moe_mod
+
+    orig = moe_mod.route
+
+    def rec(*args, **kw):
+        r = orig(*args, **kw)
+        log.append(r.kept_pairs().cpu())
+        return r
+
+    moe_mod.route = rec
+    return lambda: setattr(moe_mod, "route", orig)
+
+
+MOE_CONFIGS = ("qwen3-moe-30b-a3b", "moonshot-v1-16b-a3b", "arctic-480b")
+
+
+def phase_model_moe() -> None:
+    """Reduced qwen3-moe (routed experts), moonshot (a shared expert) and
+    arctic (a dense residual FFN), f32, TF32 off: the port on the card (K6,
+    K5, K3) against the port on the CPU (plain versions), the same
+    parameters and the same rows: three prefill chunks of one request, then
+    four decode steps in which two emptied slots (table and length 0) route
+    beside it and write the null page. Logits at rtol/atol 1e-3 and every MoE
+    call's kept (token, expert) slots identical."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import (Runtime, decode_step_paged, init_paged_state,
+                                    init_params, prefill_chunk_paged)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rt = Runtime(dtype=torch.float32)
+    for name in MOE_CONFIGS:
+        cfg = get_reduced(name)
+        prompt = np.random.RandomState(5).randint(0, cfg.vocab_size, 45).astype(np.int32)
+        outs, kept = {}, {}
+        for dev in ("cpu", "cuda"):
+            params = init_params(cfg, seed=3, device="cpu", dtype=torch.float32).to(dev)
+            st = init_paged_state(cfg, 3, rt, num_pages=16, page_size=8, max_len=64,
+                                  device=dev)
+            st["tables"][0, :8] = torch.arange(1, 9)
+            kept[dev] = []
+            undo = recording_routes(kept[dev])
+            try:
+                seq = []
+                for s0 in range(0, 45, 16):
+                    chunk = np.zeros(16, np.int32)
+                    n = min(16, 45 - s0)
+                    chunk[:n] = prompt[s0:s0 + n]
+                    seq.append(prefill_chunk_paged(cfg, params, st["caches"], st["tables"][0],
+                                                   torch.from_numpy(chunk).to(dev), s0, n, rt,
+                                                   64))
+                st["lengths"][0] = 45
+                tok = torch.tensor([int(seq[-1].argmax()), 5, 9], dtype=torch.int32, device=dev)
+                act = torch.tensor([True, False, False], device=dev)
+                for _ in range(4):
+                    lg = decode_step_paged(cfg, params, st, tok, rt, 64, active=act)
+                    seq.append(lg[0])
+                    tok = torch.cat([lg[0].argmax().int()[None], tok[1:]])
+            finally:
+                undo()
+            outs[dev] = [x.float().cpu() for x in seq]
+        worst = 0.0
+        for a, b in zip(outs["cpu"], outs["cuda"]):
+            if not torch.isfinite(b).all():
+                raise AssertionError(f"{name}: non-finite logits on the card")
+            torch.testing.assert_close(b, a, atol=1e-3, rtol=1e-3)
+            worst = max(worst, float((a - b).abs().max() / a.abs().max()))
+        if len(kept["cpu"]) != len(kept["cuda"]) or not all(
+                torch.equal(a, b) for a, b in zip(kept["cpu"], kept["cuda"])):
+            raise AssertionError(f"{name}: kept expert slots differ card vs CPU")
+        emit(phase="model-moe", config=cfg.name, experts=cfg.n_experts,
+             top_k=cfg.experts_top_k, extra_mlp=bool(cfg.n_shared_experts or cfg.dense_residual),
+             moe_calls=len(kept["cpu"]), kept_slots=int(sum(len(k) for k in kept["cpu"])),
+             max_rel_err=worst, tol=1e-3, kept_identical=True)
+
+
+MOE_LAYER_TOL = 1e-4              # of max|ref|: f32, sums in another order
+MOE_TIE = 1e-6                    # a top-k margin under which card and CPU may part
+# bf16: each side rounds every product and elementwise step to bf16 (2**-8),
+# its sums in another order, so elements part by an ulp or two through the
+# up/gate products, silu and the down product; the router's logits by an ulp
+MOE_LAYER_TOL_BF16 = 2e-2         # of max|ref|
+MOE_AUX_TOL = {torch.float32: 1e-6, torch.bfloat16: 1e-3}
+
+
+def phase_moe_layer() -> None:
+    """One qwen3-moe MoE layer at full width (128 experts, top-8, d 2048,
+    hidden 768), TF32 off, card against CPU on the same weights and inputs:
+    4 rows (a decode step: capacity 1) and 512 rows (a prompt), in f32 and
+    then in bf16 (the f32 weights and inputs cast). The kept slots must be
+    identical, except at a token where card and CPU may order the k-th and
+    (k+1)-th expert apart, and the tokens such a flip displaces through
+    capacity (printed): in f32 a top-k margin (k-th less (k+1)-th
+    probability) under MOE_TIE, in bf16 a logit margin under twice the
+    token's largest difference between the two sides' bf16 router logits.
+    The output within MOE_LAYER_TOL (bf16: MOE_LAYER_TOL_BF16) of max|ref|
+    on every other token, the aux within MOE_AUX_TOL."""
+    import copy
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import MoE, init_moe
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("qwen3-moe-30b-a3b")
+    gpu32 = init_moe(torch.Generator(device="cuda").manual_seed(11), cfg.d_model, cfg.d_ff,
+                     cfg.n_experts, True, torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        gpu = gpu32 if dtype == torch.float32 else MoE(
+            *(w.to(dtype) for w in (gpu32.router, gpu32.w_up, gpu32.w_down, gpu32.w_gate)))
+        cpu = copy.deepcopy(gpu).cpu()
+        _moe_layer_compare(cfg, cpu, gpu, dtype)
+        del gpu, cpu
+    del gpu32
+    torch.cuda.empty_cache()
+
+
+def _moe_layer_compare(cfg, cpu, gpu, dtype) -> None:
+    from repro_torch.models.moe import moe_apply, route
+
+    d, k, cf = cfg.d_model, cfg.experts_top_k, cfg.capacity_factor
+    name = "f32" if dtype == torch.float32 else "bf16"
+    for shape in ((4, 1, d), (1, 512, d)):
+        x = torch.from_numpy(np.random.RandomState(shape[1]).randn(*shape).astype(np.float32))
+        x = x.to(dtype)
+        T = shape[0] * shape[1]
+        ref, ref_aux = moe_apply(cpu, x, top_k=k, capacity_factor=cf, gated=True)
+        out, aux = moe_apply(gpu, x.to("cuda"), top_k=k, capacity_factor=cf, gated=True)
+        r_cpu = route(cpu, x.reshape(T, d), top_k=k, capacity_factor=cf)
+        r_gpu = route(gpu, x.reshape(T, d).to("cuda"), top_k=k, capacity_factor=cf)
+        want = {tuple(p) for p in r_cpu.kept_pairs().tolist()}
+        got = {tuple(p) for p in r_gpu.kept_pairs().tolist()}
+        moved = sorted({t for t, _ in want ^ got})
+        srt = torch.sort(r_cpu.probs, dim=-1, descending=True).values
+        margin = (srt[:, k - 1] - srt[:, k]).tolist()
+        flipped = [t for t in range(T) if set(r_cpu.gate_idx[t].tolist())
+                   != set(r_gpu.gate_idx[t].cpu().tolist())]
+        if dtype == torch.float32:
+            ties = [dict(token=t, margin=margin[t]) for t in flipped]
+            beyond = any(m["margin"] >= MOE_TIE for m in ties)
+            logits_differ = None
+        else:
+            # the bf16 router logits as route computes them, on each side
+            lc = (x.reshape(T, d) @ cpu.router.to(dtype)).float()
+            lg = (x.reshape(T, d).cuda() @ gpu.router.to(dtype)).float().cpu()
+            slack = (lc - lg).abs().amax(dim=1)
+            lsrt = torch.sort(lc, dim=-1, descending=True).values
+            lmargin = lsrt[:, k - 1] - lsrt[:, k]
+            ties = [dict(token=t, logit_margin=float(lmargin[t]), slack=float(slack[t]))
+                    for t in flipped]
+            # equal logits order alike on both sides (stable sort): a flip
+            # needs a rounding difference that can reorder the margin
+            beyond = any(m["slack"] == 0 or m["logit_margin"] > 2 * m["slack"]
+                         for m in ties)
+            logits_differ = float((lc != lg).float().mean())
+        if beyond or (moved and not flipped):
+            raise AssertionError(f"moe-layer {name} T={T}: kept slots differ beyond a "
+                                 f"top-k tie: tokens {moved}, top-k flips {ties}")
+        same = torch.ones(T, dtype=torch.bool)
+        same[moved] = False
+        got_f, ref_f = out.cpu().reshape(T, d).float(), ref.reshape(T, d).float()
+        err = float((got_f - ref_f)[same].abs().max())
+        scale = float(ref_f.abs().max())
+        aux_err = abs(float(aux) - float(ref_aux))
+        tol = MOE_LAYER_TOL if dtype == torch.float32 else MOE_LAYER_TOL_BF16
+        emit(phase="moe-layer", config=cfg.name, dtype=name, rows=T, capacity=r_cpu.capacity,
+             kept_slots=len(want), dropped_slots=T * k - len(want), top_k_flips=ties,
+             tokens_moved=len(moved), min_top_k_margin=min(margin), max_abs_err=err,
+             max_ref=scale, tol=tol, aux_err=aux_err, aux_tol=MOE_AUX_TOL[dtype],
+             router_logits_differ=logits_differ,
+             outputs_bitwise_equal=float((got_f == ref_f)[same].float().mean()))
+        if (not torch.isfinite(out).all() or err > tol * scale
+                or aux_err > MOE_AUX_TOL[dtype]):
+            raise AssertionError(f"moe-layer {name} T={T}: error {err} of max|ref| {scale}, "
+                                 f"aux error {aux_err}")
+
+
+def phase_serve_moe(card: str) -> dict:
+    """launch/workload.py's qwen3_moe_serve_workload: qwen3-moe-30b-a3b at
+    full width and depth, bf16, 8 requests through ServeEngine by
+    whole-prompt admission at exact shapes, run twice in fresh engines. The
+    two runs' streams bitwise equal (the routing's stable sorts, the
+    combine's fixed order and the null page's one writer), every active
+    row's logits finite (checked on the second run), exact launch counts
+    (K1 48 an admission, K5 48 a decode step, K3 97 a pass, K6 none) read
+    around the first; tokens/s, mean TTFT, the isolated decode step (4 slots
+    at 500 cached tokens, CUDA events), pool bytes and peak memory.
+    batched == alone does not hold under MoE capacity and is not run."""
+    from repro_torch.kernels.flash_attention import cuda as fa
+    from repro_torch.kernels.paged_attention import cuda
+    from repro_torch.kernels.rmsnorm import cuda as rn
+    from repro_torch.launch.workload import qwen3_moe_serve_workload
+    from repro_torch.models import decode_step_paged, init_paged_state
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import engine as engine_mod
+
+    wl = qwen3_moe_serve_workload()
+    cfg, rt, ecfg, prompts, new = wl.cfg, wl.rt, wl.ecfg, wl.prompts, wl.new_tokens
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = wl.params("cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    warm = ServeEngine(cfg, params, rt, ecfg, device="cuda")
+    warm.submit(prompts[0][:32], 4)        # warm-up: cuBLAS handles, allocator
+    warm.run()
+    del warm
+    L = cfg.n_layers
+    streams, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
+
+    decode_step, prefill = engine_mod.decode_step_paged, engine_mod.prefill
+
+    def checked_decode(*args, active, **kw):
+        logits = decode_step(*args, active=active, **kw)
+        finite.logical_and_(torch.isfinite(logits[active]).all())
+        return logits
+
+    def checked_prefill(*args, **kw):
+        logits, state = prefill(*args, **kw)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, state
+
+    for run in range(2):
+        eng = ServeEngine(cfg, params, rt, ecfg, device="cuda")
+        rids = [eng.submit(p, new) for p in prompts]
+        for m in (cuda, fa, rn):
+            m.reset_launches()
+        if run:                            # every active row's logits finite
+            engine_mod.decode_step_paged, engine_mod.prefill = checked_decode, checked_prefill
+            try:
+                out = eng.run()
+            finally:
+                engine_mod.decode_step_paged, engine_mod.prefill = decode_step, prefill
+        else:
+            out = eng.run()
+        streams.append([out[r] for r in rids])
+        if run == 0:
+            s = dict(eng.stats)
+            launches = dict(cuda.LAUNCHES)
+            k1, k3 = fa.LAUNCHES[fa.FWD], rn.LAUNCHES["rmsnorm_fwd"]
+            admissions = eng._admit_count
+            pool_bytes = s["kv_pool_bytes_per_device"]
+            token_bytes = eng._kv_bytes_per_page() // ecfg.page_size
+        del eng
+    for i, (a, b) in enumerate(zip(*streams)):
+        if a.shape != (new,) or not ((a >= 0) & (a < cfg.vocab_size)).all():
+            raise AssertionError(f"serve-moe: request {i} produced {a}")
+        if not np.array_equal(a, b):
+            raise AssertionError(f"serve-moe: request {i} differs between two runs: "
+                                 f"{a[:8]} != {b[:8]}")
+    if not bool(finite):
+        raise AssertionError("serve-moe: non-finite logits in an active row")
+    k5 = launches[cuda.DECODE]
+    others = {k: v for k, v in launches.items() if k != cuda.DECODE and v}
+    steps = k5 // L
+    if (k1 != L * admissions or admissions != len(prompts) or others or k5 % L
+            or k3 != (admissions + steps) * (2 * L + 1)):
+        raise AssertionError(f"serve-moe launches: K1 {k1} ({admissions} admissions), "
+                             f"K5 {k5}, K3 {k3}, others {others}")
+    # one decode step at 4 slots of 500 cached tokens, host launches included
+    state = init_paged_state(cfg, 4, rt, num_pages=ecfg.num_pages, page_size=ecfg.page_size,
+                             max_len=ecfg.max_len, device="cuda")
+    width = state["tables"].shape[1]
+    state["tables"].copy_(torch.arange(1, 1 + 4 * width, device="cuda").view(4, width)
+                          .clamp(max=ecfg.num_pages - 1).int())
+    tok = torch.zeros(4, dtype=torch.int32, device="cuda")
+    times = []
+    with torch.no_grad():
+        for _ in range(12):
+            state["lengths"].fill_(500)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            decode_step_paged(cfg, params, state, tok, rt, ecfg.max_len)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    peak = torch.cuda.max_memory_allocated()
+    emit(phase="serve-moe", config=cfg.name, card=card, dtype="bf16",
+         experts=cfg.n_experts, top_k=cfg.experts_top_k, params_bytes=param_bytes,
+         params_init_s=init_s, mem_before_gb=before / 1e9, requests=len(prompts),
+         new_tokens=new, tokens_per_s=s["tokens_per_s"], run_mean_ttft_s=s["run_mean_ttft_s"],
+         wall_s=s["wall_s"], prefill_s=[s["prefill_s"][r] for r in sorted(s["prefill_s"])],
+         prompt_lens=[len(p) for p in prompts], decode_steps=steps,
+         decode_step_ms=statistics.median(times[2:]), admissions=admissions,
+         flash_attention_fwd_launches=k1, paged_decode_launches=k5, rmsnorm_fwd_launches=k3,
+         kv_pool_bytes=pool_bytes, kv_bytes_per_token=token_bytes, peak_mem_gb=peak / 1e9,
+         runs_identical=True, logits_finite=True)
+    del params, state
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "admissions": admissions, "decode_steps": steps,
+            fa.FWD: k1, cuda.DECODE: k5, cuda.PREFILL: launches[cuda.PREFILL],
+            "rmsnorm_fwd": k3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2628,7 +2947,7 @@ def main() -> int:
     from repro_torch.launch.workload import (gemma_train8_workload, gemma_train_workload,
                                              granite_pipe_workload)
 
-    phase_card()
+    card = phase_card()
     phase_build()
     kern = phase_kernels()
     kern.update(phase_kernels_quant())
@@ -2641,6 +2960,7 @@ def main() -> int:
     phase_model()
     phase_model_dense()
     phase_model_spec()
+    phase_model_moe()
     phase_train_parity()
     phase_pipe_parity()
     launches = phase_train(gemma_train_workload(), "train")     # K1-K4
@@ -2667,6 +2987,10 @@ def main() -> int:
         phase_alone(wl, params, rids, out, **draft)
     phase_self_draft(wl, params, whole["bf16"])
     phase_generate_dense(params)
+    del params, draft                      # granite-8b's 16 GB: qwen3-moe needs the room
+    torch.cuda.empty_cache()
+    phase_moe_layer()
+    moe = phase_serve_moe(card)
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kern[name]
@@ -2675,6 +2999,7 @@ def main() -> int:
                          ms=r["kernel_ms"], plain_ms=r["plain_ms"],
                          bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                          library_ms=r["library_ms"]))
+    print(json.dumps({"moe": moe}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

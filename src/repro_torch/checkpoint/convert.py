@@ -6,7 +6,10 @@ nested (``np.asarray`` over ``repro.models.init_params``) or as the flat
 ``"/"``-joined keys that ``repro.checkpoint.ckpt`` writes into its npz
 (``stack/g0/p0/mixer/wq``, ...). The stack's homogeneous storage keeps every
 leaf stacked ``(L, ...)`` under ``stack/g0/p0``; layer ``i`` takes index
-``i``. ``params_to_numpy`` is the inverse, back to the nested JAX layout.
+``i``. A MoE layer's ``ffn`` holds ``router`` (L, d, E), ``w_up`` /
+``w_gate`` (L, E, d, f) and ``w_down`` (L, E, f, d), beside it an optional
+``extra_mlp`` (the shared or dense-residual MLP). ``params_to_numpy`` is
+the inverse, back to the nested JAX layout.
 
 The training state (``repro_torch.train.loop.make_state``) carries across
 whole with ``state_from_jax`` / ``state_to_numpy``: every optimizer entry
@@ -32,6 +35,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Embed, Head, Norm
 from repro_torch.models.lm import LM
+from repro_torch.models.moe import MoE
 from repro_torch.models.stack import Block, Stack, check_served
 
 # (flat key, tensor, layer index into the stacked (L, ...) leaf or None)
@@ -155,15 +159,25 @@ def params_from_jax(
         bias = t(pick(p["bias"]), torch.float32) if "bias" in p else None
         return Norm(t(pick(p["scale"]), torch.float32), bias)
 
+    def mlp(f, i):
+        return MLP(t(f["w_up"][i], dtype), t(f["w_down"][i], dtype),
+                   t(f["w_gate"][i], dtype) if "w_gate" in f else None)
+
     blocks = []
     for i in range(cfg.n_layers):
         m, f = layers["mixer"], layers["ffn"]
+        if "router" in f:
+            ffn = MoE(t(f["router"][i], dtype), t(f["w_up"][i], dtype),
+                      t(f["w_down"][i], dtype),
+                      t(f["w_gate"][i], dtype) if "w_gate" in f else None)
+        else:
+            ffn = mlp(f, i)
         blocks.append(Block(
             norm(layers["norm1"], i),
             Attention(*(t(m[k][i], dtype) for k in ("wq", "wk", "wv", "wo"))),
             norm(layers["norm2"], i),
-            MLP(t(f["w_up"][i], dtype), t(f["w_down"][i], dtype),
-                t(f["w_gate"][i], dtype) if "w_gate" in f else None),
+            ffn,
+            mlp(layers["extra_mlp"], i) if "extra_mlp" in layers else None,
         ))
     embed_dtype = torch.float32 if cfg.tie_embeddings else dtype
     head = None if cfg.tie_embeddings else Head(t(tree["head"]["w"], torch.float32))

@@ -1,8 +1,9 @@
 """Where the serving time goes on the card: granite-8b, the chip smoke's
-serving workload, under ``torch.profiler``.
+serving workload, or qwen3-moe-30b-a3b's, under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--out DIR] \
         [--kv-dtype bf16|int8|fp8] [--admission chunked|whole ...] [--spec K]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload qwen3-moe
 
 Runs ``workload.granite_serve_workload(kv_dtype=...)`` (the workload of
 ``chip_smoke.py``'s serve phases; ``--admission whole`` its whole-prompt
@@ -18,6 +19,14 @@ by prompt lookup): its row also gives the spec counters, decode steps
 against verify ticks (K5 and K6 launches a layer) and the isolated time of
 one verify pass (4 slots at 500 cached tokens, K + 1 rows). The full
 operator table goes to ``DIR/<admission>`` (``DIR/spec``).
+
+``--workload qwen3-moe`` profiles ``workload.qwen3_moe_serve_workload``
+(whole-prompt admission at exact shapes) instead, into ``DIR/moe``. Its row
+splits the MoE layers' device time into the expert products (the kernels
+that ``aten::bmm`` launched) and the routing's own kernels (softmax, the
+top-k and slot sorts, bincount, searchsorted), and adds the isolated time of
+one layer's ``moe_apply`` at the decode step's 4 rows, of its three expert
+products alone, and the byte floor of a step that reads every expert.
 """
 from __future__ import annotations
 
@@ -46,9 +55,14 @@ def _pool(name: str) -> str:
     return " int8" if "signed char" in name else ""
 
 
-def _family(name: str) -> str:
+ROUTING = ("softmax", "sort", "histogram", "bincount", "searchsorted")
+
+
+def _family(name: str, moe: bool = False) -> str:
     """K5 / K6 by op: the split kernels by pool variant, the combines (which
-    never read the pool) apart; then the model's other kernels by kind."""
+    never read the pool) apart; then the model's other kernels by kind (for
+    a MoE config, the router's softmax, sorts, bincount and searchsorted as
+    routing; a dense config's families are as before)."""
     for op, k in (("paged_decode", "K5"), ("paged_prefill", "K6")):
         if op in name:
             if "combine" in name:
@@ -59,6 +73,8 @@ def _family(name: str) -> str:
     if "rmsnorm_fwd" in name:
         return "K3 rmsnorm_fwd"
     low = name.lower()
+    if moe and any(k in low for k in ROUTING):
+        return "MoE routing (softmax, sort, bincount, searchsorted)"
     if any(k in low for k in ("gemm", "gemv", "nvjet", "cutlass", "splitkreduce")):
         return "matmul (cuBLAS)"
     if "index" in low or "scatter" in low:
@@ -110,9 +126,13 @@ def profile_one(wl, params, card: str, out: Path) -> dict:
             continue
         us = _self_device_us(evt)
         busy_us += us
-        fam = families.setdefault(_family(evt.key), {"ms": 0.0, "calls": 0})
+        fam = families.setdefault(_family(evt.key, cfg.ffn_kind == "moe"), {"ms": 0.0, "calls": 0})
         fam["ms"] += us / 1e3
         fam["calls"] += evt.count
+    # the expert products: the kernels whose launching op is aten::bmm (the
+    # serving path's one batched product)
+    bmm_us = sum(k.duration for evt in prof.events() if evt.name == "aten::bmm"
+                 for k in evt.kernels)
     out.mkdir(parents=True, exist_ok=True)
     (out / "key_averages.txt").write_text(averages.table(
         sort_by="self_cuda_time_total", row_limit=60))
@@ -156,6 +176,8 @@ def profile_one(wl, params, card: str, out: Path) -> dict:
         if k:
             verify()
             times["verify_step_ms"] = _events_ms(verify)
+        if cfg.ffn_kind == "moe":
+            times.update(_moe_times(cfg, params))
     launches, L = stats["kernel_launches"], cfg.n_layers
     pool = "" if ecfg.kv_dtype == "bf16" else f"_{ecfg.kv_dtype}"
     spec = {}
@@ -164,8 +186,13 @@ def profile_one(wl, params, card: str, out: Path) -> dict:
         spec.update(spec_tokens=k, spec_drafter=ecfg.spec_drafter,
                     spec_accept_rate=stats["spec_accept_rate"],
                     spec_accepted_per_verify=stats["spec_accepted_per_verify"])
+    moe = {}
+    if cfg.ffn_kind == "moe":
+        moe = {"moe_expert_bmm_ms": bmm_us / 1e3,
+               "moe_routing_ms": sum(f["ms"] for n, f in families.items()
+                                     if n.startswith("MoE routing"))}
     return {
-        "card": card, "config": cfg.name, "kv_dtype": ecfg.kv_dtype,
+        "card": card, "config": cfg.name, "kv_dtype": ecfg.kv_dtype, **moe,
         "admission": "chunked" if ecfg.prefill_chunk else "whole", **spec,
         "decode_steps": launches[f"paged_decode_attention{pool}"] // L,
         "verify_ticks": launches[f"paged_prefill_attention{pool}"] // L if k else 0,
@@ -179,6 +206,37 @@ def profile_one(wl, params, card: str, out: Path) -> dict:
     }
 
 
+def _moe_times(cfg, params) -> dict:
+    """Layer 0's moe_apply at the decode step's 4 rows, its three expert
+    products alone (at the capacity of 4 rows), and the byte floor of a
+    decode step that reads every expert's weights (JAX's dense (E, C, d)
+    buffer) at the card's memory rate."""
+    from repro_torch.launch.timing import HBM_BYTES_PER_S
+    from repro_torch.models.moe import capacity, moe_apply
+
+    moe = params.stack.layers[0].ffn
+    E, d, f = moe.w_up.shape
+    x = torch.randn(4, 1, d, device="cuda").to(moe.w_up.dtype)
+    C = capacity(4, cfg.experts_top_k, E, cfg.capacity_factor)
+    xin = torch.randn(E, C, d, device="cuda").to(moe.w_up.dtype)
+
+    def layer():
+        moe_apply(moe, x, top_k=cfg.experts_top_k, capacity_factor=cfg.capacity_factor,
+                  gated=cfg.mlp_gated)
+
+    def experts():
+        h = torch.nn.functional.silu(torch.bmm(xin, moe.w_gate)) * torch.bmm(xin, moe.w_up)
+        torch.bmm(h, moe.w_down)
+
+    layer(), experts()
+    expert_bytes = cfg.n_layers * sum(w.numel() * w.element_size()
+                                      for w in (moe.w_up, moe.w_gate, moe.w_down))
+    return {"moe_layer_decode_ms": _events_ms(layer),
+            "moe_experts_decode_ms": _events_ms(experts),
+            "moe_expert_bytes_step": expert_bytes,
+            "moe_expert_floor_ms": expert_bytes / HBM_BYTES_PER_S * 1e3}
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="profile_serve_out")
@@ -189,12 +247,16 @@ def main(argv=None) -> None:
                          "admission, profiled in this order with the same weights")
     ap.add_argument("--spec", type=int, default=0, metavar="K",
                     help="then the speculative workload: K drafts a slot a tick")
+    ap.add_argument("--workload", default="granite", choices=("granite", "qwen3-moe"),
+                    help="qwen3-moe: qwen3_moe_serve_workload (whole prompts; "
+                         "--admission, --kv-dtype and --spec do not apply)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the card; CUDA is not available")
 
     from repro_torch.launch.workload import (granite_serve_spec_workload,
-                                             granite_serve_workload)
+                                             granite_serve_workload,
+                                             qwen3_moe_serve_workload)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -207,6 +269,8 @@ def main(argv=None) -> None:
     if args.spec:
         runs.append(("spec", granite_serve_spec_workload(kv_dtype=args.kv_dtype,
                                                          spec_tokens=args.spec)))
+    if args.workload == "qwen3-moe":
+        runs = [("moe", qwen3_moe_serve_workload())]
     for name, wl in runs:
         if params is None:
             params = wl.params("cuda")

@@ -10,6 +10,10 @@ engine, or batched dense generation.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
         --paged --prefill-chunk 8 --device cpu --kv-dtype int8
 
+    # full qwen3-moe-30b-a3b (128 experts, top-8) on the card
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --arch qwen3-moe-30b-a3b --paged --temperature 0
+
     # speculative decoding: 3 drafts a slot a tick, verified in one K6 pass
     # (greedy), by prompt lookup or by a paired 1-layer drafter model
     PYTHONPATH=src python -m repro_torch.launch.serve --arch granite-8b \
@@ -24,7 +28,9 @@ length (uniform in ``[prompt_len // 2, prompt_len]``, after an optional
 shared system prompt) are admitted into ``--slots`` decode slots over the
 paged KV pool and decoded together; a request is prefilled whole (padded to
 a multiple of ``--page-size``), or in chunks of ``--prefill-chunk`` tokens,
-or through the prefix cache (``--prefix-cache``). Without it, ``--batch``
+or through the prefix cache (``--prefix-cache``); for a MoE config the
+engine warns that expert capacity counts the pad rows, as JAX's launcher
+leaves it. Without it, ``--batch``
 random prompts of ``--prompt-len`` tokens generate together through
 ``train.serve.generate``. It runs on CUDA unless ``--device cpu`` is given,
 and in bf16 at full size (``--full``), f32 when reduced. ``--kv-dtype

@@ -14,6 +14,12 @@ whole-prompt prefill (``prefill_chunk`` 0, prompts padded to a bucket of
 (``spec_tokens`` 4, the ngram drafter by default): every tick is one verify
 pass, one K6 launch a layer, and no K5 unless the drafter is the paired
 1-layer model, whose steps run K5.
+``qwen3_moe_serve_workload`` serves qwen3-moe-30b-a3b at full width and
+depth (48 layers, d 2048, 128 experts top-8 of hidden 768, 32 query heads
+over 4 kv heads of hd 128, vocabulary 151,936) in bf16, random weights from
+seed 0, with the same requests, slots and page size, admitted whole at exact
+shapes (``prefill_bucket`` 0: the router's expert capacity counts pad rows);
+its bf16 pool holds 98,304 bytes a token.
 
 Training: gemma3-1b at full width and depth (26 layers, d 1152, 4 query
 heads over 1 kv head of hd 256, window 512 on 22 layers, tied vocabulary of
@@ -62,20 +68,26 @@ class ServeWorkload:
                            dtype=self.rt.dtype)
 
 
-def granite_serve_workload(seed: int = 0, kv_dtype: str = "bf16",
-                           prefill_chunk: int = 128) -> ServeWorkload:
-    cfg = get_config("granite-8b")
+def _serve_workload(name: str, seed: int, kv_dtype: str, prefill_chunk: int,
+                    prefill_bucket: int) -> ServeWorkload:
+    cfg = get_config(name)
     new_tokens, slots, page = 64, 4, 16
     ecfg = EngineConfig.capacity(
         512, new_tokens, slots=slots, page_size=page, headroom=2.0, cfg=cfg,
         kv_dtype=kv_dtype,
-    ).engine(prefill_chunk=prefill_chunk, prefill_bucket=0 if prefill_chunk else 128,
+    ).engine(prefill_chunk=prefill_chunk, prefill_bucket=prefill_bucket,
              inner_steps=8, temperature=0.0, seed=seed)
     rng = np.random.RandomState(seed)
     prompts = [rng.randint(0, cfg.vocab_size, (int(n),)).astype(np.int32)
                for n in rng.randint(128, 513, size=8)]
     rt = Runtime(dtype=torch.bfloat16, kv_dtype=normalize_kv_dtype(kv_dtype))
     return ServeWorkload(cfg, rt, ecfg, prompts, new_tokens, seed)
+
+
+def granite_serve_workload(seed: int = 0, kv_dtype: str = "bf16",
+                           prefill_chunk: int = 128) -> ServeWorkload:
+    return _serve_workload("granite-8b", seed, kv_dtype, prefill_chunk,
+                           0 if prefill_chunk else 128)
 
 
 def granite_serve_whole_workload(seed: int = 0, kv_dtype: str = "bf16") -> ServeWorkload:
@@ -86,6 +98,10 @@ def granite_serve_spec_workload(seed: int = 0, kv_dtype: str = "bf16", spec_toke
                                 drafter: str = "ngram") -> ServeWorkload:
     wl = granite_serve_whole_workload(seed, kv_dtype)
     return replace(wl, ecfg=replace(wl.ecfg, spec_tokens=spec_tokens, spec_drafter=drafter))
+
+
+def qwen3_moe_serve_workload(seed: int = 0) -> ServeWorkload:
+    return _serve_workload("qwen3-moe-30b-a3b", seed, "bf16", 0, 0)
 
 
 @dataclass(frozen=True)

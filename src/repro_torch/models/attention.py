@@ -253,6 +253,20 @@ def attention_prefill_paged(
     return out @ p.wo.to(dtype)
 
 
+def null_writer(tables: torch.Tensor, lengths: torch.Tensor, active: torch.Tensor,
+                page: int) -> torch.Tensor:
+    """(B,) the row whose K/V each decode row writes: its own where it writes
+    its page, else the last row that writes the null page's (0, 0). Every
+    write to (0, 0) then carries the same values, so the pool holds what
+    JAX's scatter (and the CPU's in-order write) leaves there, the last such
+    row's, where the card's duplicate stores would leave any one of them. An
+    inactive row attends that place (a free slot's only key), and under MoE
+    its output takes expert capacity from the active rows."""
+    ok = active & (lengths // page < tables.shape[1])
+    b = torch.arange(ok.shape[0], device=ok.device)
+    return torch.where(ok, b, torch.where(ok, -1, b).max())
+
+
 def attention_decode_paged(
     p: Attention,
     x: torch.Tensor,
@@ -269,13 +283,16 @@ def attention_decode_paged(
     window: int = 0,
     ksc: Optional[torch.Tensor] = None,
     vsc: Optional[torch.Tensor] = None,
+    null_src: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One decode token per slot against the paged pool (written in place).
 
     x: (B, 1, d); lengths: (B,) int32 tokens already cached per slot (the
     new token's position); active: (B,) bool — inactive slots write the null
     page and their output is garbage by contract. Pools and scale pools as in
-    :func:`attention_prefill_paged`. Returns (B, 1, d)."""
+    :func:`attention_prefill_paged`. ``null_src`` (B,) (``null_writer``)
+    makes the rows that share the null page's (0, 0) write one row's K/V.
+    Returns (B, 1, d)."""
     B = x.shape[0]
     dtype = x.dtype
     G = n_heads // n_kv
@@ -294,6 +311,8 @@ def attention_decode_paged(
     )[:, 0]
     page_ids = torch.where(ok, page_ids, 0).long()
     slot = torch.where(ok, lengths % page, 0).long()
+    if null_src is not None:
+        k_new, v_new = k_new[null_src], v_new[null_src]
     scales = _write_rows(kp, vp, ksc, vsc, page_ids, slot, k_new[:, 0], v_new[:, 0])
 
     q = q.reshape(B, n_kv, G, head_dim) * (head_dim ** -0.5)

@@ -37,12 +37,14 @@ def frozen(t: torch.Tensor) -> nn.Parameter:
 # --------------------------------------------------------------------- init
 def dense_init(
     gen: torch.Generator, d_in: int, d_out: int, *, dtype=torch.float32,
-    scale: float = 1.0,
+    scale: float = 1.0, lead: int = 0,
 ) -> torch.Tensor:
     """Truncated-normal fan-in init on ``gen``'s device, drawn in f32 and
-    stored at ``dtype``. Matches ``repro.models.layers.dense_init`` in
+    stored at ``dtype``; ``lead`` > 0 draws that many matrices stacked on a
+    leading axis (MoE experts). Matches ``repro.models.layers.dense_init`` in
     distribution, not bit for bit."""
-    w = torch.empty(d_in, d_out, dtype=torch.float32, device=gen.device)
+    shape = (lead, d_in, d_out) if lead else (d_in, d_out)
+    w = torch.empty(shape, dtype=torch.float32, device=gen.device)
     nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
     return (w * (scale / math.sqrt(d_in))).to(dtype)
 

@@ -56,10 +56,10 @@ def init_params(
 ) -> LM:
     """Random parameters on ``device`` from ``torch.Generator(seed)``: the
     same tree and the same distributions as ``repro.models.init_params``
-    (truncated-normal fan-in matrices, 0.02-normal embeddings, unit norm
-    scales), not the same bits. Matmul weights are stored at ``dtype``; norm
-    scales, the head and a tied embedding table stay f32, as the logits and
-    norms read them in f32."""
+    (truncated-normal fan-in matrices, MoE expert stacks among them,
+    0.02-normal embeddings, unit norm scales), not the same bits. Matmul
+    weights are stored at ``dtype``; norm scales, the head and a tied
+    embedding table stay f32, as the logits and norms read them in f32."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     stack_mod.check_served(cfg)
@@ -119,10 +119,11 @@ def loss_fn(
     cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], rt: Runtime,
     z_loss: float = Z_LOSS_DEFAULT,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Next-token cross entropy + z-loss (+ router aux, 0 for the dense
-    families). Labels -1 are masked. ``rt.fused_backward`` picks the
-    vocab-chunked CE head (same loss and grads, never (B, S, V) at once)
-    over the dense f32 logits head; kernels route by device either way."""
+    """Next-token cross entropy + z-loss + ``router_aux_coef`` x the MoE
+    layers' router aux (0 for the dense families). Labels -1 are masked.
+    ``rt.fused_backward`` picks the vocab-chunked CE head (same loss and
+    grads, never (B, S, V) at once) over the dense f32 logits head; kernels
+    route by device either way."""
     h, aux = forward_hidden(cfg, params, batch, rt)
     labels = batch["labels"]
     safe = torch.clamp(labels, min=0)
@@ -164,6 +165,7 @@ def pipeline_fns(cfg: ArchConfig, rt: Runtime):
     why = stack_mod.pipeline_incompatibility(cfg)
     if why is not None:
         raise ValueError(f"{cfg.name}: {why}")
+    stack_mod.check_staged(cfg)
     kind = cfg.pattern[0]
     spec = LayerSpec(kind, cfg.sliding_window if kind == "local" else 0, 0)
 

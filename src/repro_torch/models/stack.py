@@ -1,6 +1,8 @@
 """Decoder stack: the full-sequence forward (training, and whole-prompt
 prefill with collected caches), the dense ring-cache decode and the paged
-serving steps, over per-layer blocks.
+serving steps, over per-layer blocks whose FFN is a dense MLP or a MoE
+(``models/moe.py``, with an optional always-on ``extra_mlp``); the forward
+sums the MoE layers' router aux, the serving steps drop it, as JAX does.
 
 Counterpart of ``stack_forward``, ``write_prefill_to_pool``,
 ``stack_decode`` (dense and paged), the paged prefill and the pipeline stage
@@ -28,7 +30,7 @@ A pipeline stage is a slice of ``Stack.layers`` (the counterpart of
 from __future__ import annotations
 
 import functools
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -37,6 +39,7 @@ from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_conte
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention import quant
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import MLP, Norm, mlp_apply, norm_apply
 from repro_torch.models.runtime import Runtime
 
@@ -73,14 +76,14 @@ def layer_specs(
 
 
 def check_served(cfg: ArchConfig) -> None:
-    """Raise for what the port does not run yet: non-attention mixers,
-    MoE or no FFN, encoder-decoder and modality-prefix configs."""
+    """Raise for what the port does not run yet: non-attention mixers, no
+    FFN, encoder-decoder and modality-prefix configs."""
     if not all(k in ("attn", "local") for k in cfg.pattern) or not cfg.n_heads:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.pattern} mixers are ROADMAP queue 1 item 4, "
             "'the other families'"
         )
-    if cfg.ffn_kind != "dense" or cfg.is_encdec or cfg.frontend is not None:
+    if cfg.ffn_kind == "none" or cfg.is_encdec or cfg.frontend is not None:
         raise NotImplementedError(
             f"{cfg.name}: ffn={cfg.ffn_kind!r}, enc-dec or frontend "
             f"{cfg.frontend!r} is ROADMAP queue 1 item 4, 'the other families'"
@@ -89,23 +92,36 @@ def check_served(cfg: ArchConfig) -> None:
 
 # -------------------------------------------------------------------- blocks
 class Block(nn.Module):
-    """One decoder layer: norm1 -> attention -> norm2 -> dense FFN."""
+    """One decoder layer: norm1 -> attention -> norm2 -> FFN, the FFN a
+    dense MLP or a MoE (``ffn_kind``). A MoE block may hold ``extra_mlp``,
+    one always-on gated MLP whose output adds to the routed one: the shared
+    experts and Arctic's dense residual FFN, their hidden units concatenated
+    (exact for independent gated MLPs, as in JAX)."""
 
-    def __init__(self, norm1: Norm, mixer: attn_mod.Attention, norm2: Norm, ffn: MLP):
+    def __init__(self, norm1: Norm, mixer: attn_mod.Attention, norm2: Norm,
+                 ffn: Union[MLP, moe_mod.MoE], extra_mlp: Optional[MLP] = None):
         super().__init__()
         self.norm1, self.mixer, self.norm2, self.ffn = norm1, mixer, norm2, ffn
+        self.extra_mlp = extra_mlp
 
     @classmethod
     def init(cls, cfg: ArchConfig, gen: torch.Generator, dtype) -> "Block":
         dev = gen.device
-        return cls(
-            Norm.init(cfg.norm, cfg.d_model, dev),
-            attn_mod.Attention.init(
-                gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype
-            ),
-            Norm.init(cfg.norm, cfg.d_model, dev),
-            MLP.init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype),
+        norm1 = Norm.init(cfg.norm, cfg.d_model, dev)
+        mixer = attn_mod.Attention.init(
+            gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype
         )
+        norm2 = Norm.init(cfg.norm, cfg.d_model, dev)
+        if cfg.ffn_kind == "dense":
+            return cls(norm1, mixer, norm2,
+                       MLP.init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype))
+        ffn = moe_mod.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.mlp_gated,
+                               dtype)
+        extra = cfg.n_shared_experts * cfg.d_ff + (
+            cfg.residual_d_ff if cfg.dense_residual else 0
+        )
+        return cls(norm1, mixer, norm2, ffn,
+                   MLP.init(gen, cfg.d_model, extra, cfg.mlp_gated, dtype) if extra else None)
 
 
 class Stack(nn.Module):
@@ -119,9 +135,26 @@ class Stack(nn.Module):
         return cls([Block.init(cfg, gen, dtype) for _ in range(cfg.n_layers)])
 
 
-def _ffn_apply(cfg: ArchConfig, p: Block, x: torch.Tensor) -> torch.Tensor:
+def _ffn_apply(
+    cfg: ArchConfig, p: Block, x: torch.Tensor
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Residual FFN. Returns (x, aux): aux is a MoE layer's router loss, None
+    for a dense layer (JAX's zero, left out of the sums)."""
     h = norm_apply(p.norm2, x, cfg.norm)
-    return x + mlp_apply(p.ffn, h, cfg.mlp_gated)
+    if cfg.ffn_kind == "dense":
+        return x + mlp_apply(p.ffn, h, cfg.mlp_gated), None
+    out, aux = moe_mod.moe_apply(p.ffn, h, top_k=cfg.experts_top_k,
+                                 capacity_factor=cfg.capacity_factor, gated=cfg.mlp_gated)
+    if p.extra_mlp is not None:
+        out = out + mlp_apply(p.extra_mlp, h, cfg.mlp_gated)
+    return x + out, aux
+
+
+def _add_aux(total: Optional[torch.Tensor], aux: Optional[torch.Tensor]):
+    """total + aux, where None stands for a dense layer's zero."""
+    if aux is None:
+        return total
+    return aux if total is None else total + aux
 
 
 # --------------------------------------------------------------------- pools
@@ -175,9 +208,9 @@ def _layer_scales(pools: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Ten
 def _layer_apply(
     cfg: ArchConfig, bp: Block, x: torch.Tensor, spec: LayerSpec,
     positions: torch.Tensor, causal: bool, cache_len: int = 0,
-) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """One layer; with ``cache_len`` > 0 also its ring of that many rows,
-    filled from the k/v that attention consumed."""
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
+    """One layer: (x, aux, cache); with ``cache_len`` > 0 the cache is its
+    ring of that many rows, filled from the k/v that attention consumed."""
     h = norm_apply(bp.norm1, x, cfg.norm)
     out, kv = attn_mod.attention_apply(
         bp.mixer, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
@@ -192,13 +225,16 @@ def _layer_apply(
                                    cfg.head_dim, k.dtype, k.device),
             k, kv["v"], positions,
         )
-    return _ffn_apply(cfg, bp, x + out), cache
+    x, aux = _ffn_apply(cfg, bp, x + out)
+    return x, aux, cache
 
 
 def _group_apply(cfg, blocks, specs, positions, causal, x):
+    total = None
     for bp, spec in zip(blocks, specs):
-        x, _ = _layer_apply(cfg, bp, x, spec, positions, causal)
-    return x
+        x, aux, _ = _layer_apply(cfg, bp, x, spec, positions, causal)
+        total = _add_aux(total, aux)
+    return x, total
 
 
 def _save_matmuls():
@@ -219,10 +255,11 @@ def stack_forward(
     cache_specs: Optional[Tuple[LayerSpec, ...]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[List[Dict[str, torch.Tensor]]]]:
     """Full-sequence forward. x: (B, S, d) embedded. Returns (x, aux,
-    caches): the router aux loss is 0 for the dense families served, and
-    ``caches`` (with ``collect_cache``, else None) holds one ring per layer,
-    of ``cache_specs[i].cache_len`` rows (default ``specs``), so a prefill
-    can size its caches for a longer decode horizon. Collection is for
+    caches): aux is the sum of the MoE layers' router losses (0 for a dense
+    stack), and ``caches`` (with ``collect_cache``, else None) holds one
+    ring per layer, of ``cache_specs[i].cache_len`` rows (default
+    ``specs``), so a prefill can size its caches for a longer decode
+    horizon. Collection is for
     serving: it runs the layers without remat."""
     check_served(cfg)
     if memory is not None:
@@ -234,26 +271,36 @@ def stack_forward(
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     layers = list(stack.layers)
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    total = None
+    caches = None
     if collect_cache:
         cache_specs = specs if cache_specs is None else cache_specs
         caches = []
         for bp, spec, cspec in zip(layers, specs, cache_specs):
-            x, cache = _layer_apply(cfg, bp, x, spec, positions, causal,
-                                    cache_len=cspec.cache_len)
+            x, aux, cache = _layer_apply(cfg, bp, x, spec, positions, causal,
+                                         cache_len=cspec.cache_len)
+            total = _add_aux(total, aux)
             caches.append(cache)
-        return x, zero, caches
-    k = rt.remat_period
-    for i in range(0, len(layers), k):
-        fn = functools.partial(_group_apply, cfg, layers[i:i + k], specs[i:i + k],
-                               positions, causal)
-        if rt.remat == "none":
-            x = fn(x)
-        elif rt.remat == "full":
-            x = checkpoint(fn, x, use_reentrant=False)
-        else:
-            x = checkpoint(fn, x, use_reentrant=False, context_fn=_save_matmuls)
-    return x, zero, None
+    else:
+        k = rt.remat_period
+        for i in range(0, len(layers), k):
+            fn = functools.partial(_group_apply, cfg, layers[i:i + k], specs[i:i + k],
+                                   positions, causal)
+            x, aux = _remat(rt, fn, x)
+            total = _add_aux(total, aux)
+    if total is None:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, total, caches
+
+
+def _remat(rt: Runtime, fn, x):
+    """``fn(x)`` under ``rt.remat``: as is, or checkpointed (``dots`` also
+    saves every matmul output)."""
+    if rt.remat == "none":
+        return fn(x)
+    if rt.remat == "full":
+        return checkpoint(fn, x, use_reentrant=False)
+    return checkpoint(fn, x, use_reentrant=False, context_fn=_save_matmuls)
 
 
 def write_prefill_to_pool(
@@ -301,7 +348,7 @@ def stack_prefill_paged(
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
             theta=cfg.rope_theta, window=spec.window, **_layer_scales(pools, i),
         )
-        x = _ffn_apply(cfg, bp, x)
+        x, _ = _ffn_apply(cfg, bp, x)
     return x
 
 
@@ -330,19 +377,23 @@ def stack_decode(
                 bp.mixer, hn, cache, t, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                 head_dim=cfg.head_dim, theta=cfg.rope_theta, window=spec.window,
             )
-            x = _ffn_apply(cfg, bp, x)
+            x, _ = _ffn_apply(cfg, bp, x)
         return x
     pools, lengths = caches, t
     if active is None:
         active = torch.ones(lengths.shape, dtype=torch.bool, device=x.device)
+    # MoE couples the rows: an inactive row's null-page read must not race
+    null_src = (attn_mod.null_writer(tables, lengths, active, pools["k"].shape[2])
+                if cfg.ffn_kind == "moe" else None)
     for i, (bp, spec) in enumerate(zip(stack.layers, specs)):
         hn = norm_apply(bp.norm1, x, cfg.norm)
         x = x + attn_mod.attention_decode_paged(
             bp.mixer, hn, pools["k"][i], pools["v"][i], tables, lengths, active,
             n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
-            theta=cfg.rope_theta, window=spec.window, **_layer_scales(pools, i),
+            theta=cfg.rope_theta, window=spec.window, null_src=null_src,
+            **_layer_scales(pools, i),
         )
-        x = _ffn_apply(cfg, bp, x)
+        x, _ = _ffn_apply(cfg, bp, x)
     return x
 
 
@@ -362,6 +413,16 @@ def pipeline_incompatibility(cfg: ArchConfig) -> Optional[str]:
     return None
 
 
+def check_staged(cfg: ArchConfig) -> None:
+    """Raise for a family the port's pipeline stages do not run yet (JAX's
+    stages do): MoE, whose router loss the stage's aux would carry."""
+    if cfg.ffn_kind == "moe":
+        raise NotImplementedError(
+            f"{cfg.name}: MoE inside pipeline stages is not in the PyTorch port yet "
+            "(ROADMAP.md queue 1: item 7, the pipeline)"
+        )
+
+
 def stack_stage_apply(
     cfg: ArchConfig,
     layers: Sequence[Block],
@@ -374,14 +435,10 @@ def stack_stage_apply(
     for the dense families. ``rt.remat`` checkpoints each layer, as JAX's
     ``policy_for(rt.remat)`` wraps its scan body."""
     check_served(cfg)
+    check_staged(cfg)
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     for bp in layers:
         fn = functools.partial(_group_apply, cfg, [bp], [spec], positions, True)
-        if rt.remat == "none":
-            x = fn(x)
-        elif rt.remat == "full":
-            x = checkpoint(fn, x, use_reentrant=False)
-        else:
-            x = checkpoint(fn, x, use_reentrant=False, context_fn=_save_matmuls)
+        x, _ = _remat(rt, fn, x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)

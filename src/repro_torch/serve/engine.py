@@ -53,16 +53,26 @@ policy ``PagePool.truncate`` hands back the pages they no longer need. A
 tick in which a slot is still prefilling in chunks runs the ordinary decode
 steps instead.
 
+A MoE config is served like the dense ones, and its router's expert
+capacity counts every row of a call: a decode step's inactive rows and a
+padded or chunked prompt's rows change which slots the active rows keep. So
+the engine feeds the rows JAX's engine feeds (an emptied slot keeps its last
+token, with table and length 0), and warns, as JAX does, that bucketed or
+chunked prefill (``prefill_bucket``, ``prefill_chunk``, the prefix cache) is
+not token-exact against an exact-shape run; ``batched == alone`` does not
+hold for MoE either.
+
 Not ported yet (each raises ``NotImplementedError`` at construction,
-naming its ROADMAP item): the families whose mixers or FFN are not ported
-(SSM, RG-LRU, MoE, encoder-decoder, modality prefix), and meshes and
-replicated engines.
+naming its ROADMAP item): the families whose mixers are not ported (SSM,
+RG-LRU, encoder-decoder, modality prefix), and meshes and replicated
+engines.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
 import time
+import warnings
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -315,6 +325,16 @@ class ServeEngine:
         self.prefix: Optional[PrefixCache] = (
             PrefixCache(self.pool) if self.paged and engine.prefix_cache else None
         )
+        if self.paged and cfg.ffn_kind == "moe" and (
+                engine.prefill_bucket or engine.prefix_cache or engine.prefill_chunk):
+            warnings.warn(
+                f"{cfg.name}: MoE routing counts pad/chunk tokens in its expert "
+                "capacity, so bucketed or chunked prefill is not guaranteed "
+                "token-exact vs an exact-shape run (attention itself is exact for "
+                "MHA/GQA/MQA; see EngineConfig). Identical engine configs remain "
+                "deterministic.",
+                stacklevel=2,
+            )
         self._next_rid = 0
         self._admit_count = 0
         B = engine.max_slots

@@ -357,9 +357,9 @@ def test_dense_engine_batches_same_shape_requests(models):
                 np.testing.assert_array_equal(out[rid], want[0].numpy())
 
 
-@pytest.mark.parametrize("name", ["falcon-mamba-7b", "qwen3-moe-30b-a3b"])
+@pytest.mark.parametrize("name", ["falcon-mamba-7b", "recurrentgemma-2b"])
 def test_unported_families_still_raise(models, name):
-    """The dense fallback serves the attention families only: an SSM or MoE
+    """The dense fallback serves the attention families only: an SSM or RG-LRU
     config raises at construction, naming ROADMAP item 4."""
     _, _, _, tparams = models("granite-8b")
     for paged in (None, False):

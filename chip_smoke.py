@@ -49,6 +49,12 @@ Phases, in order (any failure exits nonzero and prints no result line):
                prompt's first rows average a few values, |o| up to 2-3);
                timed at granite-8b's 128, 256, 384 and 512 beside the plain
                version and SDPA's causal path, with its bound;
+  3b. kernels vision — bf16 at phi-3-vision-4.2b's serving shapes (32
+               heads of hd 96, G 1): K1 at the whole-prompt admissions (576
+               image rows + the text padded to 128: S 704, 832, 960, 1,088)
+               at kernels-prefill's tolerances, and K5 at the decode step (4
+               slots at 700-1,150 keys) at 4e-3, each timed beside its plain
+               version and SDPA, with its bound;
   4. train kernels — K1 (flash forward), K2 (its delta, dq and dk/dv
                launches), K3 and K4 (RMSNorm forward, backward) against their
                plain versions: f32 on the JAX suites' shapes and hd 96
@@ -96,7 +102,10 @@ Phases, in order (any failure exits nonzero and prints no result line):
                shared expert) and arctic (a dense residual FFN), three
                prefill chunks then four decode steps beside two emptied
                slots, card vs CPU, rtol 1e-3 and every MoE call's kept
-               (token, expert) slots identical;
+               (token, expert) slots identical; then model-vision: reduced
+               phi-3-vision, forward over [image; text], the loss with the
+               image rows dropped, prefill's logits and caches, then the
+               pool written and four paged decode steps, card vs CPU, 1e-3;
   8. train-parity — reduced gemma3-1b, f32 with TF32 off: three training
                steps on the card against the same steps on the CPU, rtol 1e-3,
                with AdamW, and with adam8bit and adam4bit on a 24-layer,
@@ -179,9 +188,20 @@ Phases, in order (any failure exits nonzero and prints no result line):
                row, exact launch counts (K1 48 an admission, K5 48 a decode
                step, K3 97 a pass, K6 none), tokens/s, TTFT, the isolated
                decode step, pool bytes and peak memory (batched == alone
-               does not hold under MoE capacity and is not run).
-Before the last two lines, one JSON line {"moe": ...} gives serve-moe's
-launches. The line before last lists every kernel as JSON; the last line is
+               does not hold under MoE capacity and is not run);
+ 23. serve-vision — launch/workload.py's phi3_vision_serve_workload:
+               phi-3-vision-4.2b at full width and depth, bf16, the serve
+               workload's 8 prompts each behind its own (576, 3072) image,
+               admitted whole (text padded to 128), twice in fresh engines:
+               bitwise-equal streams, finite logits, exact launch counts (K1
+               32 an admission, K5 32 a decode step, K3 65 a pass, K6 none);
+               batched == alone; each stream against the card's dense
+               generate with the same image under the bf16 tie rule; another
+               image moves the first token's logits by more than 4% of
+               max|logit|; tokens/s, TTFT, the isolated decode step, pool
+               bytes and peak memory; run after qwen3-moe's weights are freed.
+Before the last two lines, JSON lines {"moe": ...} and {"vision": ...} give
+serve-moe's and serve-vision's launches. The line before last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -2290,11 +2310,11 @@ def phase_model_spec() -> None:
         raise AssertionError("model-spec: tokens differ beyond an f32 tie: " + "; ".join(failures))
 
 
-def stream_ties(cfg, params, rt, prompts, want, got) -> list:
+def stream_ties(cfg, params, rt, prompts, want, got, images=None) -> list:
     """Each request whose ``got`` stream differs from ``want``: the first
     differing step and the top-2 margin there of the card's own lm.forward
-    over the prompt and the shared prefix (absolute, and relative to
-    max|logit|)."""
+    over the prompt (behind its image, ``images[i]``, for a vision config)
+    and the shared prefix (absolute, and relative to max|logit|)."""
     from repro_torch.models import forward
 
     first = []
@@ -2304,8 +2324,11 @@ def stream_ties(cfg, params, rt, prompts, want, got) -> list:
             continue
         j = int(diff[0])
         seq = torch.from_numpy(np.concatenate([p, w[:j]]).astype(np.int32)[None]).to("cuda")
+        batch = {"tokens": seq}
+        if images is not None:
+            batch["frontend_embeds"] = torch.from_numpy(images[i][None]).to("cuda")
         with torch.no_grad():
-            logits, _ = forward(cfg, params, {"tokens": seq}, rt)
+            logits, _ = forward(cfg, params, batch, rt)
         row = logits[0, -1, :cfg.vocab_size].float()
         m = top2_margin(row)
         first.append(dict(request=i, step=j, margin=m, margin_rel=m / float(row.abs().max())))
@@ -2632,7 +2655,7 @@ def phase_alone(wl, params, rids, out, **draft) -> None:
 
     eng = ServeEngine(wl.cfg, params, wl.rt, wl.ecfg, device="cuda", **draft)
     for i in (0, 5):
-        rid = eng.submit(wl.prompts[i], wl.new_tokens)
+        rid = eng.submit(wl.prompts[i], wl.new_tokens, frontend_embeds=wl.image(i))
         alone = eng.run()[rid]
         if not np.array_equal(alone, out[rids[i]]):
             raise AssertionError(f"request {i} ({wl.ecfg.kv_dtype} pool): batched "
@@ -2821,6 +2844,113 @@ def _moe_layer_compare(cfg, cpu, gpu, dtype) -> None:
                                  f"aux error {aux_err}")
 
 
+def serve_twice(wl, params) -> dict:
+    """The workload's requests (each with its image, for a vision workload)
+    through ServeEngine twice in fresh engines, after a warm-up: both runs'
+    streams, whether every active row's logits were finite (checked on the
+    second run) and, read around the first run, its stats, rids, admissions,
+    K1 and K3 launches and every K5/K6 variant's."""
+    from repro_torch.kernels.flash_attention import cuda as fa
+    from repro_torch.kernels.paged_attention import cuda
+    from repro_torch.kernels.rmsnorm import cuda as rn
+    from repro_torch.serve import ServeEngine
+    from repro_torch.serve import engine as engine_mod
+
+    cfg, rt, ecfg, new = wl.cfg, wl.rt, wl.ecfg, wl.new_tokens
+    warm = ServeEngine(cfg, params, rt, ecfg, device="cuda")
+    warm.submit(wl.prompts[0][:32], 4, frontend_embeds=wl.image(0))   # cuBLAS, allocator
+    warm.run()
+    del warm
+    streams, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
+    decode_step, prefill = engine_mod.decode_step_paged, engine_mod.prefill
+
+    def checked_decode(*args, active, **kw):
+        logits = decode_step(*args, active=active, **kw)
+        finite.logical_and_(torch.isfinite(logits[active]).all())
+        return logits
+
+    def checked_prefill(*args, **kw):
+        logits, state = prefill(*args, **kw)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits, state
+
+    first = {}
+    for run in range(2):
+        eng = ServeEngine(cfg, params, rt, ecfg, device="cuda")
+        rids = [eng.submit(p, new, frontend_embeds=wl.image(i))
+                for i, p in enumerate(wl.prompts)]
+        for m in (cuda, fa, rn):
+            m.reset_launches()
+        if run:                            # every active row's logits finite
+            engine_mod.decode_step_paged, engine_mod.prefill = checked_decode, checked_prefill
+            try:
+                out = eng.run()
+            finally:
+                engine_mod.decode_step_paged, engine_mod.prefill = decode_step, prefill
+        else:
+            out = eng.run()
+            first = dict(stats=dict(eng.stats), rids=rids, launches=dict(cuda.LAUNCHES),
+                         k1=fa.LAUNCHES[fa.FWD], k3=rn.LAUNCHES["rmsnorm_fwd"],
+                         admissions=eng._admit_count,
+                         token_bytes=eng._kv_bytes_per_page() // ecfg.page_size)
+        streams.append([out[r] for r in rids])
+        del eng
+    return dict(first, streams=streams, finite=bool(finite))
+
+
+def check_served_twice(phase: str, wl, runs) -> int:
+    """serve_twice's checks: each stream max_new ids inside the vocab, the
+    two runs bitwise equal, finite logits, and exact launch counts (K1 once a
+    layer an admission, one admission a request, K5 once a layer a decode
+    step, K3 twice a layer and once more a pass, no K6 and no quantized
+    variant). Returns the decode steps."""
+    from repro_torch.kernels.paged_attention import cuda
+
+    cfg, L = wl.cfg, wl.cfg.n_layers
+    for i, (a, b) in enumerate(zip(*runs["streams"])):
+        if a.shape != (wl.new_tokens,) or not ((a >= 0) & (a < cfg.vocab_size)).all():
+            raise AssertionError(f"{phase}: request {i} produced {a}")
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{phase}: request {i} differs between two runs: "
+                                 f"{a[:8]} != {b[:8]}")
+    if not runs["finite"]:
+        raise AssertionError(f"{phase}: non-finite logits in an active row")
+    k1, k3, admissions = runs["k1"], runs["k3"], runs["admissions"]
+    k5 = runs["launches"][cuda.DECODE]
+    others = {k: v for k, v in runs["launches"].items() if k != cuda.DECODE and v}
+    steps = k5 // L
+    if (k1 != L * admissions or admissions != len(wl.prompts) or others or k5 % L
+            or k3 != (admissions + steps) * (2 * L + 1)):
+        raise AssertionError(f"{phase} launches: K1 {k1} ({admissions} admissions), "
+                             f"K5 {k5}, K3 {k3}, others {others}")
+    return steps
+
+
+def isolated_decode_ms(wl, params, length: int) -> float:
+    """One decode step at 4 slots of ``length`` cached tokens, host launches
+    included (CUDA events, median of 10 after 2 warm-ups)."""
+    from repro_torch.models import decode_step_paged, init_paged_state
+
+    cfg, rt, ecfg = wl.cfg, wl.rt, wl.ecfg
+    state = init_paged_state(cfg, 4, rt, num_pages=ecfg.num_pages, page_size=ecfg.page_size,
+                             max_len=ecfg.max_len, device="cuda")
+    width = state["tables"].shape[1]
+    state["tables"].copy_(torch.arange(1, 1 + 4 * width, device="cuda").view(4, width)
+                          .clamp(max=ecfg.num_pages - 1).int())
+    tok = torch.zeros(4, dtype=torch.int32, device="cuda")
+    times = []
+    with torch.no_grad():
+        for _ in range(12):
+            state["lengths"].fill_(length)
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            decode_step_paged(cfg, params, state, tok, rt, ecfg.max_len)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    return statistics.median(times[2:])
+
+
 def phase_serve_moe(card: str) -> dict:
     """launch/workload.py's qwen3_moe_serve_workload: qwen3-moe-30b-a3b at
     full width and depth, bf16, 8 requests through ServeEngine by
@@ -2834,14 +2964,10 @@ def phase_serve_moe(card: str) -> dict:
     batched == alone does not hold under MoE capacity and is not run."""
     from repro_torch.kernels.flash_attention import cuda as fa
     from repro_torch.kernels.paged_attention import cuda
-    from repro_torch.kernels.rmsnorm import cuda as rn
     from repro_torch.launch.workload import qwen3_moe_serve_workload
-    from repro_torch.models import decode_step_paged, init_paged_state
-    from repro_torch.serve import ServeEngine
-    from repro_torch.serve import engine as engine_mod
 
     wl = qwen3_moe_serve_workload()
-    cfg, rt, ecfg, prompts, new = wl.cfg, wl.rt, wl.ecfg, wl.prompts, wl.new_tokens
+    cfg, prompts = wl.cfg, wl.prompts
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2849,95 +2975,238 @@ def phase_serve_moe(card: str) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     param_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
-    warm = ServeEngine(cfg, params, rt, ecfg, device="cuda")
-    warm.submit(prompts[0][:32], 4)        # warm-up: cuBLAS handles, allocator
-    warm.run()
-    del warm
-    L = cfg.n_layers
-    streams, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
-
-    decode_step, prefill = engine_mod.decode_step_paged, engine_mod.prefill
-
-    def checked_decode(*args, active, **kw):
-        logits = decode_step(*args, active=active, **kw)
-        finite.logical_and_(torch.isfinite(logits[active]).all())
-        return logits
-
-    def checked_prefill(*args, **kw):
-        logits, state = prefill(*args, **kw)
-        finite.logical_and_(torch.isfinite(logits).all())
-        return logits, state
-
-    for run in range(2):
-        eng = ServeEngine(cfg, params, rt, ecfg, device="cuda")
-        rids = [eng.submit(p, new) for p in prompts]
-        for m in (cuda, fa, rn):
-            m.reset_launches()
-        if run:                            # every active row's logits finite
-            engine_mod.decode_step_paged, engine_mod.prefill = checked_decode, checked_prefill
-            try:
-                out = eng.run()
-            finally:
-                engine_mod.decode_step_paged, engine_mod.prefill = decode_step, prefill
-        else:
-            out = eng.run()
-        streams.append([out[r] for r in rids])
-        if run == 0:
-            s = dict(eng.stats)
-            launches = dict(cuda.LAUNCHES)
-            k1, k3 = fa.LAUNCHES[fa.FWD], rn.LAUNCHES["rmsnorm_fwd"]
-            admissions = eng._admit_count
-            pool_bytes = s["kv_pool_bytes_per_device"]
-            token_bytes = eng._kv_bytes_per_page() // ecfg.page_size
-        del eng
-    for i, (a, b) in enumerate(zip(*streams)):
-        if a.shape != (new,) or not ((a >= 0) & (a < cfg.vocab_size)).all():
-            raise AssertionError(f"serve-moe: request {i} produced {a}")
-        if not np.array_equal(a, b):
-            raise AssertionError(f"serve-moe: request {i} differs between two runs: "
-                                 f"{a[:8]} != {b[:8]}")
-    if not bool(finite):
-        raise AssertionError("serve-moe: non-finite logits in an active row")
-    k5 = launches[cuda.DECODE]
-    others = {k: v for k, v in launches.items() if k != cuda.DECODE and v}
-    steps = k5 // L
-    if (k1 != L * admissions or admissions != len(prompts) or others or k5 % L
-            or k3 != (admissions + steps) * (2 * L + 1)):
-        raise AssertionError(f"serve-moe launches: K1 {k1} ({admissions} admissions), "
-                             f"K5 {k5}, K3 {k3}, others {others}")
-    # one decode step at 4 slots of 500 cached tokens, host launches included
-    state = init_paged_state(cfg, 4, rt, num_pages=ecfg.num_pages, page_size=ecfg.page_size,
-                             max_len=ecfg.max_len, device="cuda")
-    width = state["tables"].shape[1]
-    state["tables"].copy_(torch.arange(1, 1 + 4 * width, device="cuda").view(4, width)
-                          .clamp(max=ecfg.num_pages - 1).int())
-    tok = torch.zeros(4, dtype=torch.int32, device="cuda")
-    times = []
-    with torch.no_grad():
-        for _ in range(12):
-            state["lengths"].fill_(500)
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            decode_step_paged(cfg, params, state, tok, rt, ecfg.max_len)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
+    runs = serve_twice(wl, params)
+    steps = check_served_twice("serve-moe", wl, runs)
+    s = runs["stats"]
+    step_ms = isolated_decode_ms(wl, params, 500)
     peak = torch.cuda.max_memory_allocated()
     emit(phase="serve-moe", config=cfg.name, card=card, dtype="bf16",
          experts=cfg.n_experts, top_k=cfg.experts_top_k, params_bytes=param_bytes,
          params_init_s=init_s, mem_before_gb=before / 1e9, requests=len(prompts),
-         new_tokens=new, tokens_per_s=s["tokens_per_s"], run_mean_ttft_s=s["run_mean_ttft_s"],
-         wall_s=s["wall_s"], prefill_s=[s["prefill_s"][r] for r in sorted(s["prefill_s"])],
-         prompt_lens=[len(p) for p in prompts], decode_steps=steps,
-         decode_step_ms=statistics.median(times[2:]), admissions=admissions,
-         flash_attention_fwd_launches=k1, paged_decode_launches=k5, rmsnorm_fwd_launches=k3,
-         kv_pool_bytes=pool_bytes, kv_bytes_per_token=token_bytes, peak_mem_gb=peak / 1e9,
+         new_tokens=wl.new_tokens, tokens_per_s=s["tokens_per_s"],
+         run_mean_ttft_s=s["run_mean_ttft_s"], wall_s=s["wall_s"],
+         prefill_s=[s["prefill_s"][r] for r in sorted(s["prefill_s"])],
+         prompt_lens=[len(p) for p in prompts], decode_steps=steps, decode_step_ms=step_ms,
+         admissions=runs["admissions"], flash_attention_fwd_launches=runs["k1"],
+         paged_decode_launches=runs["launches"][cuda.DECODE],
+         rmsnorm_fwd_launches=runs["k3"], kv_pool_bytes=s["kv_pool_bytes_per_device"],
+         kv_bytes_per_token=runs["token_bytes"], peak_mem_gb=peak / 1e9,
          runs_identical=True, logits_finite=True)
-    del params, state
+    del params
     torch.cuda.empty_cache()
-    return {"config": cfg.name, "admissions": admissions, "decode_steps": steps,
-            fa.FWD: k1, cuda.DECODE: k5, cuda.PREFILL: launches[cuda.PREFILL],
-            "rmsnorm_fwd": k3}
+    return {"config": cfg.name, "admissions": runs["admissions"], "decode_steps": steps,
+            fa.FWD: runs["k1"], cuda.DECODE: runs["launches"][cuda.DECODE],
+            cuda.PREFILL: runs["launches"][cuda.PREFILL], "rmsnorm_fwd": runs["k3"]}
+
+
+# ----------------------------------------------------------------- vision
+def phase_model_vision() -> None:
+    """Reduced phi-3-vision-4.2b (2 layers, d 256, 4 heads of hd 64, a
+    16-patch image), f32, TF32 off: the port on the card (K1, K3, K5) against
+    the port on the CPU (plain versions), the same parameters, tokens and
+    images. forward's logits over [image; text] within 1e-3 of max|logit|;
+    loss_fn with the image rows dropped (some labels -1) within 1e-3 of the
+    loss; prefill(full_cache=True)'s logits and every layer's collected k/v
+    (1e-3) and positions (exactly); then each request written to the pool
+    (write_prefill_to_pool) and four decode_step_paged steps past the image
+    (1e-3)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import (Runtime, decode_step_paged, forward, init_paged_state,
+                                    init_params, loss_fn, prefill)
+    from repro_torch.models.stack import write_prefill_to_pool
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("phi-3-vision-4.2b")
+    rt = Runtime(dtype=torch.float32)
+    P, S, new, page = cfg.frontend_tokens, 21, 4, 8
+    rng = np.random.RandomState(6)
+    tokens = rng.randint(0, cfg.vocab_size, (2, S)).astype(np.int32)
+    labels = rng.randint(0, cfg.vocab_size, (2, S)).astype(np.int32)
+    labels[0, :4] = -1
+    images = rng.randn(2, P, cfg.d_model).astype(np.float32)
+    width = -(-(P + S + new) // page)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(cfg, seed=5, device="cpu", dtype=torch.float32).to(dev)
+        batch = {"tokens": torch.from_numpy(tokens).to(dev),
+                 "frontend_embeds": torch.from_numpy(images).to(dev),
+                 "labels": torch.from_numpy(labels).to(dev)}
+        with torch.no_grad():
+            logits, _ = forward(cfg, params, batch, rt)
+            loss, _ = loss_fn(cfg, params, batch, rt)
+            last, pst = prefill(cfg, params, batch, rt, max_len=width * page,
+                                full_cache=True)
+            st = init_paged_state(cfg, 2, rt, num_pages=1 + 2 * width, page_size=page,
+                                  max_len=width * page, device=dev)
+            st["tables"].copy_(torch.arange(1, 1 + 2 * width).view(2, width))
+            for b in range(2):
+                write_prefill_to_pool(st["caches"], [
+                    {"k": c["k"][b:b + 1], "v": c["v"][b:b + 1], "pos": c["pos"]}
+                    for c in pst["caches"]], st["tables"][b], page)
+            st["lengths"].fill_(pst["t"])
+            seq = [logits, loss[None], last]
+            tok = last.argmax(-1).int()
+            for _ in range(new):
+                lg = decode_step_paged(cfg, params, st, tok, rt, width * page)
+                seq.append(lg)
+                tok = lg.argmax(-1).int()
+        runs[dev] = ([x.float().cpu() for x in seq],
+                     [{k: v.to("cpu", copy=True) for k, v in c.items()} for c in pst["caches"]],
+                     pst["t"])
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(runs["cpu"][0], runs["cuda"][0])):
+        if not torch.isfinite(b).all():
+            raise AssertionError(f"model-vision: non-finite output {i} on the card")
+        scale = float(a.abs().max())
+        torch.testing.assert_close(b, a, atol=1e-3 * scale, rtol=1e-3,
+                                   msg=lambda m, i=i: f"model-vision output {i}: {m}")
+        worst = max(worst, float((a - b).abs().max()) / scale)
+    for ca, cb in zip(runs["cpu"][1], runs["cuda"][1]):
+        if not torch.equal(ca["pos"], cb["pos"]):
+            raise AssertionError("model-vision: cache positions differ card vs CPU")
+        for k in "kv":
+            torch.testing.assert_close(cb[k], ca[k], atol=1e-3, rtol=1e-3)
+    if not runs["cpu"][2] == runs["cuda"][2] == P + S:
+        raise AssertionError(f"model-vision: t {runs['cpu'][2]} / {runs['cuda'][2]} != {P + S}")
+    emit(phase="model-vision", config=cfg.name, image_tokens=P, text_tokens=S,
+         decode_steps=new, max_rel_err=worst, tol=1e-3)
+
+
+VISION_FA_LENGTHS = (704, 832, 960, 1088)     # 576 image + the text padded to 128
+VISION_DECODE_LENGTHS = [700, 850, 1000, 1150]  # 4 slots of 576 + text + new tokens
+
+
+def phase_kernels_vision() -> list:
+    """K1 and K5 in bf16 at phi-3-vision-4.2b's serving shapes (32 heads of
+    hd 96 over as many kv heads): K1 at the whole-prompt admissions (B 1,
+    causal, S 704 / 832 / 960 / 1,088) against its plain version (o and lse,
+    atol BF16_TOL, rtol PREFILL_FA_BF16_RTOL as kernels-prefill), timed
+    beside the plain version and SDPA's causal path; K5 at the decode step
+    (B 4, page 16, VISION_DECODE_LENGTHS) against its plain version
+    (BF16_TOL), timed beside it and SDPA over the gathered keys; each with
+    its bound."""
+    from repro_torch.kernels.flash_attention import cuda as fa
+    from repro_torch.kernels.flash_attention import ref as far
+    from repro_torch.kernels.paged_attention import cuda, ref
+
+    bf = torch.bfloat16
+    Kv, G, hd, page = 32, 1, 96, 16
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for S in VISION_FA_LENGTHS:
+        q, k, v, _ = fa_flat(1, S, Kv, G, hd, bf, seed=S)
+        kw = dict(group=G, causal=True, window=0)
+        o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+        po, plse = far.flash_attention_fwd_plain(q, k, v, **kw)
+        err = check(f"K1 vision S {S} o", o, po, BF16_TOL, rtol=PREFILL_FA_BF16_RTOL)
+        check(f"K1 vision S {S} lse", lse, plse, BF16_TOL)
+        qd, kd, vd = (t.view(1, Kv, S, hd) for t in (q, k, v))
+        nbytes, flops = fa_bounds(1, S, Kv, G, hd, 0, 2)["flash_attention_fwd"]
+        bms, by = bound(nbytes, flops, bf)
+        rows.append(dict(model="phi-3-vision-4.2b", kernel="flash_attention_fwd", S=S,
+                         max_abs_err=err,
+                         kernel_ms=time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw),
+                                           flush),
+                         plain_ms=time_ms(lambda: far.flash_attention_fwd_plain(q, k, v, **kw),
+                                          flush),
+                         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                             qd, kd, vd, is_causal=True, scale=1.0), flush),
+                         bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops))
+        emit(phase="kernels_vision", tol=BF16_TOL, rtol=PREFILL_FA_BF16_RTOL, **rows[-1])
+    lengths = VISION_DECODE_LENGTHS
+    P = -(-max(lengths) // page)
+    N = 1 + sum(-(-L // page) for L in lengths)
+    args = make_decode_case(4, Kv, G, hd, page, N, P, lengths, bf, seed=13)
+    err = check("K5 vision", cuda.paged_decode_attention_cuda(*args),
+                ref.paged_attention_plain(*args), BF16_TOL)
+    nbytes, flops = decode_bound(args[0], args[1], args[3], args[4], 0)
+    qd, kd, vd, mask = sdpa_inputs(args[0][:, None], args[1], args[2], args[3],
+                                   (args[4].long() - 1)[:, None], 0)
+    bms, by = bound(nbytes, flops, bf)
+    rows.append(dict(model="phi-3-vision-4.2b", kernel="paged_decode_attention",
+                     lengths=lengths, max_abs_err=err,
+                     kernel_ms=time_ms(lambda: cuda.paged_decode_attention_cuda(*args), flush),
+                     plain_ms=time_ms(lambda: ref.paged_attention_plain(*args), flush),
+                     library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                         qd, kd, vd, attn_mask=mask, scale=1.0), flush),
+                     bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops))
+    emit(phase="kernels_vision", tol=BF16_TOL, **rows[-1])
+    return rows
+
+
+def phase_serve_vision(card: str) -> dict:
+    """launch/workload.py's phi3_vision_serve_workload: phi-3-vision-4.2b at
+    full width and depth, bf16, 8 requests each behind its own (576, 3072)
+    image, admitted whole (text padded to 128), run twice in fresh engines:
+    the streams bitwise equal, every active row's logits finite, exact
+    launch counts (K1 32 an admission, K5 32 a decode step, K3 65 a pass, K6
+    none); requests 0 and 5 alone equal to batched; each stream against the
+    card's dense train.serve.generate with the same image (a first
+    difference only where forward's top-2 margin over the image and text is
+    under 2 * BF16_LOGIT_REL of max|logit|); the same text behind another
+    image moves the first token's logits by more than BF16_LOGIT_REL of
+    max|logit|. Tokens/s, mean TTFT, decode steps, the isolated decode step
+    (4 slots at 976 cached tokens), pool bytes and peak memory."""
+    from repro_torch.kernels.flash_attention import cuda as fa
+    from repro_torch.kernels.paged_attention import cuda
+    from repro_torch.launch.workload import phi3_vision_serve_workload
+    from repro_torch.models import prefill
+    from repro_torch.train.serve import generate
+
+    wl = phi3_vision_serve_workload()
+    cfg, rt, prompts, new = wl.cfg, wl.rt, wl.prompts, wl.new_tokens
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = wl.params("cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    runs = serve_twice(wl, params)
+    steps = check_served_twice("serve-vision", wl, runs)
+    s, out = runs["stats"], runs["streams"][0]
+    step_ms = isolated_decode_ms(wl, params, cfg.frontend_tokens + 400)
+    peak = torch.cuda.max_memory_allocated()
+    phase_alone(wl, params, runs["rids"], dict(zip(runs["rids"], out)))
+    dense = []
+    for i, p in enumerate(prompts):        # dense rings, one request a call
+        toks, _ = generate(cfg, params, {"tokens": p[None],
+                                         "frontend_embeds": wl.image(i)[None]}, rt, new)
+        dense.append(toks[0].cpu().numpy())
+    first = stream_ties(cfg, params, rt, prompts, dense, out, wl.frontend_embeds)
+    bad = [f for f in first if f["margin_rel"] >= 2 * BF16_LOGIT_REL]
+    with torch.no_grad():                  # the same text behind images 0 and 1
+        batch = {"tokens": torch.from_numpy(np.stack([prompts[0]] * 2)).to("cuda"),
+                 "frontend_embeds": torch.from_numpy(np.stack(
+                     [wl.image(0), wl.image(1)])).to("cuda")}
+        logits, _ = prefill(cfg, params, batch, rt)
+    logits = logits[:, :cfg.vocab_size]
+    moved = float((logits[0] - logits[1]).abs().max()) / float(logits[0].abs().max())
+    emit(phase="serve-vision", config=cfg.name, card=card, dtype="bf16",
+         image_tokens=cfg.frontend_tokens, params_bytes=param_bytes, params_init_s=init_s,
+         mem_before_gb=before / 1e9, requests=len(prompts), new_tokens=new,
+         tokens_per_s=s["tokens_per_s"], run_mean_ttft_s=s["run_mean_ttft_s"],
+         wall_s=s["wall_s"], prefill_s=[s["prefill_s"][r] for r in runs["rids"]],
+         prompt_lens=[len(p) for p in prompts], bucket=wl.ecfg.prefill_bucket,
+         decode_steps=steps, decode_step_ms=step_ms, admissions=runs["admissions"],
+         flash_attention_fwd_launches=runs["k1"],
+         paged_decode_launches=runs["launches"][cuda.DECODE],
+         rmsnorm_fwd_launches=runs["k3"], kv_pool_bytes=s["kv_pool_bytes_per_device"],
+         kv_bytes_per_token=runs["token_bytes"], num_pages=wl.ecfg.num_pages,
+         peak_mem_gb=peak / 1e9, runs_identical=True, logits_finite=True,
+         streams_identical_to_dense=len(prompts) - len(first), first_differences=first,
+         tie=f"margin_rel < {2 * BF16_LOGIT_REL}", image_moves_logits_rel=moved,
+         image_moves_tol=BF16_LOGIT_REL)
+    if bad:
+        raise AssertionError(f"serve-vision: streams differ from dense beyond a bf16 tie: {bad}")
+    if not moved > BF16_LOGIT_REL:
+        raise AssertionError(f"serve-vision: another image moved the logits by {moved} of "
+                             f"max|logit|, not more than {BF16_LOGIT_REL}")
+    del params
+    torch.cuda.empty_cache()
+    return {"config": cfg.name, "admissions": runs["admissions"], "decode_steps": steps,
+            fa.FWD: runs["k1"], cuda.DECODE: runs["launches"][cuda.DECODE],
+            cuda.PREFILL: runs["launches"][cuda.PREFILL], "rmsnorm_fwd": runs["k3"]}
 
 
 def main() -> int:
@@ -2954,6 +3223,7 @@ def main() -> int:
     phase_kernels_verify()
     phase_kernels_long()
     phase_kernels_prefill()
+    phase_kernels_vision()
     kern.update(phase_train_kernels())
     kern.update(phase_quant_kernels())
     kern.update(phase_stash_kernels())
@@ -2961,6 +3231,7 @@ def main() -> int:
     phase_model_dense()
     phase_model_spec()
     phase_model_moe()
+    phase_model_vision()
     phase_train_parity()
     phase_pipe_parity()
     launches = phase_train(gemma_train_workload(), "train")     # K1-K4
@@ -2991,6 +3262,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_moe_layer()
     moe = phase_serve_moe(card)
+    vision = phase_serve_vision(card)      # after qwen3-moe's weights are freed
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kern[name]
@@ -3000,6 +3272,7 @@ def main() -> int:
                          bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                          library_ms=r["library_ms"]))
     print(json.dumps({"moe": moe}), flush=True)
+    print(json.dumps({"vision": vision}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

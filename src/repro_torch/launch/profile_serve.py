@@ -1,9 +1,11 @@
 """Where the serving time goes on the card: granite-8b, the chip smoke's
-serving workload, or qwen3-moe-30b-a3b's, under ``torch.profiler``.
+serving workload, or qwen3-moe-30b-a3b's, or phi-3-vision-4.2b's, under
+``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--out DIR] \
         [--kv-dtype bf16|int8|fp8] [--admission chunked|whole ...] [--spec K]
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload qwen3-moe
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload phi-3-vision
 
 Runs ``workload.granite_serve_workload(kv_dtype=...)`` (the workload of
 ``chip_smoke.py``'s serve phases; ``--admission whole`` its whole-prompt
@@ -27,6 +29,12 @@ that ``aten::bmm`` launched) and the routing's own kernels (softmax, the
 top-k and slot sorts, bincount, searchsorted), and adds the isolated time of
 one layer's ``moe_apply`` at the decode step's 4 rows, of its three expert
 products alone, and the byte floor of a step that reads every expert.
+
+``--workload phi-3-vision`` profiles ``workload.phi3_vision_serve_workload``
+(each request behind its 576-patch image, admitted whole) into
+``DIR/vision``: its decode step is timed at 500 text tokens behind the
+image, its whole-prompt prefill is the image and 512 text tokens, and it
+has no chunk (a vision request is never chunked).
 """
 from __future__ import annotations
 
@@ -104,14 +112,15 @@ def profile_one(wl, params, card: str, out: Path) -> dict:
 
     cfg, rt, ecfg = wl.cfg, wl.rt, wl.ecfg
     eng = ServeEngine(cfg, params, rt, ecfg, device="cuda")
-    for p in wl.prompts:                               # warm-up run
-        eng.submit(p, wl.new_tokens)
+    for i, p in enumerate(wl.prompts):                 # warm-up run
+        eng.submit(p, wl.new_tokens, frontend_embeds=wl.image(i))
     eng.run()
     spec0 = {key: eng.stats.get(key, 0) for key in SPEC_COUNTERS}
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         # submitted inside the window: the profiler's start-up is not a TTFT
-        rids = [eng.submit(p, wl.new_tokens) for p in wl.prompts]
+        rids = [eng.submit(p, wl.new_tokens, frontend_embeds=wl.image(i))
+                for i, p in enumerate(wl.prompts)]
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
@@ -138,28 +147,32 @@ def profile_one(wl, params, card: str, out: Path) -> dict:
         sort_by="self_cuda_time_total", row_limit=60))
     del eng
 
-    # isolated step times: 4 slots decoding at 500 cached tokens; one chunk;
-    # one whole-prompt prefill of 512 tokens
+    # isolated step times: 4 slots decoding at 500 cached tokens (behind an
+    # image); one chunk; one whole-prompt prefill of 512 tokens (and an image)
+    vision = wl.frontend_embeds is not None
+    cached = 500 + (cfg.frontend_tokens if vision else 0)
     state = init_paged_state(cfg, 4, rt, num_pages=ecfg.num_pages, page_size=16,
                              max_len=ecfg.max_len, device="cuda")
     width = state["tables"].shape[1]
     state["tables"].copy_(torch.arange(1, 1 + 4 * width, device="cuda").view(4, width)
                           .clamp(max=ecfg.num_pages - 1).int())
-    state["lengths"].fill_(500)
+    state["lengths"].fill_(cached)
     tok = torch.zeros(4, dtype=torch.int32, device="cuda")
     chunk = torch.zeros(128, dtype=torch.int32, device="cuda")
     prompt = {"tokens": torch.zeros((1, 512), dtype=torch.int32, device="cuda")}
+    if vision:
+        prompt["frontend_embeds"] = torch.from_numpy(wl.image(0)[None]).to("cuda")
 
     def decode():
         decode_step_paged(cfg, params, state, tok, rt, ecfg.max_len)
-        state["lengths"].fill_(500)
+        state["lengths"].fill_(cached)
 
     def chunk_prefill():
         prefill_chunk_paged(cfg, params, state["caches"], state["tables"][0], chunk,
                             384, 128, rt, ecfg.max_len)
 
     def whole_prefill():
-        prefill(cfg, params, prompt, rt, max_len=512, full_cache=True)
+        prefill(cfg, params, prompt, rt, full_cache=True)
 
     k = ecfg.spec_tokens
     rows = torch.zeros((4, k + 1), dtype=torch.int32, device="cuda")
@@ -169,10 +182,12 @@ def profile_one(wl, params, card: str, out: Path) -> dict:
         verify_step_paged(cfg, params, state, rows, q_len, rt, ecfg.max_len)
 
     with torch.no_grad():
-        decode(), chunk_prefill(), whole_prefill()
+        decode(), whole_prefill()
         times = {"decode_step_ms": _events_ms(decode),
-                 "prefill_chunk_ms": _events_ms(chunk_prefill),
                  "whole_prefill_512_ms": _events_ms(whole_prefill)}
+        if not vision:
+            chunk_prefill()
+            times["prefill_chunk_ms"] = _events_ms(chunk_prefill)
         if k:
             verify()
             times["verify_step_ms"] = _events_ms(verify)
@@ -247,15 +262,18 @@ def main(argv=None) -> None:
                          "admission, profiled in this order with the same weights")
     ap.add_argument("--spec", type=int, default=0, metavar="K",
                     help="then the speculative workload: K drafts a slot a tick")
-    ap.add_argument("--workload", default="granite", choices=("granite", "qwen3-moe"),
-                    help="qwen3-moe: qwen3_moe_serve_workload (whole prompts; "
-                         "--admission, --kv-dtype and --spec do not apply)")
+    ap.add_argument("--workload", default="granite",
+                    choices=("granite", "qwen3-moe", "phi-3-vision"),
+                    help="qwen3-moe: qwen3_moe_serve_workload; phi-3-vision: "
+                         "phi3_vision_serve_workload (whole prompts; --admission, "
+                         "--kv-dtype and --spec do not apply)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the card; CUDA is not available")
 
     from repro_torch.launch.workload import (granite_serve_spec_workload,
                                              granite_serve_workload,
+                                             phi3_vision_serve_workload,
                                              qwen3_moe_serve_workload)
 
     card = subprocess.run(
@@ -271,6 +289,8 @@ def main(argv=None) -> None:
                                                          spec_tokens=args.spec)))
     if args.workload == "qwen3-moe":
         runs = [("moe", qwen3_moe_serve_workload())]
+    if args.workload == "phi-3-vision":
+        runs = [("vision", phi3_vision_serve_workload())]
     for name, wl in runs:
         if params is None:
             params = wl.params("cuda")

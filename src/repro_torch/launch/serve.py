@@ -23,15 +23,22 @@ engine, or batched dense generation.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \
         --device cpu --batch 4
 
+    # full phi-3-vision-4.2b on the card: each request a random 576-patch
+    # image prefix ahead of its text, admitted whole (K1, K3, then K5)
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --arch phi-3-vision-4.2b --paged --prompt-len 512 --new-tokens 64
+
 Counterpart of ``repro.launch.serve``. With ``--paged``, requests of random
 length (uniform in ``[prompt_len // 2, prompt_len]``, after an optional
 shared system prompt) are admitted into ``--slots`` decode slots over the
 paged KV pool and decoded together; a request is prefilled whole (padded to
 a multiple of ``--page-size``), or in chunks of ``--prefill-chunk`` tokens,
-or through the prefix cache (``--prefix-cache``); for a MoE config the
-engine warns that expert capacity counts the pad rows, as JAX's launcher
-leaves it. Without it, ``--batch``
-random prompts of ``--prompt-len`` tokens generate together through
+or through the prefix cache (``--prefix-cache``); a vision config's
+requests each carry a random (frontend_tokens, d_model) f32 image prefix,
+the pool is sized for it, and they are always admitted whole; for a MoE
+config the engine warns that expert capacity counts the pad rows, as JAX's
+launcher leaves it. Without it, ``--batch`` random prompts of
+``--prompt-len`` tokens (and images) generate together through
 ``train.serve.generate``. It runs on CUDA unless ``--device cpu`` is given,
 and in bf16 at full size (``--full``), f32 when reduced. ``--kv-dtype
 int8|fp8`` stores the pool as codes and scales (``bf16``, the default, at
@@ -115,7 +122,7 @@ def main(argv=None) -> None:
         return
     max_prompt = args.prompt_len + args.shared_prefix
     ecfg = EngineConfig.capacity(
-        max_prompt, args.new_tokens, slots=args.slots, page_size=args.page_size,
+        max_prompt + cfg.frontend_tokens, args.new_tokens, slots=args.slots, page_size=args.page_size,
         headroom=2.0, cfg=cfg, kv_dtype=args.kv_dtype,
     ).engine(
         temperature=0.0 if args.spec else args.temperature, seed=args.seed,
@@ -137,7 +144,9 @@ def main(argv=None) -> None:
         tokens = np.concatenate([
             sys_prompt, rng.randint(0, cfg.vocab_size, (plen,)).astype(np.int32)
         ])
-        rids.append(eng.submit(tokens, args.new_tokens))
+        fe = (rng.randn(cfg.frontend_tokens, cfg.d_model).astype(np.float32)
+              if cfg.frontend is not None else None)
+        rids.append(eng.submit(tokens, args.new_tokens, frontend_embeds=fe))
     out = eng.run()
     s = eng.stats
     admission = ("prefix cache" if args.prefix_cache else
@@ -184,6 +193,9 @@ def _generate_dense(args, cfg, params, rt, rng, where) -> None:
     from repro_torch.train.serve import generate
 
     batch = {"tokens": rng.randint(0, cfg.vocab_size, (args.batch, args.prompt_len))}
+    if cfg.frontend is not None:
+        batch["frontend_embeds"] = rng.randn(
+            args.batch, cfg.frontend_tokens, cfg.d_model).astype(np.float32)
     t0 = time.perf_counter()
     tokens, _ = generate(cfg, params, batch, rt, max_new_tokens=args.new_tokens,
                          temperature=args.temperature, seed=args.seed)

@@ -20,6 +20,15 @@ over 4 kv heads of hd 128, vocabulary 151,936) in bf16, random weights from
 seed 0, with the same requests, slots and page size, admitted whole at exact
 shapes (``prefill_bucket`` 0: the router's expert capacity counts pad rows);
 its bf16 pool holds 98,304 bytes a token.
+``phi3_vision_serve_workload`` serves phi-3-vision-4.2b at full width and
+depth (32 layers, d 3072, 32 heads of hd 96 over as many kv heads, d_ff
+8192, vocabulary 32,064) in bf16, random weights from seed 0, with the same
+text prompts and slots, each behind its own image prefix: a (576, 3072) f32
+``randn`` from ``RandomState(seed + 1)`` standing for the projected patch
+embeddings. Admitted whole (as every vision request is), text padded to a
+bucket of 128, so each prefill runs 704, 832, 960 or 1,088 positions; the
+pool is sized for 512 + 576 prompt positions and holds 393,216 bytes a
+token.
 
 Training: gemma3-1b at full width and depth (26 layers, d 1152, 4 query
 heads over 1 kv head of hd 256, window 512 on 22 layers, tied vocabulary of
@@ -62,6 +71,11 @@ class ServeWorkload:
     prompts: List[np.ndarray]
     new_tokens: int
     seed: int
+    frontend_embeds: Optional[List[np.ndarray]] = None   # one image a prompt
+
+    def image(self, i: int) -> Optional[np.ndarray]:
+        """Prompt ``i``'s image prefix (None for a text-only workload)."""
+        return None if self.frontend_embeds is None else self.frontend_embeds[i]
 
     def params(self, device: str = "cuda"):
         return init_params(self.cfg, seed=self.seed, device=device,
@@ -73,15 +87,20 @@ def _serve_workload(name: str, seed: int, kv_dtype: str, prefill_chunk: int,
     cfg = get_config(name)
     new_tokens, slots, page = 64, 4, 16
     ecfg = EngineConfig.capacity(
-        512, new_tokens, slots=slots, page_size=page, headroom=2.0, cfg=cfg,
+        512 + cfg.frontend_tokens, new_tokens, slots=slots, page_size=page, headroom=2.0, cfg=cfg,
         kv_dtype=kv_dtype,
     ).engine(prefill_chunk=prefill_chunk, prefill_bucket=prefill_bucket,
              inner_steps=8, temperature=0.0, seed=seed)
     rng = np.random.RandomState(seed)
     prompts = [rng.randint(0, cfg.vocab_size, (int(n),)).astype(np.int32)
                for n in rng.randint(128, 513, size=8)]
+    images = None
+    if cfg.frontend == "vision":
+        irng = np.random.RandomState(seed + 1)
+        images = [irng.randn(cfg.frontend_tokens, cfg.d_model).astype(np.float32)
+                  for _ in prompts]
     rt = Runtime(dtype=torch.bfloat16, kv_dtype=normalize_kv_dtype(kv_dtype))
-    return ServeWorkload(cfg, rt, ecfg, prompts, new_tokens, seed)
+    return ServeWorkload(cfg, rt, ecfg, prompts, new_tokens, seed, images)
 
 
 def granite_serve_workload(seed: int = 0, kv_dtype: str = "bf16",
@@ -102,6 +121,10 @@ def granite_serve_spec_workload(seed: int = 0, kv_dtype: str = "bf16", spec_toke
 
 def qwen3_moe_serve_workload(seed: int = 0) -> ServeWorkload:
     return _serve_workload("qwen3-moe-30b-a3b", seed, "bf16", 0, 0)
+
+
+def phi3_vision_serve_workload(seed: int = 0) -> ServeWorkload:
+    return _serve_workload("phi-3-vision-4.2b", seed, "bf16", 0, 128)
 
 
 @dataclass(frozen=True)

@@ -4,7 +4,11 @@ Counterpart of the training forward and loss (``forward_hidden``,
 ``forward``, ``masked_token_ce``, ``loss_fn``), the pipeline's stage
 functions (``pipeline_fns``), the whole-prompt prefill and dense decode
 (``prefill``, ``init_decode_state``, ``decode_step``) and the paged serving
-entry points of ``repro.models.lm``.
+entry points of ``repro.models.lm``. A vision config's image prefix
+(precomputed patch embeddings, ``batch["frontend_embeds"]``) goes ahead of
+the text in the training forward, the loss (which drops its rows) and the
+prefill (``_decoder_input``); the paged chunk, decode and verify steps see
+text only, at positions past the image.
 Parameters are an :class:`LM` module holding the same tree as the JAX
 package (``embed/table``, the per-layer blocks, ``final_norm/scale``,
 ``head/w``); ``checkpoint.convert.params_from_jax`` carries a JAX tree
@@ -81,12 +85,30 @@ def _logits(cfg: ArchConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ training
+def _decoder_input(
+    cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], rt: Runtime
+) -> Tuple[torch.Tensor, int]:
+    """(x (B, P + S, d), n_prefix): the embedded tokens, behind a vision
+    config's image prefix ``batch["frontend_embeds"]`` (B, P, d), cast to
+    the compute dtype before the concatenation as in JAX; n_prefix = P, the
+    positions that are not text (0 without a frontend)."""
+    tok = embed_apply(params.embed, batch["tokens"], rt.dtype)
+    if cfg.is_encdec:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder is ROADMAP queue 1 item 4d")
+    if cfg.frontend != "vision":
+        return tok, 0
+    img = torch.as_tensor(batch["frontend_embeds"]).to(tok.device, rt.dtype)
+    return torch.cat([img, tok], dim=1), img.shape[1]
+
+
 def forward_hidden(
     cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], rt: Runtime
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward up to (not including) the vocab projection.
-    Returns (hidden (B, S, d) after the final norm, aux)."""
-    x = embed_apply(params.embed, batch["tokens"], rt.dtype)
+    Returns (hidden (B, P + S, d) after the final norm, aux); P is a vision
+    config's image prefix (0 otherwise)."""
+    x, _ = _decoder_input(cfg, params, batch, rt)
     specs = layer_specs(cfg, seq_len=x.shape[1], long_variant=rt.long_variant)
     x, aux, _ = stack_mod.stack_forward(cfg, params.stack, x, rt, specs)
     return norm_apply(params.final_norm, x, cfg.norm), aux
@@ -120,12 +142,16 @@ def loss_fn(
     z_loss: float = Z_LOSS_DEFAULT,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Next-token cross entropy + z-loss + ``router_aux_coef`` x the MoE
-    layers' router aux (0 for the dense families). Labels -1 are masked.
+    layers' router aux (0 for the dense families). Labels -1 are masked; a
+    vision config's labels cover the text only (its image rows are dropped
+    before the head).
     ``rt.fused_backward`` picks the vocab-chunked CE head (same loss and
     grads, never (B, S, V) at once) over the dense f32 logits head; kernels
     route by device either way."""
     h, aux = forward_hidden(cfg, params, batch, rt)
     labels = batch["labels"]
+    if cfg.frontend == "vision":          # image prefix positions carry no loss
+        h = h[:, batch["frontend_embeds"].shape[1]:]
     safe = torch.clamp(labels, min=0)
     if rt.fused_backward:
         w = params.embed.table if cfg.tie_embeddings else params.head.w.T
@@ -199,8 +225,10 @@ def prefill(
     gather_pos: Optional[int] = None,
     full_cache: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
-    """Forward over the prompt; returns the f32 logits (B, V) of one
-    position and the dense decode state ``{"caches", "t"}``.
+    """Forward over the prompt (behind a vision config's image prefix);
+    returns the f32 logits (B, V) of one position and the dense decode state
+    ``{"caches", "t"}``. Positions, ``gather_pos``, the caches and ``t``
+    count the image's P positions ahead of the text.
 
     ``max_len`` sizes the rings for the decode horizon (default the prompt
     length). ``gather_pos`` picks the position whose logits are returned
@@ -208,7 +236,7 @@ def prefill(
     last position. ``full_cache`` sizes every attention ring, sliding-window
     ones too, to the horizon, as the page pool keeps every position. The
     final norm and the head run on that one row."""
-    x = embed_apply(params.embed, batch["tokens"], rt.dtype)
+    x, _ = _decoder_input(cfg, params, batch, rt)
     S = x.shape[1]
     specs = layer_specs(cfg, seq_len=S, long_variant=rt.long_variant)
     cache_specs = layer_specs(cfg, seq_len=max_len or S, long_variant=rt.long_variant)

@@ -77,13 +77,14 @@ def layer_specs(
 
 def check_served(cfg: ArchConfig) -> None:
     """Raise for what the port does not run yet: non-attention mixers, no
-    FFN, encoder-decoder and modality-prefix configs."""
+    FFN, encoder-decoder and audio-frontend configs (the vision prefix is
+    served)."""
     if not all(k in ("attn", "local") for k in cfg.pattern) or not cfg.n_heads:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.pattern} mixers are ROADMAP queue 1 item 4, "
             "'the other families'"
         )
-    if cfg.ffn_kind == "none" or cfg.is_encdec or cfg.frontend is not None:
+    if cfg.ffn_kind == "none" or cfg.is_encdec or cfg.frontend not in (None, "vision"):
         raise NotImplementedError(
             f"{cfg.name}: ffn={cfg.ffn_kind!r}, enc-dec or frontend "
             f"{cfg.frontend!r} is ROADMAP queue 1 item 4, 'the other families'"

@@ -37,14 +37,18 @@ def generate_dense(
     stream_ids: Optional[Sequence[int]] = None,
 ) -> Tuple[torch.Tensor, Dict[str, Any], float]:
     """Batched dense generation over equal-length prompts ``batch["tokens"]``
-    (B, S) on the parameters' device. Returns (tokens (B, max_new) int32,
-    the final decode state, ttft_s): ttft_s is the wall time of the prefill
-    and the first sample, ending in a sync of the card."""
+    (B, S) on the parameters' device, behind a vision config's image prefix
+    ``batch["frontend_embeds"]`` (B, P, d), which the rings hold too.
+    Returns (tokens (B, max_new) int32, the final decode state, ttft_s):
+    ttft_s is the wall time of the prefill and the first sample, ending in a
+    sync of the card."""
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
     tokens = batch["tokens"]
     B, S = tokens.shape
     total = S + max_new_tokens
+    if cfg.frontend == "vision":
+        total += cfg.frontend_tokens
     policy = SamplingPolicy(temperature=temperature, vocab=cfg.vocab_size, seed=seed)
     rows = list(range(B)) if stream_ids is None else list(stream_ids)
 

@@ -62,10 +62,16 @@ chunked prefill (``prefill_bucket``, ``prefill_chunk``, the prefix cache) is
 not token-exact against an exact-shape run; ``batched == alone`` does not
 hold for MoE either.
 
+A vision config's request carries its image prefix (``submit``'s
+``frontend_embeds``, (P, d) precomputed patch embeddings) and occupies P +
+its text's tokens in the pool (``_prompt_total``). As in JAX it is always
+admitted whole, under the prefix cache or chunked prefill too: the radix
+key is token ids, which cannot see the image, and the chunk step embeds
+text only (``_use_chunked``). Its pages never enter the prefix cache.
+
 Not ported yet (each raises ``NotImplementedError`` at construction,
 naming its ROADMAP item): the families whose mixers are not ported (SSM,
-RG-LRU, encoder-decoder, modality prefix), and meshes and replicated
-engines.
+RG-LRU, encoder-decoder), and meshes and replicated engines.
 """
 from __future__ import annotations
 
@@ -377,23 +383,37 @@ class ServeEngine:
         self,
         tokens: np.ndarray,
         max_new: int,
+        frontend_embeds=None,
         qos: str = "interactive",
         on_token=None,
     ) -> int:
-        """Enqueue a request; returns its rid. ``on_token(rid, tokens, done)``
-        gets each newly delivered token batch (``done`` None while streaming,
-        then ``"complete"`` / ``"cancelled"`` once). Raises before any engine
-        state changes (capacity ValueError, scheduler.QueueFull)."""
+        """Enqueue a request; returns its rid. ``frontend_embeds``: a vision
+        config's image prefix, (frontend_tokens, d_model), required there and
+        refused elsewhere. ``on_token(rid, tokens, done)`` gets each newly
+        delivered token batch (``done`` None while streaming, then
+        ``"complete"`` / ``"cancelled"`` once). Raises before any engine
+        state changes (shape or capacity ValueError, scheduler.QueueFull)."""
         if max_new < 1:
             raise ValueError("max_new must be >= 1")
+        cfg = self.cfg
+        if cfg.frontend == "vision":
+            want = (cfg.frontend_tokens, cfg.d_model)
+            if frontend_embeds is None or tuple(frontend_embeds.shape) != want:
+                raise ValueError(
+                    f"{cfg.name} needs frontend_embeds of shape {want}, got "
+                    f"{None if frontend_embeds is None else tuple(frontend_embeds.shape)}")
+            frontend_embeds = torch.as_tensor(frontend_embeds).float().cpu().numpy()
+        elif frontend_embeds is not None:
+            raise ValueError(f"{cfg.name} has no modality frontend: no frontend_embeds")
         req = Request(
             rid=self._next_rid,
             tokens=np.asarray(tokens, np.int32).reshape(-1),
             max_new=int(max_new),
+            frontend_embeds=frontend_embeds,
             qos=qos,
             t_submit=time.perf_counter(),
         )
-        total = req.prompt_len + req.max_new - 1
+        total = self._prompt_total(req) + req.max_new - 1
         if self.paged and total > self.ecfg.max_len:
             raise ValueError(
                 f"request needs {total} tokens > max_len={self.ecfg.max_len}"
@@ -500,7 +520,8 @@ class ServeEngine:
         for slot_id, slot in enumerate(self._slots):
             if slot is None or slot.rid != rid:
                 continue
-            if self.prefix is not None and slot.phase == "decode":
+            if self.prefix is not None and self._use_chunked(slot.req) \
+                    and slot.phase == "decode":
                 n_full = slot.req.prompt_len // self.ecfg.page_size
                 self.prefix.insert(
                     slot.req.tokens, self.pool.seq_pages(slot.sid)[:n_full]
@@ -541,6 +562,19 @@ class ServeEngine:
             cb(rid, [], reason)
 
     # ----------------------------------------------------------- internals
+    def _prompt_total(self, req: Request) -> int:
+        """Positions a request's prompt occupies: its text, behind a vision
+        config's image prefix."""
+        extra = self.cfg.frontend_tokens if self.cfg.frontend == "vision" else 0
+        return req.prompt_len + extra
+
+    def _use_chunked(self, req: Request) -> bool:
+        """The prefix-adopting, chunked admission path; a modality-prefix
+        request keeps the whole-prompt prefill (the radix key is token ids
+        and cannot see the image; the chunk step embeds text only)."""
+        return (bool(self.ecfg.prefix_cache or self.ecfg.prefill_chunk)
+                and self.cfg.frontend is None)
+
     def _kv_bytes_per_page(self) -> int:
         return kv_page_bytes(
             self.ecfg.page_size, self.cfg.n_kv_heads, self.cfg.head_dim,
@@ -590,7 +624,7 @@ class ServeEngine:
             if req is None:
                 break
             cached, sid = 0, None
-            if self.prefix is not None:
+            if self.prefix is not None and self._use_chunked(req):
                 cached, pages = self.prefix.match(
                     req.tokens, max_tokens=req.prompt_len - 1
                 )
@@ -601,7 +635,7 @@ class ServeEngine:
             headroom = self._admission_headroom()
             cached_pages = cached // self.ecfg.page_size
             if self.prefix is not None:
-                reserve = self.scheduler.reserve_tokens(req, req.prompt_len)
+                reserve = self.scheduler.reserve_tokens(req, self._prompt_total(req))
                 shortfall = (
                     self.pool.pages_for(reserve) - cached_pages + headroom
                     - self.pool.free_pages
@@ -609,7 +643,7 @@ class ServeEngine:
                 if shortfall > 0:
                     self.prefix.evict_until(shortfall)
             popped = self.scheduler.pop_admissible(
-                self.pool, lambda r: r.prompt_len, headroom_pages=headroom,
+                self.pool, self._prompt_total, headroom_pages=headroom,
                 cached_pages_of=(lambda r: cached_pages) if sid is not None else None,
             )
             if popped is None:
@@ -624,9 +658,10 @@ class ServeEngine:
             )
 
     def _admit(self, slot_id: int, req: Request, cached: int, sid: Optional[int]) -> None:
-        reserve = self.scheduler.reserve_tokens(req, req.prompt_len)
-        self.stats["prompt_tokens"] = self.stats.get("prompt_tokens", 0) + req.prompt_len
-        if not (self.prefix is not None or self.ecfg.prefill_chunk):
+        prompt_total = self._prompt_total(req)
+        reserve = self.scheduler.reserve_tokens(req, prompt_total)
+        self.stats["prompt_tokens"] = self.stats.get("prompt_tokens", 0) + prompt_total
+        if not self._use_chunked(req):
             self._admit_whole(slot_id, req, reserve)
             return
         if self.prefix is not None:
@@ -645,23 +680,29 @@ class ServeEngine:
         self._admit_count += 1
 
     def _admit_whole(self, slot_id: int, req: Request, reserve: int) -> None:
-        """Whole-prompt admission: one prefill of the prompt (right-padded to
-        a multiple of ``prefill_bucket``) with caches over its whole length,
-        the first token sampled from its true last position (step 0 of the
-        request's stream; the TTFT), the caches scattered into the slot's
-        pages, and the slot flipped straight to decode. Padded positions
-        inside the table are overwritten by decode before any query attends
-        them; those past it land on the null page."""
+        """Whole-prompt admission: one prefill of the prompt (its text
+        right-padded to a multiple of ``prefill_bucket``, behind a vision
+        request's image) with caches over its whole length, the first token
+        sampled from its true last position (step 0 of the request's stream;
+        the TTFT), the caches scattered into the slot's pages, and the slot
+        flipped straight to decode. Padded positions inside the table are
+        overwritten by decode before any query attends them; those past it
+        land on the null page."""
         sid = self.pool.alloc(reserve)
         t0 = time.perf_counter()
         tokens = req.tokens
         bucket = self.ecfg.prefill_bucket
         if bucket:
             tokens = np.pad(tokens, (0, -len(tokens) % bucket))
+        prompt_total = self._prompt_total(req)
+        horizon = prompt_total + len(tokens) - req.prompt_len
         batch = {"tokens": torch.from_numpy(tokens[None]).to(self.device)}
+        if req.frontend_embeds is not None:
+            batch["frontend_embeds"] = torch.from_numpy(req.frontend_embeds[None]).to(
+                self.device)
         logits, pstate = prefill(
-            self.cfg, self.params, batch, self.rt, max_len=len(tokens),
-            gather_pos=req.prompt_len - 1, full_cache=True,
+            self.cfg, self.params, batch, self.rt, max_len=horizon,
+            gather_pos=prompt_total - 1, full_cache=True,
         )
         first = int(self._policy.sample_rows(logits, [req.rid], [0])[0])
         now = time.perf_counter()
@@ -675,13 +716,13 @@ class ServeEngine:
             # the same table row, level with the target
             _, dstate = prefill(
                 self._draft_cfg, self._draft_params, batch, self.rt,
-                max_len=len(tokens), gather_pos=req.prompt_len - 1, full_cache=True,
+                max_len=horizon, gather_pos=prompt_total - 1, full_cache=True,
             )
             write_prefill_to_pool(self._draft_pools, dstate["caches"],
                                   self._dev["tables"][slot_id], self.ecfg.page_size)
-            self._draft_len[slot_id] = req.prompt_len
+            self._draft_len[slot_id] = prompt_total
             self._spec_catchup[slot_id] = -1
-        self._set_slot(slot_id, length=req.prompt_len, remaining=req.max_new - 1)
+        self._set_slot(slot_id, length=prompt_total, remaining=req.max_new - 1)
         self._tok[slot_id] = first
         self._steps[slot_id] = 1
         self._slots[slot_id] = _Slot(req.rid, sid, req, self._admit_count,
@@ -970,7 +1011,7 @@ class ServeEngine:
                 len(self.pool.seq_pages(slot.sid)) * self._kv_bytes_per_page()
             )
             self._completed_run.add(slot.rid)
-            if self.prefix is not None:
+            if self.prefix is not None and self._use_chunked(slot.req):
                 # full prompt pages go back into the radix tree
                 n_full = slot.req.prompt_len // self.ecfg.page_size
                 self.prefix.insert(
@@ -990,15 +1031,18 @@ class ServeEngine:
         stream. Whole outputs are delivered at the end."""
         part = self.scheduler.pop_batch(self.ecfg.max_slots)
         max_new = part[0].max_new
-        tokens = torch.from_numpy(np.stack([r.tokens for r in part])).to(self.device)
+        batch = {"tokens": torch.from_numpy(np.stack([r.tokens for r in part])).to(self.device)}
+        if part[0].frontend_embeds is not None:
+            batch["frontend_embeds"] = torch.from_numpy(
+                np.stack([r.frontend_embeds for r in part])).to(self.device)
         t_call = time.perf_counter()
         out, _, pf_s = generate_dense(
-            self.cfg, self.params, {"tokens": tokens}, self.rt, max_new,
+            self.cfg, self.params, batch, self.rt, max_new,
             temperature=self.ecfg.temperature, seed=self.ecfg.seed,
             stream_ids=[r.rid for r in part],
         )
         out = out.cpu().numpy()
-        kv = dense_kv_bytes(self.cfg, self.rt, part[0].prompt_len + max_new)
+        kv = dense_kv_bytes(self.cfg, self.rt, self._prompt_total(part[0]) + max_new)
         finished: List[int] = []
         for b, r in enumerate(part):
             self._outputs[r.rid] = [int(t) for t in out[b]]

@@ -9,8 +9,8 @@ serving package:
   over a pool sized by ``EngineConfig.capacity`` for the batch, admitted by
   whole-prompt prefill.
 
-Both run on the parameters' device. Greedy outputs are the same on both
-paths.
+Both run on the parameters' device, a vision config's batch with its image
+prefixes. Greedy outputs are the same on both paths.
 """
 from __future__ import annotations
 
@@ -35,26 +35,34 @@ def generate(
 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Returns (tokens (B, max_new_tokens) int32 on the parameters' device,
     the final dense decode state, or with ``paged=True`` the engine's stats).
-    ``batch["tokens"]``: (B, S) ids, a tensor or an array."""
+    ``batch["tokens"]``: (B, S) ids, a tensor or an array; a vision config's
+    ``batch["frontend_embeds"]``: (B, P, d) image prefixes."""
     device = params.embed.table.device
     tokens = torch.as_tensor(batch["tokens"]).to(device=device, dtype=torch.int32)
+    fe = batch.get("frontend_embeds")
     if paged:
         from repro_torch.serve import EngineConfig, ServeEngine
 
         B, S = tokens.shape
+        prompt_total = S + (cfg.frontend_tokens if cfg.frontend == "vision" else 0)
         eng = ServeEngine(
             cfg, params, rt,
-            EngineConfig.capacity(S, max_new_tokens, slots=B).engine(
+            EngineConfig.capacity(prompt_total, max_new_tokens, slots=B).engine(
                 temperature=temperature, seed=seed),
             device=device,
         )
         host = tokens.cpu().numpy()
-        rids = [eng.submit(host[b], max_new_tokens) for b in range(B)]
+        rids = [eng.submit(host[b], max_new_tokens,
+                           frontend_embeds=None if fe is None else fe[b])
+                for b in range(B)]
         out = eng.run()
         return torch.as_tensor(np.stack([out[r] for r in rids]), device=device), eng.stats
 
     from repro_torch.serve.dense import generate_dense
 
-    out, state, _ = generate_dense(cfg, params, {"tokens": tokens}, rt, max_new_tokens,
+    dense = {"tokens": tokens}
+    if fe is not None:
+        dense["frontend_embeds"] = torch.as_tensor(fe).to(device=device, dtype=torch.float32)
+    out, state, _ = generate_dense(cfg, params, dense, rt, max_new_tokens,
                                    temperature=temperature, seed=seed)
     return out, state

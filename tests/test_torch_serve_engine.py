@@ -98,13 +98,22 @@ def run_both(models, name, over, ecfg, max_new, runs=1):
     return cfg, params, je, te, outs
 
 
-def assert_same_or_tie(cfg, params, prompt, want, got):
-    """Equal tokens, or a first difference at an f32 tie of the JAX logits."""
+def jax_batch(prompt, want, i, frontend_embeds=None):
+    """JAX's teacher-forced batch: the prompt and the first ``i`` tokens of
+    ``want``, behind a vision request's image."""
+    batch = {"tokens": jnp.asarray(np.concatenate([prompt, want[:i]])[None])}
+    if frontend_embeds is not None:
+        batch["frontend_embeds"] = jnp.asarray(np.asarray(frontend_embeds)[None])
+    return batch
+
+
+def assert_same_or_tie(cfg, params, prompt, want, got, frontend_embeds=None):
+    """Equal tokens, or a first difference at an f32 tie of the JAX logits
+    (over the request's image too, for a vision config)."""
     if np.array_equal(want, got):
         return
     i = int(np.nonzero(want != got)[0][0])
-    seq = np.concatenate([prompt, want[:i]])[None]
-    logits, _ = forward(cfg, params, {"tokens": jnp.asarray(seq)}, RT)
+    logits, _ = forward(cfg, params, jax_batch(prompt, want, i, frontend_embeds), RT)
     top2 = np.sort(np.asarray(logits[0, -1, : cfg.vocab_size]))[-2:]
     margin = float(top2[1] - top2[0])
     print(f"first divergence at token {i}: JAX top-2 margin {margin:.3e}")
@@ -235,14 +244,14 @@ QUANT_IDENTITY = [(n, o, p, kv) for kv in ("int8", "fp8")
                   for p in (False, True)]
 
 
-def assert_same_or_quantized_tie(cfg, params, prompt, want, got, kv_dtype):
+def assert_same_or_quantized_tie(cfg, params, prompt, want, got, kv_dtype,
+                                 frontend_embeds=None):
     """Equal tokens, or a first difference where the JAX dense logits'
     top-2 margin is below ``QUANT_MARGIN[kv_dtype] * max|logit|``."""
     if np.array_equal(want, got):
         return
     i = int(np.nonzero(want != got)[0][0])
-    seq = np.concatenate([prompt, want[:i]])[None]
-    logits, _ = forward(cfg, params, {"tokens": jnp.asarray(seq)}, RT)
+    logits, _ = forward(cfg, params, jax_batch(prompt, want, i, frontend_embeds), RT)
     last = np.asarray(logits[0, -1, : cfg.vocab_size])
     top2 = np.sort(last)[-2:]
     margin = float(top2[1] - top2[0]) / float(np.abs(last).max())
@@ -452,8 +461,8 @@ REJECT = {
     "dense family": lambda m: ServeEngine(
         t_get_reduced("falcon-mamba-7b"), m("granite-8b")[3], TRT,
         EngineConfig(**BASE), device="cpu"),
-    "modality prefix": lambda m: ServeEngine(
-        t_get_reduced("phi-3-vision-4.2b"), m("granite-8b")[3], TRT,
+    "encoder-decoder": lambda m: ServeEngine(
+        t_get_reduced("seamless-m4t-medium"), m("granite-8b")[3], TRT,
         EngineConfig(**BASE), device="cpu"),
     "replicated": lambda m: ReplicatedServeEngine(*m("granite-8b")[2:], TRT),
 }

@@ -6,8 +6,8 @@ package, on the CPU in f32 (plain attention), at reduced sizes.
   JAX's eager scatter of the same caches, bitwise (int8: codes and scales
   against JAX's eager codec).
 * Whole-prompt admission (``prefill_chunk=0``): greedy tokens against the JAX
-  engine's on reduced granite-8b (MQA, and GQA with 2 kv heads) and gemma3-1b
-  (window 64),
+  engine's on reduced granite-8b (MQA, and GQA with 2 kv heads), gemma3-1b
+  (window 64), granite-34b and survey-demo-100m,
   ``prefill_bucket`` 0 and 8, and over an int8 pool (a first difference only
   under ``QUANT_MARGIN``); a bucket padded past the window, and one padded
   past the block table's end (its last real page must stay intact).
@@ -193,8 +193,11 @@ def jax_engines(models):
     return get
 
 
+# granite-34b (48 query heads over one kv head, 4 over 1 reduced) and
+# survey-demo-100m: served, and held to JAX's engine here
 WHOLE_IDENTITY = [(n, o, b) for n, o in (("granite-8b", {}), ("granite-8b", {"n_kv_heads": 2}),
-                                         ("gemma3-1b", {})) for b in (0, 8)]
+                                         ("gemma3-1b", {}), ("granite-34b", {}),
+                                         ("survey-demo-100m", {})) for b in (0, 8)]
 
 
 @pytest.mark.parametrize("name,over,bucket", WHOLE_IDENTITY,

@@ -156,9 +156,11 @@ Phases, in order (any failure exits nonzero and prints no result line):
                gemma3-1b f32 (2 prompts of 700, past its 512 window, 16 new):
                exact launch counts (K1 36 / 26, K5 and K6 none), the tokens
                against the card's own lm.forward argmax over the
-               teacher-forced sequence (a first difference in a row only at
-               a top-2 margin below 1e-4), the logit error against forward
-               (run last, after the phases below);
+               teacher-forced sequence and row 0 alone (B 1) against row 0
+               batched (a first difference only at a top-2 margin below
+               1e-4 in f32, below 8% of max|logit| in bf16), the dense
+               logits within 4% of max|logit| of forward's in bf16, 1e-3
+               in f32; falcon-mamba-7b's row runs after serve-ssm (26);
  19. serve-spec, serve-spec-model — the serve-whole workload with k = 4
                drafts a tick (launch/workload.py's
                granite_serve_spec_workload), by prompt lookup and by the
@@ -199,9 +201,40 @@ Phases, in order (any failure exits nonzero and prints no result line):
                generate with the same image under the bf16 tie rule; another
                image moves the first token's logits by more than 4% of
                max|logit|; tokens/s, TTFT, the isolated decode step, pool
-               bytes and peak memory; run after qwen3-moe's weights are freed.
-Before the last two lines, JSON lines {"moe": ...} and {"vision": ...} give
-serve-moe's and serve-vision's launches. The line before last lists every kernel as JSON; the last line is
+               bytes and peak memory; run after qwen3-moe's weights are freed;
+ 24. model-ssm — reduced falcon-mamba-7b (2 layers, d 256, d_inner 512),
+               f32, TF32 off, card vs CPU at atol/rtol 1e-3: forward's logits;
+               prefill's logits and every layer's collected conv / ssm state,
+               then four dense decode steps (logits and states), over a
+               40-token prompt and a 2-token one (under K - 1); on the card
+               the chunked scan (chunk 16) against the associative at S 64;
+               run after phi-3-vision's weights are freed;
+ 25. serve-ssm — launch/workload.py's falcon_mamba_serve_workload:
+               falcon-mamba-7b at full width and depth (64 layers, d 4096,
+               d_inner 8192), bf16, the serve workload's 8 prompt lengths
+               through ServeEngine's dense fallback (paged=None), twice in
+               fresh engines: bitwise-equal streams, finite logits, exact
+               launch counts (K3 65 a pass, a prefill or a decode step:
+               33,280; K1, K5 and K6 none); each stream against the
+               card's teacher-forced forward (a first difference only at a
+               top-2 margin under 8% of max|logit|); weight bytes,
+               tokens/s, TTFT, the isolated decode step (B 1 after 500
+               tokens) and peak memory; the eight prompts differ in length,
+               so each dense tick serves one request;
+ 26. generate-dense on falcon-mamba-7b — generate-dense's checks at full
+               width and depth in f32, TF32 off (its own weights, after
+               serve-ssm's are freed): 4 prompts of 512, 32 new tokens (the
+               scan at B 4, its row 0 alone at B 1 for batched == alone),
+               K3 2,080 (65 a pass: one norm a layer and the final one),
+               K1, K5, K6 none; the recurrent decode's logits within 1e-3
+               of max|logit| of the full-sequence scan's, its tokens at an
+               f32 tie (1e-4). In bf16 the two part by more than 4% at this
+               depth, in JAX as here, so bf16 is held by serve-ssm's tie
+               rule only.
+Before the last two lines, JSON lines {"moe": ...}, {"vision": ...} and
+{"ssm": ...} give serve-moe's, serve-vision's and serve-ssm's launches.
+Every phase's line carries t_s, the seconds since the script started. The
+line before last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -257,8 +290,12 @@ KERNELS = {
 }
 
 
+T0 = time.perf_counter()
+
+
 def emit(**kw) -> None:
-    print(json.dumps(kw), flush=True)
+    """One JSON line, with the seconds since the script started (``t_s``)."""
+    print(json.dumps({**kw, "t_s": round(time.perf_counter() - T0, 1)}), flush=True)
 
 
 # ------------------------------------------------------------------ cases
@@ -2425,8 +2462,10 @@ def phase_serve(kv_dtype: str = "bf16", params=None, whole: bool = False):
 # dense generation at full width: (config, dtype, batch, prompt, new tokens).
 # gemma3-1b's 700-token prompts run past its 512 window, not a multiple of it
 GENERATE_DENSE = [("granite-8b", torch.bfloat16, 4, 512, 32),
-                  ("gemma3-1b", torch.float32, 2, 700, 16)]
+                  ("gemma3-1b", torch.float32, 2, 700, 16),
+                  ("falcon-mamba-7b", torch.float32, 4, 512, 32)]
 TIE_MARGIN = 1e-4                 # f32: tests/test_torch_serve_engine.py::MARGIN
+F32_LOGIT_REL = 1e-3              # f32, TF32 off: sums in another order (model-ssm's)
 # bf16: the dense decode and forward round activations to bf16 in different
 # places (the decode's attention is plain bf16 with JAX's casts, forward's is
 # K1; 4-row against 2,176-row GEMMs), so their logits differ at bf16
@@ -2434,7 +2473,13 @@ TIE_MARGIN = 1e-4                 # f32: tests/test_torch_serve_engine.py::MARGI
 # held within BF16_LOGIT_REL of max|logit| of forward's (JAX's limit for an
 # int8 pool's logits, tests/test_torch_serve_engine.py::QUANT_REL_TOL), and a
 # first difference is allowed where forward's top-2 margin is below twice
-# that share of max|logit| (QUANT_MARGIN's rule).
+# that share of max|logit| (QUANT_MARGIN's rule). falcon-mamba-7b's row is
+# f32: in bf16 its recurrent decode and its full-sequence scan part by more
+# than that with depth, in JAX as in the port (8.3% of max|logit| at 64
+# layers on the card; tests/test_torch_ssm.py::
+# test_bf16_decode_parts_from_forward_as_jax_does), so a bf16 bound could not
+# tell a fault from rounding; in f32 the decode is held to forward's logits
+# within F32_LOGIT_REL and to its argmax at TIE_MARGIN.
 BF16_LOGIT_REL = 0.04
 
 
@@ -2443,32 +2488,75 @@ def top2_margin(row: torch.Tensor) -> float:
     return float(top[0] - top[1])
 
 
-def phase_generate_dense(granite_params) -> None:
-    """``train.serve.generate`` (dense rings) at full width, GENERATE_DENSE:
-    exact launch counts (K1 once a layer, K3 twice a layer and once more a
-    pass, K5 and K6 never), the greedy tokens against the card's own
-    ``lm.forward`` argmax over the teacher-forced sequence, and the dense
-    path's logits (prefill, then decode steps fed the same tokens) against
-    forward's. A first difference in a row is allowed in f32 only where
-    forward's top-2 margin is below TIE_MARGIN, in bf16 only below
-    2 * BF16_LOGIT_REL of max|logit|, where the logits must agree within
-    BF16_LOGIT_REL of max|logit|. Both cases run before a failure is
-    raised."""
+def teacher_forced(cfg, params, rt, prompt: torch.Tensor, tokens: torch.Tensor):
+    """The card's ``lm.forward`` logits (B, new, V) at the positions that
+    chose ``tokens`` (B, new), over ``prompt`` (B, S) and the tokens before
+    each."""
+    from repro_torch.models import forward
+
+    S = prompt.shape[1]
+    with torch.no_grad():
+        ref, _ = forward(cfg, params, {"tokens": torch.cat([prompt, tokens[:, :-1]], 1)}, rt)
+    return ref[:, S - 1:, :cfg.vocab_size].float()
+
+
+def first_differences(ref, tokens, want=None) -> list:
+    """Each row whose ``tokens`` (B, new) differ from ``want`` (by default
+    ``ref``'s argmax): the first differing step and ``ref``'s top-2 margin
+    there (absolute, and relative to max|logit|)."""
+    want = ref.argmax(-1).int() if want is None else want
+    first = []
+    for b in range(tokens.shape[0]):
+        diff = torch.nonzero(want[b] != tokens[b]).flatten().tolist()
+        if diff:
+            i = diff[0]
+            m = top2_margin(ref[b, i])
+            first.append(dict(row=b, step=i, margin=m,
+                              margin_rel=m / float(ref[b, i].abs().max())))
+    return first
+
+
+def beyond_tie(first: list, bf16: bool) -> list:
+    """The first differences at a margin above the tie rule: in f32 at
+    TIE_MARGIN, in bf16 at 2 * BF16_LOGIT_REL of max|logit|."""
+    if bf16:
+        return [f for f in first if f["margin_rel"] >= 2 * BF16_LOGIT_REL]
+    return [f for f in first if f["margin"] >= TIE_MARGIN]
+
+
+def phase_generate_dense(names, weights: dict) -> None:
+    """``train.serve.generate`` (dense rings, or the SSM's recurrent state)
+    at full width, for the GENERATE_DENSE rows in ``names`` (weights on the
+    card from ``weights`` by name, else made from seed 0): exact launch
+    counts (K1 once an attention layer, K3 once a norm, a layer having two,
+    or one when it has no FFN, and once more a pass, K5 and K6 never), the
+    greedy tokens against the card's own ``lm.forward`` argmax over the
+    teacher-forced sequence, and the dense path's logits (prefill, then
+    decode steps fed the same tokens) against forward's; then row 0 alone
+    (B 1) against row 0 batched. A first difference in a row, or between
+    alone and batched, is allowed in f32 only where forward's top-2 margin
+    is below TIE_MARGIN, in bf16 only below 2 * BF16_LOGIT_REL of
+    max|logit|; the logits must agree within F32_LOGIT_REL / BF16_LOGIT_REL
+    of max|logit|. Every row runs before a failure is raised."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention import cuda as fa
     from repro_torch.kernels.paged_attention import cuda
     from repro_torch.kernels.rmsnorm import cuda as rn
-    from repro_torch.models import Runtime, decode_step, forward, init_params, prefill
+    from repro_torch.models import Runtime, decode_step, init_params, prefill
     from repro_torch.train.serve import generate
 
     torch.backends.cuda.matmul.allow_tf32 = False
     failures = []
     for name, dtype, B, S, new in GENERATE_DENSE:
+        if name not in names:
+            continue
         cfg = get_config(name)
-        params = granite_params if name == "granite-8b" else init_params(
+        params = weights[name] if name in weights else init_params(
             cfg, seed=0, device="cuda", dtype=dtype)
         rt = Runtime(dtype=dtype)
         L, V = cfg.n_layers, cfg.vocab_size
+        attn = sum(k in ("attn", "local") for k in cfg.mixer_kinds())
+        want_k3 = new * ((1 if cfg.ffn_kind == "none" else 2) * L + 1)
         prompt = np.random.RandomState(7).randint(0, V, (B, S)).astype(np.int32)
         generate(cfg, params, {"tokens": prompt[:, :16]}, rt, 2)     # warm-up
         torch.cuda.synchronize()
@@ -2481,14 +2569,13 @@ def phase_generate_dense(granite_params) -> None:
         wall = time.perf_counter() - t0
         k1, k3 = fa.LAUNCHES[fa.FWD], rn.LAUNCHES["rmsnorm_fwd"]
         paged = {k: v for k, v in cuda.LAUNCHES.items() if v}
-        if k1 != L or paged or k3 != new * (2 * L + 1) or state["t"] != S + new - 1:
-            raise AssertionError(f"{name} dense: K1 {k1} (want {L}), paged {paged}, K3 {k3} "
-                                 f"(want {new * (2 * L + 1)}), t {state['t']}")
+        if k1 != attn or paged or k3 != want_k3 or state["t"] != S + new - 1:
+            raise AssertionError(f"{name} dense: K1 {k1} (want {attn}), paged {paged}, K3 {k3} "
+                                 f"(want {want_k3}), t {state['t']}")
         peak = torch.cuda.max_memory_allocated() / 1e9
         toks = torch.from_numpy(prompt).to("cuda")
+        ref = teacher_forced(cfg, params, rt, toks, out)              # (B, new, V)
         with torch.no_grad():
-            ref, _ = forward(cfg, params, {"tokens": torch.cat([toks, out[:, :-1]], 1)}, rt)
-            ref = ref[:, S - 1:, :V]                                  # (B, new, V)
             lg, st = prefill(cfg, params, {"tokens": toks}, rt, max_len=S + new)
             dense = [lg[:, :V]]
             for i in range(1, new):
@@ -2498,16 +2585,10 @@ def phase_generate_dense(granite_params) -> None:
             raise AssertionError(f"{name} dense: non-finite logits")
         if not torch.equal(dense.argmax(-1).int(), out):
             raise AssertionError(f"{name} dense: generate's tokens are not its logits' argmax")
-        want = ref.argmax(-1).int()
+        alone, _ = generate(cfg, params, {"tokens": prompt[:1]}, rt, new)
         bf16 = dtype == torch.bfloat16
-        first = []
-        for b in range(B):
-            diff = torch.nonzero(want[b] != out[b]).flatten().tolist()
-            if diff:
-                i = diff[0]
-                m = top2_margin(ref[b, i])
-                first.append(dict(row=b, step=i, margin=m,
-                                  margin_rel=m / float(ref[b, i].abs().max())))
+        first = first_differences(ref, out)
+        alone_first = first_differences(ref[:1], alone, want=out[:1])
         rel = float(((dense - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
         emit(phase="generate-dense", config=cfg.name, dtype=str(dtype).split(".")[-1],
              batch=B, prompt=S, new_tokens=new, window=cfg.sliding_window, wall_s=wall,
@@ -2515,17 +2596,19 @@ def phase_generate_dense(granite_params) -> None:
              rmsnorm_fwd_launches=k3, first_differences=first,
              tie=(f"margin_rel < {2 * BF16_LOGIT_REL}" if bf16 else f"margin < {TIE_MARGIN}"),
              logit_max_abs_err=float((dense - ref).abs().max()), logit_max_rel_err=rel,
-             logit_rel_tol=BF16_LOGIT_REL if bf16 else None, rows_identical=B - len(first))
-        if bf16:
-            bad = [f for f in first if f["margin_rel"] >= 2 * BF16_LOGIT_REL]
-            if rel > BF16_LOGIT_REL:
-                failures.append(f"{name}: dense logits {rel} of max|logit| from forward's")
-        else:
-            bad = [f for f in first if f["margin"] >= TIE_MARGIN]
+             logit_rel_tol=BF16_LOGIT_REL if bf16 else F32_LOGIT_REL,
+             rows_identical=B - len(first),
+             alone_identical=not alone_first, alone_first_difference=alone_first)
+        bad = beyond_tie(first, bf16)
+        if rel > (BF16_LOGIT_REL if bf16 else F32_LOGIT_REL):
+            failures.append(f"{name}: dense logits {rel} of max|logit| from forward's")
         if bad:
             failures.append(f"{name}: tokens differ from forward's argmax beyond a tie: {bad}")
-        del ref, dense, out, state, st
-        if name != "granite-8b":
+        if beyond_tie(alone_first, bf16):
+            failures.append(f"{name}: row 0 alone differs from batched beyond a tie: "
+                            f"{alone_first}")
+        del ref, dense, out, state, st, alone
+        if name not in weights:
             del params
         torch.cuda.empty_cache()
     if failures:
@@ -2854,6 +2937,7 @@ def serve_twice(wl, params) -> dict:
     from repro_torch.kernels.paged_attention import cuda
     from repro_torch.kernels.rmsnorm import cuda as rn
     from repro_torch.serve import ServeEngine
+    from repro_torch.serve import dense as dense_mod
     from repro_torch.serve import engine as engine_mod
 
     cfg, rt, ecfg, new = wl.cfg, wl.rt, wl.ecfg, wl.new_tokens
@@ -2874,6 +2958,17 @@ def serve_twice(wl, params) -> dict:
         finite.logical_and_(torch.isfinite(logits).all())
         return logits, state
 
+    def checked_dense_decode(*args, **kw):          # the dense fallback's steps
+        logits = dense_decode(*args, **kw)
+        finite.logical_and_(torch.isfinite(logits).all())
+        return logits
+
+    dense_decode, dense_prefill = dense_mod.decode_step, dense_mod.prefill
+    checked = ((engine_mod, "decode_step_paged", checked_decode),
+               (engine_mod, "prefill", checked_prefill),
+               (dense_mod, "decode_step", checked_dense_decode),
+               (dense_mod, "prefill", checked_prefill))
+
     first = {}
     for run in range(2):
         eng = ServeEngine(cfg, params, rt, ecfg, device="cuda")
@@ -2882,11 +2977,13 @@ def serve_twice(wl, params) -> dict:
         for m in (cuda, fa, rn):
             m.reset_launches()
         if run:                            # every active row's logits finite
-            engine_mod.decode_step_paged, engine_mod.prefill = checked_decode, checked_prefill
+            for mod, name, fn in checked:
+                setattr(mod, name, fn)
             try:
                 out = eng.run()
             finally:
                 engine_mod.decode_step_paged, engine_mod.prefill = decode_step, prefill
+                dense_mod.decode_step, dense_mod.prefill = dense_decode, dense_prefill
         else:
             out = eng.run()
             first = dict(stats=dict(eng.stats), rids=rids, launches=dict(cuda.LAUNCHES),
@@ -2898,23 +2995,28 @@ def serve_twice(wl, params) -> dict:
     return dict(first, streams=streams, finite=bool(finite))
 
 
-def check_served_twice(phase: str, wl, runs) -> int:
-    """serve_twice's checks: each stream max_new ids inside the vocab, the
-    two runs bitwise equal, finite logits, and exact launch counts (K1 once a
-    layer an admission, one admission a request, K5 once a layer a decode
-    step, K3 twice a layer and once more a pass, no K6 and no quantized
-    variant). Returns the decode steps."""
-    from repro_torch.kernels.paged_attention import cuda
-
-    cfg, L = wl.cfg, wl.cfg.n_layers
+def check_streams_twice(phase: str, wl, runs) -> None:
+    """Each stream max_new ids inside the vocab, the two runs bitwise equal,
+    finite logits."""
     for i, (a, b) in enumerate(zip(*runs["streams"])):
-        if a.shape != (wl.new_tokens,) or not ((a >= 0) & (a < cfg.vocab_size)).all():
+        if a.shape != (wl.new_tokens,) or not ((a >= 0) & (a < wl.cfg.vocab_size)).all():
             raise AssertionError(f"{phase}: request {i} produced {a}")
         if not np.array_equal(a, b):
             raise AssertionError(f"{phase}: request {i} differs between two runs: "
                                  f"{a[:8]} != {b[:8]}")
     if not runs["finite"]:
         raise AssertionError(f"{phase}: non-finite logits in an active row")
+
+
+def check_served_twice(phase: str, wl, runs) -> int:
+    """serve_twice's checks: check_streams_twice, and exact launch counts
+    (K1 once a layer an admission, one admission a request, K5 once a layer
+    a decode step, K3 twice a layer and once more a pass, no K6 and no
+    quantized variant). Returns the decode steps."""
+    from repro_torch.kernels.paged_attention import cuda
+
+    L = wl.cfg.n_layers
+    check_streams_twice(phase, wl, runs)
     k1, k3, admissions = runs["k1"], runs["k3"], runs["admissions"]
     k5 = runs["launches"][cuda.DECODE]
     others = {k: v for k, v in runs["launches"].items() if k != cuda.DECODE and v}
@@ -3209,6 +3311,161 @@ def phase_serve_vision(card: str) -> dict:
             cuda.PREFILL: runs["launches"][cuda.PREFILL], "rmsnorm_fwd": runs["k3"]}
 
 
+# ------------------------------------------------------------------------ SSM
+SSM_TOL = 1e-3                    # f32 card vs CPU, TF32 off: sums in another order
+
+
+def phase_model_ssm() -> None:
+    """Reduced falcon-mamba-7b (2 layers, d 256, d_inner 512), f32, TF32 off:
+    the port on the card against the port on the CPU, atol/rtol SSM_TOL:
+    ``forward``'s logits over 2 x 40 tokens; ``prefill``'s logits and every
+    layer's collected ``conv`` / ``ssm`` state, then four dense
+    ``decode_step``s fed the CPU's tokens, their logits and states, over a
+    40-token prompt and a 2-token one (under K - 1: the conv state is
+    left-padded); and on the card one layer's ``mamba_apply`` by the chunked
+    scan (chunk 16) against the associative one at S 64."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Runtime, decode_step, forward, init_params, prefill
+    from repro_torch.models import ssm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("falcon-mamba-7b")
+    rt = Runtime(dtype=torch.float32)
+    new, worst = 4, {}
+    params = {dev: init_params(cfg, seed=5, device="cpu", dtype=torch.float32).to(dev)
+              for dev in ("cpu", "cuda")}
+    tokens = np.random.RandomState(11).randint(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+
+    def close(what, got, want):
+        got = got.float().cpu()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"model-ssm {what}: non-finite on the card")
+        torch.testing.assert_close(got, want.float(), atol=SSM_TOL, rtol=SSM_TOL, msg=what)
+        worst[what.split()[0]] = max(worst.get(what.split()[0], 0.0), float(
+            (got - want).abs().max() / want.abs().max().clamp(min=1e-30)))
+
+    with torch.no_grad():
+        ref = forward(cfg, params["cpu"], {"tokens": torch.from_numpy(tokens)}, rt)[0]
+        close("forward", forward(cfg, params["cuda"], {
+            "tokens": torch.from_numpy(tokens).to("cuda")}, rt)[0], ref)
+        for S in (40, 2):
+            fed = None
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                lg, st = prefill(cfg, params[dev], {
+                    "tokens": torch.from_numpy(tokens[:, :S]).to(dev)}, rt, max_len=S + new)
+                seq = [(lg.cpu(), [{k: v.cpu() for k, v in c.items()} for c in st["caches"]])]
+                toks = fed or [lg.argmax(-1).int().cpu()]
+                for i in range(new):
+                    lg = decode_step(cfg, params[dev], st, toks[i].to(dev), rt, S + new)
+                    seq.append((lg.cpu(), [{k: v.cpu() for k, v in c.items()}
+                                           for c in st["caches"]]))
+                    if fed is None:
+                        toks.append(lg.argmax(-1).int().cpu())
+                fed, runs[dev] = toks, seq
+            for i, ((ga, gs), (wa, ws)) in enumerate(zip(runs["cuda"], runs["cpu"])):
+                what = "prefill" if i == 0 else "decode"
+                close(f"{what} S={S} step {i}", ga, wa)
+                for j, (g, w) in enumerate(zip(gs, ws)):
+                    for k in ("conv", "ssm"):
+                        close(f"state S={S} step {i} layer {j} {k}", g[k], w[k])
+        mixer = params["cuda"].stack.layers[0].mixer
+        x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator().manual_seed(12))
+        x = x.to("cuda")
+        close("scan chunked-vs-assoc",
+              ssm.mamba_apply(mixer, x, scan_mode="chunked", chunk=16),
+              ssm.mamba_apply(mixer, x).cpu())
+    emit(phase="model-ssm", config=cfg.name, prompts=[40, 2], decode_steps=new,
+         max_rel_err=worst, tol=SSM_TOL)
+
+
+def isolated_dense_decode_ms(cfg, params, rt, B: int, length: int) -> float:
+    """One dense ``decode_step`` of B rows after a ``length``-token
+    prefill, host launches included (CUDA events, median of 10 after 2
+    warm-ups)."""
+    from repro_torch.models import decode_step, prefill
+
+    tok = torch.zeros(B, dtype=torch.int32, device="cuda")
+    times = []
+    with torch.no_grad():
+        _, state = prefill(cfg, params, {"tokens": torch.zeros(
+            (B, length), dtype=torch.int32, device="cuda")}, rt, max_len=length + 16)
+        for _ in range(12):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            decode_step(cfg, params, state, tok, rt, length + 16)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+    return statistics.median(times[2:])
+
+
+def phase_serve_ssm(card: str):
+    """launch/workload.py's falcon_mamba_serve_workload: falcon-mamba-7b at
+    full width and depth (64 layers, d 4096, d_inner 8192), bf16, 8 requests
+    through ServeEngine's dense fallback (paged=None), run twice in fresh
+    engines: the streams bitwise equal, every logit finite, exact launch
+    counts (K3 65 a pass, a pass being one prefill or one decode step; K1,
+    K5 and K6 none); each stream against the card's teacher-forced
+    ``forward`` under generate-dense's bf16 tie rule (``beyond_tie``).
+    Weight bytes, tokens/s, mean TTFT, the isolated decode step (B 1 after
+    500 tokens) and peak memory. The eight prompt lengths differ, so the
+    dense engine runs each request alone: batched against alone is
+    generate-dense's falcon-mamba-7b row (B 4 row 0 against B 1). Returns
+    (the weights, the launch row)."""
+    from repro_torch.kernels.flash_attention import cuda as fa
+    from repro_torch.kernels.paged_attention import cuda
+    from repro_torch.launch.workload import falcon_mamba_serve_workload
+
+    wl = falcon_mamba_serve_workload()
+    cfg, rt, prompts, new = wl.cfg, wl.rt, wl.prompts, wl.new_tokens
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = wl.params("cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+    runs = serve_twice(wl, params)
+    check_streams_twice("serve-ssm", wl, runs)
+    passes = runs["admissions"] * new          # a prefill and new - 1 decode steps each
+    k3, k1 = runs["k3"], runs["k1"]
+    paged = {k: v for k, v in runs["launches"].items() if v}
+    if (k3 != passes * (cfg.n_layers + 1) or k1 or paged
+            or runs["admissions"] != len(prompts)):
+        raise AssertionError(f"serve-ssm launches: K3 {k3} (want {passes * (cfg.n_layers + 1)}"
+                             f"), K1 {k1}, paged {paged}, admissions {runs['admissions']}")
+    s, out = runs["stats"], runs["streams"][0]
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = isolated_dense_decode_ms(cfg, params, rt, 1, 500)
+    first = []
+    for i, (p, o) in enumerate(zip(prompts, out)):
+        p, o = (torch.from_numpy(np.asarray(t, np.int32)[None]).to("cuda") for t in (p, o))
+        ref = teacher_forced(cfg, params, rt, p, o)
+        if not torch.isfinite(ref).all():
+            raise AssertionError(f"serve-ssm: request {i}: non-finite forward logits")
+        first += [dict(f, request=i) for f in first_differences(ref, o)]
+    bad = beyond_tie(first, bf16=True)
+    emit(phase="serve-ssm", config=cfg.name, card=card, dtype="bf16", layers=cfg.n_layers,
+         d_model=cfg.d_model, d_inner=cfg.d_inner, params_bytes=param_bytes,
+         params_init_s=init_s, mem_before_gb=before / 1e9, requests=len(prompts),
+         new_tokens=new, tokens_per_s=s["tokens_per_s"], run_mean_ttft_s=s["run_mean_ttft_s"],
+         wall_s=s["wall_s"], prefill_s=[s["prefill_s"][r] for r in runs["rids"]],
+         prompt_lens=[len(p) for p in prompts], passes=passes, decode_step_ms=step_ms,
+         admissions=runs["admissions"], rmsnorm_fwd_launches=k3,
+         flash_attention_fwd_launches=k1, paged_launches=sum(runs["launches"].values()),
+         kv_bytes_per_request=[s["kv_bytes"][r] for r in runs["rids"]],
+         peak_mem_gb=peak / 1e9, runs_identical=True, logits_finite=True,
+         streams_identical_to_forward=len(prompts) - len(first), first_differences=first,
+         tie=f"margin_rel < {2 * BF16_LOGIT_REL}")
+    if bad:
+        raise AssertionError(f"serve-ssm: streams differ from forward beyond a bf16 tie: "
+                             f"{bad}")
+    return params, {"config": cfg.name, "admissions": runs["admissions"], "passes": passes,
+                    fa.FWD: k1, cuda.DECODE: runs["launches"][cuda.DECODE],
+                    cuda.PREFILL: runs["launches"][cuda.PREFILL], "rmsnorm_fwd": k3}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3257,12 +3514,17 @@ def main() -> int:
         wl, rids, out, _, draft = phase_serve_spec(params, whole["bf16"], drafter)
         phase_alone(wl, params, rids, out, **draft)
     phase_self_draft(wl, params, whole["bf16"])
-    phase_generate_dense(params)
+    phase_generate_dense(("granite-8b", "gemma3-1b"), {"granite-8b": params})
     del params, draft                      # granite-8b's 16 GB: qwen3-moe needs the room
     torch.cuda.empty_cache()
     phase_moe_layer()
     moe = phase_serve_moe(card)
     vision = phase_serve_vision(card)      # after qwen3-moe's weights are freed
+    phase_model_ssm()                      # after phi-3-vision's weights are freed
+    ssm_params, ssm = phase_serve_ssm(card)
+    del ssm_params
+    torch.cuda.empty_cache()
+    phase_generate_dense(("falcon-mamba-7b",), {})   # f32 weights of its own
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kern[name]
@@ -3273,6 +3535,7 @@ def main() -> int:
                          library_ms=r["library_ms"]))
     print(json.dumps({"moe": moe}), flush=True)
     print(json.dumps({"vision": vision}), flush=True)
+    print(json.dumps({"ssm": ssm}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,11 @@ nested (``np.asarray`` over ``repro.models.init_params``) or as the flat
 leaf stacked ``(L, ...)`` under ``stack/g0/p0``; layer ``i`` takes index
 ``i``. A MoE layer's ``ffn`` holds ``router`` (L, d, E), ``w_up`` /
 ``w_gate`` (L, E, d, f) and ``w_down`` (L, E, f, d), beside it an optional
-``extra_mlp`` (the shared or dense-residual MLP). ``params_to_numpy`` is
-the inverse, back to the nested JAX layout.
+``extra_mlp`` (the shared or dense-residual MLP). A Mamba layer's
+``mixer`` holds ``in_proj``, ``conv_w``, ``conv_b``, ``x_proj``,
+``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and ``out_proj``, and its block
+no ``norm2`` or ``ffn``. ``params_to_numpy`` is the inverse, back to the
+nested JAX layout.
 
 The training state (``repro_torch.train.loop.make_state``) carries across
 whole with ``state_from_jax`` / ``state_to_numpy``: every optimizer entry
@@ -36,10 +39,15 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Embed, Head, Norm
 from repro_torch.models.lm import LM
 from repro_torch.models.moe import MoE
+from repro_torch.models.ssm import Mamba
 from repro_torch.models.stack import Block, Stack, check_served
 
 # (flat key, tensor, layer index into the stacked (L, ...) leaf or None)
 Leaf = Tuple[str, torch.Tensor, Optional[int]]
+# a Mamba mixer's leaves in ``Mamba``'s argument order; the f32 ones
+MAMBA_KEYS = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log",
+              "D", "out_proj")
+MAMBA_F32 = ("conv_b", "dt_bias", "A_log", "D")
 
 
 def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
@@ -138,8 +146,9 @@ def params_from_jax(
     tree: Mapping[str, Any], cfg: ArchConfig, *, device, dtype=torch.float32
 ) -> LM:
     """The port's parameters from a JAX tree of numpy arrays. Matmul weights
-    are stored once at ``dtype`` (JAX casts them at every use); norm scales,
-    the head and a tied embedding table stay f32."""
+    and Mamba's ``conv_w`` are stored once at ``dtype`` (JAX casts them at
+    every use); norm scales, the head, a tied embedding table and Mamba's
+    ``conv_b``, ``dt_bias``, ``A_log`` and ``D`` stay f32."""
     if any("/" in k for k in tree):
         tree = unflatten(tree)
     check_served(cfg)
@@ -165,7 +174,13 @@ def params_from_jax(
 
     blocks = []
     for i in range(cfg.n_layers):
-        m, f = layers["mixer"], layers["ffn"]
+        m = layers["mixer"]
+        if "in_proj" in m:                   # Mamba-1, mixer-only
+            blocks.append(Block(norm(layers["norm1"], i), Mamba(*(
+                t(m[k][i], torch.float32 if k in MAMBA_F32 else dtype)
+                for k in MAMBA_KEYS))))
+            continue
+        f = layers["ffn"]
         if "router" in f:
             ffn = MoE(t(f["router"][i], dtype), t(f["w_up"][i], dtype),
                       t(f["w_down"][i], dtype),

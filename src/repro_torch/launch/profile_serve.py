@@ -1,11 +1,12 @@
 """Where the serving time goes on the card: granite-8b, the chip smoke's
-serving workload, or qwen3-moe-30b-a3b's, or phi-3-vision-4.2b's, under
-``torch.profiler``.
+serving workload, or qwen3-moe-30b-a3b's, phi-3-vision-4.2b's or
+falcon-mamba-7b's, under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--out DIR] \
         [--kv-dtype bf16|int8|fp8] [--admission chunked|whole ...] [--spec K]
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload qwen3-moe
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload phi-3-vision
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload falcon-mamba
 
 Runs ``workload.granite_serve_workload(kv_dtype=...)`` (the workload of
 ``chip_smoke.py``'s serve phases; ``--admission whole`` its whole-prompt
@@ -35,6 +36,15 @@ products alone, and the byte floor of a step that reads every expert.
 ``DIR/vision``: its decode step is timed at 500 text tokens behind the
 image, its whole-prompt prefill is the image and 512 text tokens, and it
 has no chunk (a vision request is never chunked).
+
+``--workload falcon-mamba`` profiles ``workload.falcon_mamba_serve_workload``
+(the SSM on the engine's dense fallback) into ``DIR/ssm``. It has no pool:
+its isolated times are one dense ``decode_step`` at B 1 after a 500-token
+prefill, one whole-prompt prefill of 512 tokens, and the pieces of one
+layer's ``mamba_apply`` at S 512 (``ssm_coeffs_ms``: the discretised a and
+b; ``ssm_scan_ms``: the associative scan over them; ``ssm_layer_ms``: the
+whole block), from which ``ssm_scan_share_of_prefill`` = L x the scan over
+the prefill.
 """
 from __future__ import annotations
 
@@ -103,19 +113,19 @@ def _events_ms(fn, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def profile_one(wl, params, card: str, out: Path) -> dict:
-    """One workload's profiled run and isolated step times (see above)."""
-    from repro_torch.models import (decode_step_paged, init_paged_state, prefill,
-                                    prefill_chunk_paged, verify_step_paged)
+def profiled_run(wl, params, out: Path) -> dict:
+    """The workload's requests through a warm engine, once under the
+    profiler: wall time, device-busy time, the device time of each kernel
+    family (the operator table to ``out``), the engine's stats, peak memory,
+    and the device time of the kernels that ``aten::bmm`` launched."""
     from repro_torch.serve import ServeEngine
-    from repro_torch.serve.engine import SPEC_COUNTERS
 
     cfg, rt, ecfg = wl.cfg, wl.rt, wl.ecfg
     eng = ServeEngine(cfg, params, rt, ecfg, device="cuda")
     for i, p in enumerate(wl.prompts):                 # warm-up run
         eng.submit(p, wl.new_tokens, frontend_embeds=wl.image(i))
     eng.run()
-    spec0 = {key: eng.stats.get(key, 0) for key in SPEC_COUNTERS}
+    stats0 = dict(eng.stats)
     torch.cuda.reset_peak_memory_stats()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         # submitted inside the window: the profiler's start-up is not a TTFT
@@ -146,6 +156,19 @@ def profile_one(wl, params, card: str, out: Path) -> dict:
     (out / "key_averages.txt").write_text(averages.table(
         sort_by="self_cuda_time_total", row_limit=60))
     del eng
+    return dict(stats=stats, stats0=stats0, rids=rids, wall_s=wall_s, busy_us=busy_us,
+                families=families, peak=peak, bmm_us=bmm_us)
+
+
+def profile_one(wl, params, card: str, out: Path) -> dict:
+    """One workload's profiled run and isolated step times (see above)."""
+    from repro_torch.models import (decode_step_paged, init_paged_state, prefill,
+                                    prefill_chunk_paged, verify_step_paged)
+    from repro_torch.serve.engine import SPEC_COUNTERS
+
+    cfg, rt, ecfg = wl.cfg, wl.rt, wl.ecfg
+    run = profiled_run(wl, params, out)
+    stats, families, rids = run["stats"], run["families"], run["rids"]
 
     # isolated step times: 4 slots decoding at 500 cached tokens (behind an
     # image); one chunk; one whole-prompt prefill of 512 tokens (and an image)
@@ -197,13 +220,13 @@ def profile_one(wl, params, card: str, out: Path) -> dict:
     pool = "" if ecfg.kv_dtype == "bf16" else f"_{ecfg.kv_dtype}"
     spec = {}
     if k:
-        spec = {key: stats[key] - spec0[key] for key in SPEC_COUNTERS}
+        spec = {key: stats[key] - run["stats0"].get(key, 0) for key in SPEC_COUNTERS}
         spec.update(spec_tokens=k, spec_drafter=ecfg.spec_drafter,
                     spec_accept_rate=stats["spec_accept_rate"],
                     spec_accepted_per_verify=stats["spec_accepted_per_verify"])
     moe = {}
     if cfg.ffn_kind == "moe":
-        moe = {"moe_expert_bmm_ms": bmm_us / 1e3,
+        moe = {"moe_expert_bmm_ms": run["bmm_us"] / 1e3,
                "moe_routing_ms": sum(f["ms"] for n, f in families.items()
                                      if n.startswith("MoE routing"))}
     return {
@@ -211,14 +234,57 @@ def profile_one(wl, params, card: str, out: Path) -> dict:
         "admission": "chunked" if ecfg.prefill_chunk else "whole", **spec,
         "decode_steps": launches[f"paged_decode_attention{pool}"] // L,
         "verify_ticks": launches[f"paged_prefill_attention{pool}"] // L if k else 0,
-        "wall_s": wall_s, "device_busy_s": busy_us / 1e6,
-        "idle_share": 1 - busy_us / 1e6 / wall_s,
-        "tokens_per_s": stats["tokens_per_s"],
-        "run_mean_ttft_s": stats["run_mean_ttft_s"],
-        "prefill_s": [stats["prefill_s"][r] for r in rids], "peak_mem_bytes": peak,
-        "kernel_launches": stats["kernel_launches"],
-        "families": families, **times,
+        **_run_row(run), **times,
     }
+
+
+def _run_row(run: dict) -> dict:
+    stats, busy_s = run["stats"], run["busy_us"] / 1e6
+    return {"wall_s": run["wall_s"], "device_busy_s": busy_s,
+            "idle_share": 1 - busy_s / run["wall_s"],
+            "tokens_per_s": stats["tokens_per_s"], "run_mean_ttft_s": stats["run_mean_ttft_s"],
+            "prefill_s": [stats["prefill_s"][r] for r in run["rids"]],
+            "peak_mem_bytes": run["peak"], "kernel_launches": stats["kernel_launches"],
+            "families": run["families"]}
+
+
+def profile_ssm(wl, params, card: str, out: Path) -> dict:
+    """The SSM workload's profiled run (the dense fallback) and its isolated
+    times (see above)."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import norm_apply
+
+    cfg, rt = wl.cfg, wl.rt
+    run = profiled_run(wl, params, out)
+    S, L = 512, cfg.n_layers
+    prompt = {"tokens": torch.zeros((1, S), dtype=torch.int32, device="cuda")}
+    layer = params.stack.layers[0]
+    with torch.no_grad():
+        _, state = prefill(cfg, params, {"tokens": prompt["tokens"][:, :500]}, rt)
+        tok = torch.zeros(1, dtype=torch.int32, device="cuda")
+        h = norm_apply(layer.norm1, torch.randn(1, S, cfg.d_model, device="cuda").to(rt.dtype),
+                       cfg.norm)
+        x_in = (h @ layer.mixer.in_proj.to(rt.dtype))[..., :cfg.d_inner]
+        x_conv = ssm.silu(ssm._causal_conv(x_in, layer.mixer.conv_w.to(rt.dtype),
+                                           layer.mixer.conv_b))
+        a, b, _ = ssm._ssm_coeffs(layer.mixer, x_conv)
+        fns = {
+            "decode_step_ms": lambda: decode_step(cfg, params, state, tok, rt, S + 64),
+            "whole_prefill_512_ms": lambda: prefill(cfg, params, prompt, rt),
+            "ssm_layer_ms": lambda: ssm.mamba_apply(layer.mixer, h),
+            "ssm_coeffs_ms": lambda: ssm._ssm_coeffs(layer.mixer, x_conv),
+            "ssm_scan_ms": lambda: ssm.assoc_scan(a, b, keep_a=False),
+        }
+        times = {}
+        for name, fn in fns.items():
+            fn()
+            times[name] = _events_ms(fn)
+    prefill_ms = times["whole_prefill_512_ms"]
+    times["ssm_scan_share_of_prefill"] = L * times["ssm_scan_ms"] / prefill_ms
+    times["ssm_layers_share_of_prefill"] = L * times["ssm_layer_ms"] / prefill_ms
+    return {"card": card, "config": cfg.name, "admission": "dense",
+            "requests": len(wl.prompts), **_run_row(run), **times}
 
 
 def _moe_times(cfg, params) -> dict:
@@ -263,15 +329,17 @@ def main(argv=None) -> None:
     ap.add_argument("--spec", type=int, default=0, metavar="K",
                     help="then the speculative workload: K drafts a slot a tick")
     ap.add_argument("--workload", default="granite",
-                    choices=("granite", "qwen3-moe", "phi-3-vision"),
+                    choices=("granite", "qwen3-moe", "phi-3-vision", "falcon-mamba"),
                     help="qwen3-moe: qwen3_moe_serve_workload; phi-3-vision: "
-                         "phi3_vision_serve_workload (whole prompts; --admission, "
-                         "--kv-dtype and --spec do not apply)")
+                         "phi3_vision_serve_workload (whole prompts); falcon-mamba: "
+                         "falcon_mamba_serve_workload (dense); --admission, "
+                         "--kv-dtype and --spec do not apply to them")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve measures the card; CUDA is not available")
 
-    from repro_torch.launch.workload import (granite_serve_spec_workload,
+    from repro_torch.launch.workload import (falcon_mamba_serve_workload,
+                                             granite_serve_spec_workload,
                                              granite_serve_workload,
                                              phi3_vision_serve_workload,
                                              qwen3_moe_serve_workload)
@@ -291,10 +359,13 @@ def main(argv=None) -> None:
         runs = [("moe", qwen3_moe_serve_workload())]
     if args.workload == "phi-3-vision":
         runs = [("vision", phi3_vision_serve_workload())]
+    if args.workload == "falcon-mamba":
+        runs = [("ssm", falcon_mamba_serve_workload())]
     for name, wl in runs:
         if params is None:
             params = wl.params("cuda")
-        row = profile_one(wl, params, card, Path(args.out) / name)
+        profile = profile_ssm if name == "ssm" else profile_one
+        row = profile(wl, params, card, Path(args.out) / name)
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()
 

@@ -28,6 +28,12 @@ engine, or batched dense generation.
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
         --arch phi-3-vision-4.2b --paged --prompt-len 512 --new-tokens 64
 
+    # full falcon-mamba-7b on the card (the SSM, served dense: K3 and the
+    # selective scan); with --paged its requests go through the engine's
+    # dense fallback
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --arch falcon-mamba-7b --prompt-len 512 --new-tokens 64
+
 Counterpart of ``repro.launch.serve``. With ``--paged``, requests of random
 length (uniform in ``[prompt_len // 2, prompt_len]``, after an optional
 shared system prompt) are admitted into ``--slots`` decode slots over the
@@ -37,8 +43,9 @@ or through the prefix cache (``--prefix-cache``); a vision config's
 requests each carry a random (frontend_tokens, d_model) f32 image prefix,
 the pool is sized for it, and they are always admitted whole; for a MoE
 config the engine warns that expert capacity counts the pad rows, as JAX's
-launcher leaves it. Without it, ``--batch`` random prompts of
-``--prompt-len`` tokens (and images) generate together through
+launcher leaves it; a family with non-KV decode state (the SSM) goes through
+the engine's dense fallback, as in JAX. Without it, ``--batch`` random
+prompts of ``--prompt-len`` tokens (and images) generate together through
 ``train.serve.generate``. It runs on CUDA unless ``--device cpu`` is given,
 and in bf16 at full size (``--full``), f32 when reduced. ``--kv-dtype
 int8|fp8`` stores the pool as codes and scales (``bf16``, the default, at
@@ -108,7 +115,8 @@ def main(argv=None) -> None:
 
     from repro_torch.configs import ASSIGNED, get_config, get_reduced
     from repro_torch.models import Runtime, init_params
-    from repro_torch.serve import EngineConfig, ServeEngine, paired_drafter_cfg
+    from repro_torch.serve import (EngineConfig, ServeEngine, paged_supported,
+                                   paired_drafter_cfg)
 
     if args.arch not in ASSIGNED:
         ap.error(f"--arch must be one of {ASSIGNED}")
@@ -120,6 +128,11 @@ def main(argv=None) -> None:
     if not args.paged:
         _generate_dense(args, cfg, params, Runtime(dtype=dtype), rng, where)
         return
+    paged = paged_supported(cfg)
+    if not paged:
+        print(f"{cfg.name}: family {cfg.family!r} -> dense fallback")
+        if args.spec:
+            ap.error(f"--spec needs a paged-capable family, not {args.arch}")
     max_prompt = args.prompt_len + args.shared_prefix
     ecfg = EngineConfig.capacity(
         max_prompt + cfg.frontend_tokens, args.new_tokens, slots=args.slots, page_size=args.page_size,
@@ -149,7 +162,7 @@ def main(argv=None) -> None:
         rids.append(eng.submit(tokens, args.new_tokens, frontend_embeds=fe))
     out = eng.run()
     s = eng.stats
-    admission = ("prefix cache" if args.prefix_cache else
+    admission = ("dense fallback" if not paged else "prefix cache" if args.prefix_cache else
                  f"chunks of {args.prefill_chunk}" if args.prefill_chunk else "whole prompt")
     print(
         f"{cfg.name} [{cfg.family}] on {where}, admission by {admission}: "
@@ -162,14 +175,18 @@ def main(argv=None) -> None:
     from repro_torch.kernels.paged_attention.quant import kv_token_bytes
 
     per_req = list(s.get("kv_bytes", {}).values())
-    tok_bytes = kv_token_bytes(cfg.n_kv_heads, cfg.head_dim, args.kv_dtype)
-    cap_factor = kv_token_bytes(cfg.n_kv_heads, cfg.head_dim, "bf16") / tok_bytes
-    print(
-        f"  kv-pool: dtype={args.kv_dtype}, bytes/token={tok_bytes * cfg.n_layers}, "
-        f"bytes/request={np.mean(per_req):.0f} (mean over {len(per_req)}), "
-        f"capacity_factor_vs_bf16={cap_factor:.2f}x, "
-        f"pool_bytes={s['kv_pool_bytes_per_device']}"
-    )
+    if paged:
+        tok_bytes = kv_token_bytes(cfg.n_kv_heads, cfg.head_dim, args.kv_dtype)
+        cap_factor = kv_token_bytes(cfg.n_kv_heads, cfg.head_dim, "bf16") / tok_bytes
+        print(
+            f"  kv-pool: dtype={args.kv_dtype}, bytes/token={tok_bytes * cfg.n_layers}, "
+            f"bytes/request={np.mean(per_req):.0f} (mean over {len(per_req)}), "
+            f"capacity_factor_vs_bf16={cap_factor:.2f}x, "
+            f"pool_bytes={s['kv_pool_bytes_per_device']}"
+        )
+    else:
+        print(f"  dense state: bytes/request={np.mean(per_req):.0f} "
+              f"(mean over {len(per_req)})")
     if args.spec:
         print(
             f"  spec: k={args.spec} drafter={args.drafter} "

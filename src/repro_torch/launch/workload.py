@@ -29,6 +29,15 @@ embeddings. Admitted whole (as every vision request is), text padded to a
 bucket of 128, so each prefill runs 704, 832, 960 or 1,088 positions; the
 pool is sized for 512 + 576 prompt positions and holds 393,216 bytes a
 token.
+``falcon_mamba_serve_workload`` serves falcon-mamba-7b at full width and
+depth (64 Mamba-1 layers, d 4096, d_inner 8192, state 16, conv 4,
+vocabulary 65,024, no attention and no FFN) in bf16, random weights from
+seed 0, with serve-whole's eight prompt lengths (the same generator and
+seed, its tokens drawn over this vocabulary), 64 new tokens, greedy, 4
+slots, on the engine's dense fallback (the SSM's decode state is no KV
+cache, so it has no pool to price: ``EngineConfig.capacity`` sizes the
+horizon without ``cfg=``). The dense engine batches requests of one prompt
+length, so each of the eight runs alone.
 
 Training: gemma3-1b at full width and depth (26 layers, d 1152, 4 query
 heads over 1 kv head of hd 256, window 512 on 22 layers, tied vocabulary of
@@ -82,25 +91,32 @@ class ServeWorkload:
                            dtype=self.rt.dtype)
 
 
+NEW_TOKENS, SLOTS, PAGE = 64, 4, 16
+
+
+def _prompts(cfg: ArchConfig, seed: int) -> List[np.ndarray]:
+    """8 prompts uniform in 128..512 tokens over ``cfg``'s vocabulary."""
+    rng = np.random.RandomState(seed)
+    return [rng.randint(0, cfg.vocab_size, (int(n),)).astype(np.int32)
+            for n in rng.randint(128, 513, size=8)]
+
+
 def _serve_workload(name: str, seed: int, kv_dtype: str, prefill_chunk: int,
                     prefill_bucket: int) -> ServeWorkload:
     cfg = get_config(name)
-    new_tokens, slots, page = 64, 4, 16
     ecfg = EngineConfig.capacity(
-        512 + cfg.frontend_tokens, new_tokens, slots=slots, page_size=page, headroom=2.0, cfg=cfg,
-        kv_dtype=kv_dtype,
+        512 + cfg.frontend_tokens, NEW_TOKENS, slots=SLOTS, page_size=PAGE, headroom=2.0,
+        cfg=cfg, kv_dtype=kv_dtype,
     ).engine(prefill_chunk=prefill_chunk, prefill_bucket=prefill_bucket,
              inner_steps=8, temperature=0.0, seed=seed)
-    rng = np.random.RandomState(seed)
-    prompts = [rng.randint(0, cfg.vocab_size, (int(n),)).astype(np.int32)
-               for n in rng.randint(128, 513, size=8)]
+    prompts = _prompts(cfg, seed)
     images = None
     if cfg.frontend == "vision":
         irng = np.random.RandomState(seed + 1)
         images = [irng.randn(cfg.frontend_tokens, cfg.d_model).astype(np.float32)
                   for _ in prompts]
     rt = Runtime(dtype=torch.bfloat16, kv_dtype=normalize_kv_dtype(kv_dtype))
-    return ServeWorkload(cfg, rt, ecfg, prompts, new_tokens, seed, images)
+    return ServeWorkload(cfg, rt, ecfg, prompts, NEW_TOKENS, seed, images)
 
 
 def granite_serve_workload(seed: int = 0, kv_dtype: str = "bf16",
@@ -125,6 +141,14 @@ def qwen3_moe_serve_workload(seed: int = 0) -> ServeWorkload:
 
 def phi3_vision_serve_workload(seed: int = 0) -> ServeWorkload:
     return _serve_workload("phi-3-vision-4.2b", seed, "bf16", 0, 128)
+
+
+def falcon_mamba_serve_workload(seed: int = 0) -> ServeWorkload:
+    cfg = get_config("falcon-mamba-7b")
+    ecfg = EngineConfig.capacity(512, NEW_TOKENS, slots=SLOTS, page_size=PAGE).engine(
+        inner_steps=8, temperature=0.0, seed=seed)
+    return ServeWorkload(cfg, Runtime(dtype=torch.bfloat16), ecfg, _prompts(cfg, seed),
+                         NEW_TOKENS, seed)
 
 
 @dataclass(frozen=True)

@@ -94,6 +94,16 @@ def rope_apply(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------------- activation
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA computes it: x * logistic(x), the logistic
+    expanded to 1 / (1 + exp(-x)), each step rounded to x's dtype. In bf16
+    ``F.silu``, which rounds once, differs from it by an ulp in a large share
+    of the elements, and the MoE experts' and the SSM's outputs then part
+    from JAX's."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 # ----------------------------------------------------------------------- MLP
 class MLP(nn.Module):
     def __init__(

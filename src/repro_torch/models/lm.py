@@ -16,7 +16,8 @@ across, and :func:`init_params` draws a fresh one from a seeded
 ``torch.Generator`` on the target device.
 
 Decode states are updated in place: pool pages and dense rings by the
-attention writes, ``lengths`` by :func:`decode_step_paged` (not by
+attention writes, a Mamba layer's ``{"conv", "ssm"}`` state by its step,
+``lengths`` by :func:`decode_step_paged` (not by
 :func:`verify_step_paged`, whose caller commits) and ``t`` (a host int, the
 position the next token takes) by :func:`decode_step`.
 """
@@ -30,6 +31,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.chunked_ce import chunked_ce
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import stack as stack_mod
 from repro_torch.models.layers import (
     Embed,
@@ -61,9 +63,11 @@ def init_params(
     """Random parameters on ``device`` from ``torch.Generator(seed)``: the
     same tree and the same distributions as ``repro.models.init_params``
     (truncated-normal fan-in matrices, MoE expert stacks among them,
-    0.02-normal embeddings, unit norm scales), not the same bits. Matmul
-    weights are stored at ``dtype``; norm scales, the head and a tied
-    embedding table stay f32, as the logits and norms read them in f32."""
+    0.02-normal embeddings, unit norm scales, Mamba's ``ssm.Mamba.init``),
+    not the same bits. Matmul weights (and Mamba's ``conv_w``) are stored at
+    ``dtype``; norm scales, the head, a tied embedding table and Mamba's
+    ``conv_b``, ``dt_bias``, ``A_log`` and ``D`` stay f32, as JAX reads
+    them in f32."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     stack_mod.check_served(cfg)
@@ -231,17 +235,19 @@ def prefill(
     count the image's P positions ahead of the text.
 
     ``max_len`` sizes the rings for the decode horizon (default the prompt
-    length). ``gather_pos`` picks the position whose logits are returned
-    (default the last): a prompt right-padded to a bucket gathers its true
-    last position. ``full_cache`` sizes every attention ring, sliding-window
-    ones too, to the horizon, as the page pool keeps every position. The
-    final norm and the head run on that one row."""
+    length); a Mamba layer's state is O(1) whatever it is. ``gather_pos``
+    picks the position whose logits are returned (default the last): a
+    prompt right-padded to a bucket gathers its true last position.
+    ``full_cache`` sizes every attention ring, sliding-window ones too, to
+    the horizon, as the page pool keeps every position. The final norm and
+    the head run on that one row."""
     x, _ = _decoder_input(cfg, params, batch, rt)
     S = x.shape[1]
     specs = layer_specs(cfg, seq_len=S, long_variant=rt.long_variant)
     cache_specs = layer_specs(cfg, seq_len=max_len or S, long_variant=rt.long_variant)
     if full_cache:
-        cache_specs = tuple(s._replace(cache_len=max_len or S) for s in cache_specs)
+        cache_specs = tuple(s._replace(cache_len=max_len or S)
+                            if s.kind in ("attn", "local") else s for s in cache_specs)
     x, _, caches = stack_mod.stack_forward(
         cfg, params.stack, x, rt, specs, collect_cache=True, cache_specs=cache_specs,
     )
@@ -253,13 +259,15 @@ def prefill(
 def init_decode_state(
     cfg: ArchConfig, params: LM, B: int, seq_len: int, rt: Runtime
 ) -> Dict[str, Any]:
-    """Empty rings sized for a ``seq_len`` context, on the parameters'
-    device, at position ``seq_len - 1`` (the dry-run / bench entry)."""
+    """Empty rings sized for a ``seq_len`` context (and zero Mamba states),
+    on the parameters' device, at position ``seq_len - 1`` (the dry-run /
+    bench entry)."""
     dev = params.embed.table.device
     specs = layer_specs(cfg, seq_len=seq_len, long_variant=rt.long_variant)
     caches = [
+        ssm_mod.init_mamba_state(bp.mixer, B, rt.dtype) if s.kind == "mamba" else
         attn_mod.init_kv_cache(B, s.cache_len, cfg.n_kv_heads, cfg.head_dim, rt.dtype, dev)
-        for s in specs
+        for s, bp in zip(specs, params.stack.layers)
     ]
     return {"caches": caches, "t": seq_len - 1}
 
@@ -273,8 +281,8 @@ def decode_step(
     seq_len: int,
 ) -> torch.Tensor:
     """One dense decode step at ``state["t"]`` for the whole batch. token:
-    (B,) ids. Returns f32 logits (B, V); writes the rings and advances
-    ``state["t"]`` in place."""
+    (B,) ids. Returns f32 logits (B, V); writes the rings, steps the Mamba
+    states and advances ``state["t"]`` in place."""
     specs = layer_specs(cfg, seq_len=seq_len, long_variant=rt.long_variant)
     x = embed_apply(params.embed, token[:, None], rt.dtype)
     x = stack_mod.stack_decode(cfg, params.stack, x, state["caches"], state["t"], rt, specs)

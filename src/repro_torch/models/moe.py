@@ -41,7 +41,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from repro_torch.models.layers import dense_init, frozen
+from repro_torch.models.layers import dense_init, frozen, silu
 
 
 class MoE(nn.Module):
@@ -123,14 +123,6 @@ def route(p: MoE, xt: torch.Tensor, *, top_k: int, capacity_factor: float) -> Ro
     C = capacity(T, top_k, E, capacity_factor)
     keep = pos < C
     return Routing(probs, gate_w, gate_idx, order, keep, le_s * C + pos, C, aux)
-
-
-def silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as XLA computes it: x * logistic(x), the logistic
-    expanded to 1 / (1 + exp(-x)), each step rounded to x's dtype. In bf16
-    ``F.silu``, which rounds once, differs from it by an ulp in a large share
-    of the elements, and the expert outputs then part from JAX's."""
-    return x * (1 / (1 + torch.exp(-x)))
 
 
 def moe_apply(

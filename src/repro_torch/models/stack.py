@@ -1,8 +1,10 @@
 """Decoder stack: the full-sequence forward (training, and whole-prompt
 prefill with collected caches), the dense ring-cache decode and the paged
-serving steps, over per-layer blocks whose FFN is a dense MLP or a MoE
-(``models/moe.py``, with an optional always-on ``extra_mlp``); the forward
-sums the MoE layers' router aux, the serving steps drop it, as JAX does.
+serving steps, over per-layer blocks whose mixer is attention or a Mamba-1
+SSM (``models/ssm.py``) and whose FFN is a dense MLP, a MoE
+(``models/moe.py``, with an optional always-on ``extra_mlp``) or none (the
+SSM family's mixer-only blocks); the forward sums the MoE layers' router
+aux, the serving steps drop it, as JAX does.
 
 Counterpart of ``stack_forward``, ``write_prefill_to_pool``,
 ``stack_decode`` (dense and paged), the paged prefill and the pipeline stage
@@ -21,7 +23,9 @@ Kv)``, so a copy-on-write page copy is a single ``pool[:, dst] =
 pool[:, src]`` per tensor and layer ``i`` works on the contiguous views
 ``pool[i]``. Collected dense caches are a list with one ``{"k", "v",
 "pos"}`` ring per layer (``attention.init_kv_cache``), where JAX stacked
-them per segment.
+them per segment; a Mamba layer's collected state is ``{"conv", "ssm"}``
+(``ssm.mamba_apply``), and the dense decode advances it. The paged pools
+hold attention layers only: a recurrent family is served dense, as in JAX.
 
 A pipeline stage is a slice of ``Stack.layers`` (the counterpart of
 ``stage_layer_params`` slicing the stacked leaves), applied by
@@ -40,6 +44,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention import quant
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import MLP, Norm, mlp_apply, norm_apply
 from repro_torch.models.runtime import Runtime
 
@@ -76,42 +81,52 @@ def layer_specs(
 
 
 def check_served(cfg: ArchConfig) -> None:
-    """Raise for what the port does not run yet: non-attention mixers, no
-    FFN, encoder-decoder and audio-frontend configs (the vision prefix is
-    served)."""
-    if not all(k in ("attn", "local") for k in cfg.pattern) or not cfg.n_heads:
+    """Raise for what the port does not run yet: RG-LRU mixers and mixed
+    patterns, encoder-decoder and audio-frontend configs. Attention stacks
+    (with the vision prefix) and pure Mamba stacks are served."""
+    kinds = set(cfg.pattern)
+    if not ((kinds <= {"attn", "local"} and cfg.n_heads) or kinds == {"mamba"}):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.pattern} mixers are ROADMAP queue 1 item 4, "
             "'the other families'"
         )
-    if cfg.ffn_kind == "none" or cfg.is_encdec or cfg.frontend not in (None, "vision"):
+    if cfg.is_encdec or cfg.frontend not in (None, "vision"):
         raise NotImplementedError(
-            f"{cfg.name}: ffn={cfg.ffn_kind!r}, enc-dec or frontend "
-            f"{cfg.frontend!r} is ROADMAP queue 1 item 4, 'the other families'"
+            f"{cfg.name}: enc-dec or frontend {cfg.frontend!r} is ROADMAP queue 1 "
+            "item 4, 'the other families'"
         )
 
 
 # -------------------------------------------------------------------- blocks
 class Block(nn.Module):
-    """One decoder layer: norm1 -> attention -> norm2 -> FFN, the FFN a
-    dense MLP or a MoE (``ffn_kind``). A MoE block may hold ``extra_mlp``,
-    one always-on gated MLP whose output adds to the routed one: the shared
-    experts and Arctic's dense residual FFN, their hidden units concatenated
-    (exact for independent gated MLPs, as in JAX)."""
+    """One decoder layer: norm1 -> mixer (attention or Mamba) -> norm2 ->
+    FFN, the FFN a dense MLP or a MoE (``ffn_kind``); with ``ffn_kind`` "none"
+    (Mamba-1) the block is norm1 -> mixer alone, with no ``norm2``. A MoE
+    block may hold ``extra_mlp``, one always-on gated MLP whose output adds
+    to the routed one: the shared experts and Arctic's dense residual FFN,
+    their hidden units concatenated (exact for independent gated MLPs, as in
+    JAX)."""
 
-    def __init__(self, norm1: Norm, mixer: attn_mod.Attention, norm2: Norm,
-                 ffn: Union[MLP, moe_mod.MoE], extra_mlp: Optional[MLP] = None):
+    def __init__(self, norm1: Norm, mixer: Union[attn_mod.Attention, ssm_mod.Mamba],
+                 norm2: Optional[Norm] = None, ffn: Union[MLP, moe_mod.MoE, None] = None,
+                 extra_mlp: Optional[MLP] = None):
         super().__init__()
         self.norm1, self.mixer, self.norm2, self.ffn = norm1, mixer, norm2, ffn
         self.extra_mlp = extra_mlp
 
     @classmethod
-    def init(cls, cfg: ArchConfig, gen: torch.Generator, dtype) -> "Block":
+    def init(cls, cfg: ArchConfig, gen: torch.Generator, dtype, kind: str) -> "Block":
         dev = gen.device
         norm1 = Norm.init(cfg.norm, cfg.d_model, dev)
-        mixer = attn_mod.Attention.init(
-            gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype
-        )
+        if kind == "mamba":
+            mixer = ssm_mod.Mamba.init(gen, cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                                       cfg.ssm_conv, dtype)
+        else:
+            mixer = attn_mod.Attention.init(
+                gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype
+            )
+        if cfg.ffn_kind == "none":
+            return cls(norm1, mixer)
         norm2 = Norm.init(cfg.norm, cfg.d_model, dev)
         if cfg.ffn_kind == "dense":
             return cls(norm1, mixer, norm2,
@@ -133,14 +148,16 @@ class Stack(nn.Module):
     @classmethod
     def init(cls, cfg: ArchConfig, gen: torch.Generator, dtype) -> "Stack":
         check_served(cfg)
-        return cls([Block.init(cfg, gen, dtype) for _ in range(cfg.n_layers)])
+        return cls([Block.init(cfg, gen, dtype, kind) for kind in cfg.mixer_kinds()])
 
 
 def _ffn_apply(
     cfg: ArchConfig, p: Block, x: torch.Tensor
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Residual FFN. Returns (x, aux): aux is a MoE layer's router loss, None
-    for a dense layer (JAX's zero, left out of the sums)."""
+    for a dense layer or one without FFN (JAX's zero, left out of the sums)."""
+    if cfg.ffn_kind == "none":
+        return x, None
     h = norm_apply(p.norm2, x, cfg.norm)
     if cfg.ffn_kind == "dense":
         return x + mlp_apply(p.ffn, h, cfg.mlp_gated), None
@@ -207,33 +224,39 @@ def _layer_scales(pools: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Ten
 
 # --------------------------------------------------------------------- apply
 def _layer_apply(
-    cfg: ArchConfig, bp: Block, x: torch.Tensor, spec: LayerSpec,
-    positions: torch.Tensor, causal: bool, cache_len: int = 0,
+    cfg: ArchConfig, bp: Block, x: torch.Tensor, spec: LayerSpec, rt: Runtime,
+    positions: torch.Tensor, causal: bool, collect: bool = False, cache_len: int = 0,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
-    """One layer: (x, aux, cache); with ``cache_len`` > 0 the cache is its
-    ring of that many rows, filled from the k/v that attention consumed."""
+    """One layer: (x, aux, cache). With ``collect`` the cache is an
+    attention layer's ring of ``cache_len`` rows, filled from the k/v that
+    attention consumed, or a Mamba layer's ``{"conv", "ssm"}`` state after
+    the last position."""
     h = norm_apply(bp.norm1, x, cfg.norm)
-    out, kv = attn_mod.attention_apply(
-        bp.mixer, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        head_dim=cfg.head_dim, theta=cfg.rope_theta, window=spec.window,
-        causal=causal, positions=positions, collect_kv=cache_len > 0,
-    )
     cache = None
-    if cache_len:
-        k = kv["k"]
-        cache = attn_mod.fill_kv_cache(
-            attn_mod.init_kv_cache(k.shape[0], cache_len, cfg.n_kv_heads,
-                                   cfg.head_dim, k.dtype, k.device),
-            k, kv["v"], positions,
+    if spec.kind == "mamba":
+        res = ssm_mod.mamba_apply(bp.mixer, h, collect_state=collect)
+        out, cache = res if collect else (res, None)
+    else:
+        out, kv = attn_mod.attention_apply(
+            bp.mixer, h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+            head_dim=cfg.head_dim, theta=cfg.rope_theta, window=spec.window,
+            causal=causal, positions=positions, collect_kv=collect,
         )
+        if collect:
+            k = kv["k"]
+            cache = attn_mod.fill_kv_cache(
+                attn_mod.init_kv_cache(k.shape[0], cache_len, cfg.n_kv_heads,
+                                       cfg.head_dim, k.dtype, k.device),
+                k, kv["v"], positions,
+            )
     x, aux = _ffn_apply(cfg, bp, x + out)
     return x, aux, cache
 
 
-def _group_apply(cfg, blocks, specs, positions, causal, x):
+def _group_apply(cfg, rt, blocks, specs, positions, causal, x):
     total = None
     for bp, spec in zip(blocks, specs):
-        x, aux, _ = _layer_apply(cfg, bp, x, spec, positions, causal)
+        x, aux, _ = _layer_apply(cfg, bp, x, spec, rt, positions, causal)
         total = _add_aux(total, aux)
     return x, total
 
@@ -258,10 +281,10 @@ def stack_forward(
     """Full-sequence forward. x: (B, S, d) embedded. Returns (x, aux,
     caches): aux is the sum of the MoE layers' router losses (0 for a dense
     stack), and ``caches`` (with ``collect_cache``, else None) holds one
-    ring per layer, of ``cache_specs[i].cache_len`` rows (default
-    ``specs``), so a prefill can size its caches for a longer decode
-    horizon. Collection is for
-    serving: it runs the layers without remat."""
+    cache per layer: an attention layer's ring of
+    ``cache_specs[i].cache_len`` rows (default ``specs``), so a prefill can
+    size its caches for a longer decode horizon, or a Mamba layer's decode
+    state. Collection is for serving: it runs the layers without remat."""
     check_served(cfg)
     if memory is not None:
         raise NotImplementedError(
@@ -278,14 +301,14 @@ def stack_forward(
         cache_specs = specs if cache_specs is None else cache_specs
         caches = []
         for bp, spec, cspec in zip(layers, specs, cache_specs):
-            x, aux, cache = _layer_apply(cfg, bp, x, spec, positions, causal,
-                                         cache_len=cspec.cache_len)
+            x, aux, cache = _layer_apply(cfg, bp, x, spec, rt, positions, causal,
+                                         collect=True, cache_len=cspec.cache_len)
             total = _add_aux(total, aux)
             caches.append(cache)
     else:
         k = rt.remat_period
         for i in range(0, len(layers), k):
-            fn = functools.partial(_group_apply, cfg, layers[i:i + k], specs[i:i + k],
+            fn = functools.partial(_group_apply, cfg, rt, layers[i:i + k], specs[i:i + k],
                                    positions, causal)
             x, aux = _remat(rt, fn, x)
             total = _add_aux(total, aux)
@@ -367,18 +390,23 @@ def stack_decode(
 ) -> torch.Tensor:
     """One-token decode. x: (B, 1, d). Caches are written in place.
 
-    Dense (``tables`` None): ``caches`` are the per-layer rings of
-    ``stack_forward(collect_cache=True)`` and ``t`` the int position shared
-    by the batch. Paged: ``caches`` are the page pools, ``t`` the (B,)
-    per-slot lengths, and each slot decodes at its own depth."""
+    Dense (``tables`` None): ``caches`` are the per-layer caches of
+    ``stack_forward(collect_cache=True)`` (rings, and Mamba states, whose
+    dicts take the next state) and ``t`` the int position shared by the
+    batch. Paged: ``caches`` are the page pools, ``t`` the (B,) per-slot
+    lengths, and each slot decodes at its own depth."""
     if tables is None:
         for bp, spec, cache in zip(stack.layers, specs, caches):
             hn = norm_apply(bp.norm1, x, cfg.norm)
-            x = x + attn_mod.attention_decode(
-                bp.mixer, hn, cache, t, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-                head_dim=cfg.head_dim, theta=cfg.rope_theta, window=spec.window,
-            )
-            x, _ = _ffn_apply(cfg, bp, x)
+            if spec.kind == "mamba":
+                out, nxt = ssm_mod.mamba_decode(bp.mixer, hn, cache)
+                cache.update(nxt)
+            else:
+                out = attn_mod.attention_decode(
+                    bp.mixer, hn, cache, t, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                    head_dim=cfg.head_dim, theta=cfg.rope_theta, window=spec.window,
+                )
+            x, _ = _ffn_apply(cfg, bp, x + out)
         return x
     pools, lengths = caches, t
     if active is None:
@@ -416,10 +444,12 @@ def pipeline_incompatibility(cfg: ArchConfig) -> Optional[str]:
 
 def check_staged(cfg: ArchConfig) -> None:
     """Raise for a family the port's pipeline stages do not run yet (JAX's
-    stages do): MoE, whose router loss the stage's aux would carry."""
-    if cfg.ffn_kind == "moe":
+    stages do): MoE, whose router loss the stage's aux would carry, and
+    Mamba."""
+    what = "MoE" if cfg.ffn_kind == "moe" else "Mamba" if "mamba" in cfg.pattern else None
+    if what:
         raise NotImplementedError(
-            f"{cfg.name}: MoE inside pipeline stages is not in the PyTorch port yet "
+            f"{cfg.name}: {what} inside pipeline stages is not in the PyTorch port yet "
             "(ROADMAP.md queue 1: item 7, the pipeline)"
         )
 
@@ -440,6 +470,6 @@ def stack_stage_apply(
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     for bp in layers:
-        fn = functools.partial(_group_apply, cfg, [bp], [spec], positions, True)
+        fn = functools.partial(_group_apply, cfg, rt, [bp], [spec], positions, True)
         x, _ = _remat(rt, fn, x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)

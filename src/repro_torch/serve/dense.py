@@ -3,9 +3,11 @@
 Counterpart of ``repro.serve.dense``. JAX compiled the prefill and one
 ``lax.scan`` decode loop per shape and cached them; here both are eager
 PyTorch, so there is no compile cache and no shape key to port. The prefill
-runs K1 over the whole prompt on every layer (and K3 on every norm) on a
-CUDA tensor; the one-token decode over the rings is plain PyTorch, as the
-JAX decode is plain jnp.
+runs K1 over the whole prompt on every attention layer (and K3 on every
+norm) on a CUDA tensor; the one-token decode over the rings is plain
+PyTorch, as the JAX decode is plain jnp. A Mamba stack (the SSM family,
+which JAX serves only here) prefills by the selective scan and decodes by
+the recurrent step, both plain PyTorch as in JAX, with K3 on every norm.
 
 Sampling is the serve engine's ``SamplingPolicy``: greedy, or row b's token
 i drawn from the stream ``(seed, stream_ids[b], i)``. The engine passes its
@@ -38,7 +40,8 @@ def generate_dense(
 ) -> Tuple[torch.Tensor, Dict[str, Any], float]:
     """Batched dense generation over equal-length prompts ``batch["tokens"]``
     (B, S) on the parameters' device, behind a vision config's image prefix
-    ``batch["frontend_embeds"]`` (B, P, d), which the rings hold too.
+    ``batch["frontend_embeds"]`` (B, P, d), which the rings hold too; an
+    SSM config carries its O(1) recurrent state instead of rings.
     Returns (tokens (B, max_new) int32, the final decode state, ttft_s):
     ttft_s is the wall time of the prefill and the first sample, ending in a
     sync of the card."""

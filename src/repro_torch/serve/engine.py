@@ -17,7 +17,12 @@ between ticks to retire finished requests and admit new ones.
 
 ``paged=False`` is the dense fallback: a tick pops the head request and the
 queued ones of its (prompt length, max_new) shape, up to ``max_slots``, and
-runs them as one ``serve.dense.generate_dense`` batch over ring caches.
+runs them as one ``serve.dense.generate_dense`` batch over ring caches (and
+Mamba states). ``paged=None`` picks the paged engine where every mixer keeps
+a KV cache (``paged_supported``) and the dense fallback otherwise: the SSM
+family, whose decode state is not a KV cache, is served dense, and
+``paged=True`` on it raises ``ValueError``, as in JAX. A ``kv_dtype``
+changes nothing on the dense path.
 
 Where JAX ran one jitted program with a ``lax.scan`` over the decode steps
 and donated the pool buffers, this engine runs a Python loop and writes the
@@ -70,8 +75,8 @@ key is token ids, which cannot see the image, and the chunk step embeds
 text only (``_use_chunked``). Its pages never enter the prefix cache.
 
 Not ported yet (each raises ``NotImplementedError`` at construction,
-naming its ROADMAP item): the families whose mixers are not ported (SSM,
-RG-LRU, encoder-decoder), and meshes and replicated engines.
+naming its ROADMAP item): the families whose mixers are not ported (RG-LRU,
+encoder-decoder), and meshes and replicated engines.
 """
 from __future__ import annotations
 
@@ -127,11 +132,13 @@ def paged_supported(cfg: ArchConfig) -> bool:
 def dense_kv_bytes(cfg: ArchConfig, rt: Runtime, total: int) -> int:
     """Dense per-request cache bytes for a ``total``-token horizon: every
     attention layer holds its whole ``cache_len`` ring (window-sized for
-    local layers) at the compute dtype, whatever the request's length."""
+    local layers) at the compute dtype, whatever the request's length, and
+    every recurrent layer JAX's rough share of ``4 * d_model`` values."""
     itemsize = torch.empty((), dtype=rt.dtype).element_size()
     specs = layer_specs(cfg, seq_len=total, long_variant=rt.long_variant)
     tokens = sum(s.cache_len for s in specs if s.kind in ("attn", "local"))
-    return tokens * cfg.n_kv_heads * cfg.head_dim * 2 * itemsize
+    rec = sum(1 for s in specs if s.kind not in ("attn", "local")) * cfg.d_model * 4 * itemsize
+    return tokens * cfg.n_kv_heads * cfg.head_dim * 2 * itemsize + rec
 
 
 SPEC_COUNTERS = ("spec_verify_calls", "spec_drafted_tokens", "spec_accepted_tokens")
@@ -230,6 +237,8 @@ class EngineConfig:
             raise ValueError("pass exactly one of slots= / pool_bytes=")
         if pool_bytes is not None and cfg is None:
             raise ValueError("pool_bytes sizing needs cfg= for byte pricing")
+        if pool_bytes is not None and not paged_supported(cfg):
+            raise ValueError(f"{cfg.name} keeps no KV pool to price (served dense)")
         horizon = max_prompt_total + max_new
         max_len = -(-horizon // page_size) * page_size
         pages_per_request = max_len // page_size
@@ -308,10 +317,16 @@ class ServeEngine:
             )
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
+        if paged is None:
+            paged = paged_supported(cfg)
         if engine.spec_tokens:
-            _check_spec(cfg, engine, paged is not False and paged_supported(cfg),
-                        draft_params)
+            _check_spec(cfg, engine, paged and paged_supported(cfg), draft_params)
         check_served(cfg)             # the families the port runs, paged or dense
+        if paged and not paged_supported(cfg):
+            raise ValueError(
+                f"{cfg.name}: family {cfg.family!r} has non-KV decode state; "
+                "use paged=False (dense fallback)"
+            )
         for what, p in (("params", params), ("draft_params", draft_params)):
             if p is not None and p.embed.table.device != self.device:
                 raise ValueError(
@@ -320,7 +335,7 @@ class ServeEngine:
         self.cfg = cfg
         self.params = params
         self.ecfg = engine
-        self.paged = paged is not False
+        self.paged = paged
         rt = rt if rt is not None else Runtime()
         self.rt = rt.replace(kv_dtype=normalize_kv_dtype(engine.kv_dtype or rt.kv_dtype))
         self._policy = SamplingPolicy(

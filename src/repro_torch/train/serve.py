@@ -4,10 +4,11 @@ Counterpart of ``repro.train.serve.generate``, a thin wrapper over the
 serving package:
 
 * dense (the default): ``serve.dense.generate_dense``, one batch over ring
-  caches;
+  caches (an SSM config's recurrent states);
 * ``paged=True``: the continuous-batching engine, one request per batch row,
   over a pool sized by ``EngineConfig.capacity`` for the batch, admitted by
-  whole-prompt prefill.
+  whole-prompt prefill. A family with non-KV decode state (the SSM) has no
+  pool and raises ``ValueError``, as the engine does.
 
 Both run on the parameters' device, a vision config's batch with its image
 prefixes. Greedy outputs are the same on both paths.
@@ -49,7 +50,7 @@ def generate(
             cfg, params, rt,
             EngineConfig.capacity(prompt_total, max_new_tokens, slots=B).engine(
                 temperature=temperature, seed=seed),
-            device=device,
+            paged=True, device=device,
         )
         host = tokens.cpu().numpy()
         rids = [eng.submit(host[b], max_new_tokens,

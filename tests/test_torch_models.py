@@ -219,7 +219,7 @@ def test_port_sources_import_neither_jax_nor_repro():
                 "kernels/flash_attention/ops.py", "kernels/rmsnorm/ops.py",
                 "kernels/chunked_ce/ops.py", "kernels/paged_attention/quant.py",
                 "core/stash.py", "core/pipeline.py", "core/partitioner.py",
-                "roofline/analysis.py"):
+                "roofline/analysis.py", "models/ssm.py"):
         assert f"src/repro_torch/{sub}" in files, sub
     assert not bad, bad
 

@@ -459,7 +459,7 @@ def test_radix_split_and_lru_eviction_of_idle_leaves():
 # ---------------------------------------------------------------- rejections
 REJECT = {
     "dense family": lambda m: ServeEngine(
-        t_get_reduced("falcon-mamba-7b"), m("granite-8b")[3], TRT,
+        t_get_reduced("recurrentgemma-2b"), m("granite-8b")[3], TRT,
         EngineConfig(**BASE), device="cpu"),
     "encoder-decoder": lambda m: ServeEngine(
         t_get_reduced("seamless-m4t-medium"), m("granite-8b")[3], TRT,

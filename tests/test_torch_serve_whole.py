@@ -360,10 +360,11 @@ def test_dense_engine_batches_same_shape_requests(models):
                 np.testing.assert_array_equal(out[rid], want[0].numpy())
 
 
-@pytest.mark.parametrize("name", ["falcon-mamba-7b", "recurrentgemma-2b"])
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "seamless-m4t-medium"])
 def test_unported_families_still_raise(models, name):
-    """The dense fallback serves the attention families only: an SSM or RG-LRU
-    config raises at construction, naming ROADMAP item 4."""
+    """The dense fallback serves the attention and SSM families only: an
+    RG-LRU or encoder-decoder config raises at construction, naming ROADMAP
+    item 4."""
     _, _, _, tparams = models("granite-8b")
     for paged in (None, False):
         with pytest.raises(NotImplementedError, match="item 4"):

@@ -55,6 +55,12 @@ Phases, in order (any failure exits nonzero and prints no result line):
                at kernels-prefill's tolerances, and K5 at the decode step (4
                slots at 700-1,150 keys) at 4e-3, each timed beside its plain
                version and SDPA, with its bound;
+  3c. kernels hybrid — K1 at recurrentgemma-2b's local-attention prefill
+               (10 query heads over 1 kv head of hd 256, window 2,048): S 1,
+               37, 128, 256, 384, 512 and 2,304 (past the window), f32 and
+               bf16 at kernels-prefill's tolerances, then timed in bf16 at
+               128-512 beside the plain version and SDPA's causal path, with
+               its bound;
   4. train kernels — K1 (flash forward), K2 (its delta, dq and dk/dv
                launches), K3 and K4 (RMSNorm forward, backward) against their
                plain versions: f32 on the JAX suites' shapes and hd 96
@@ -230,9 +236,31 @@ Phases, in order (any failure exits nonzero and prints no result line):
                of max|logit| of the full-sequence scan's, its tokens at an
                f32 tie (1e-4). In bf16 the two part by more than 4% at this
                depth, in JAX as here, so bf16 is held by serve-ssm's tie
-               rule only.
-Before the last two lines, JSON lines {"moe": ...}, {"vision": ...} and
-{"ssm": ...} give serve-moe's, serve-vision's and serve-ssm's launches.
+               rule only;
+ 27. model-hybrid — reduced recurrentgemma-2b at 8 layers (two units of
+               rglru, rglru, local and a tail of two rglru; d 256, window
+               64), f32, TF32 off, card vs CPU at 1e-3: forward's logits;
+               prefill's logits and every layer's ring (k, v, positions) or
+               conv / h state, then four dense decode steps, over a 40-token
+               prompt and a 2-token one;
+ 28. serve-hybrid — launch/workload.py's recurrentgemma_serve_workload:
+               recurrentgemma-2b at full width and depth (26 layers: 18
+               RG-LRU of width 2,560, 8 local attention of 10 heads over 1
+               kv head of hd 256, window 2,048; d 2560, vocabulary 256,000),
+               bf16, serve-ssm's checks through the dense path: exact launch
+               counts (K1 8 a prefill: 64; K3 53 a pass: 27,136; K5, K6
+               none), streams bitwise equal across two runs and against the
+               teacher-forced forward under the bf16 tie rule; weight bytes,
+               tokens/s, TTFT, the isolated decode step and peak memory; run
+               after falcon-mamba-7b's weights are freed;
+ 29. generate-dense on recurrentgemma-2b — generate-dense's checks at full
+               width and depth in f32, TF32 off (its own weights, after
+               serve-hybrid's are freed): 2 prompts of 2,100 tokens (past
+               the 2,048 window, not a multiple of it), 16 new tokens, K1 8,
+               K3 848 (53 a pass), K5, K6 none; row 0 alone against batched.
+Before the last two lines, JSON lines {"moe": ...}, {"vision": ...},
+{"ssm": ...} and {"hybrid": ...} give serve-moe's, serve-vision's,
+serve-ssm's and serve-hybrid's launches.
 Every phase's line carries t_s, the seconds since the script started. The
 line before last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -1355,53 +1383,71 @@ PREFILL_FA_BF16_RTOL = 2.0 ** -7
 
 def phase_kernels_prefill():
     """K1 against its plain version at the whole-prompt admission's shapes
-    (o and lse; f32 2e-5, bf16 BF16_TOL), then timed in bf16 at granite-8b's
-    bucketed lengths beside the plain version and SDPA (GQA expanded,
-    is_causal), with its bound."""
+    (``k1_cases``), then timed in bf16 at granite-8b's bucketed lengths
+    beside the plain version and SDPA (``k1_timed``)."""
+    emit(phase="kernels_prefill", **k1_cases("prefill", PREFILL_FA_HEADS, PREFILL_FA_LENGTHS))
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for S in PREFILL_FA_TIMED:
+        rows.append(k1_timed("granite-8b", S, 8, 4, 128, 0, flush))
+        emit(phase="kernels_prefill_bf16", tol=BF16_TOL, rtol=PREFILL_FA_BF16_RTOL, **rows[-1])
+    return rows
+
+
+def k1_cases(tag, heads: dict, lengths) -> dict:
+    """K1 against its plain version, o and lse, for one prompt (B 1,
+    causal) of each length under each model's heads ``{model: dict(Kv, G,
+    hd, window)}``: f32 at FA_F32_TOL, bf16 at atol BF16_TOL and rtol
+    PREFILL_FA_BF16_RTOL. Returns the case count and the worst error by
+    dtype, for the phase's line."""
     from repro_torch.kernels.flash_attention import cuda as fa
     from repro_torch.kernels.flash_attention import ref as far
 
-    f32, bf = torch.float32, torch.bfloat16
     n, worst = 0, {"float32": 0.0, "bfloat16": 0.0}
-    for model, h in PREFILL_FA_HEADS.items():
-        for S in PREFILL_FA_LENGTHS:
-            for dt, tol, rtol in ((f32, FA_F32_TOL, FA_F32_TOL),
-                                  (bf, BF16_TOL, PREFILL_FA_BF16_RTOL)):
+    for model, h in heads.items():
+        for S in lengths:
+            for dt, tol, rtol in ((torch.float32, FA_F32_TOL, FA_F32_TOL),
+                                  (torch.bfloat16, BF16_TOL, PREFILL_FA_BF16_RTOL)):
                 q, k, v, _ = fa_flat(1, S, h["Kv"], h["G"], h["hd"], dt, seed=S)
                 kw = dict(group=h["G"], causal=True, window=h["window"])
                 o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
                 po, plse = far.flash_attention_fwd_plain(q, k, v, **kw)
-                err = check(f"K1 prefill {model} S {S} {dt} o", o, po, tol, rtol=rtol)
-                check(f"K1 prefill {model} S {S} {dt} lse", lse, plse, tol)
-                worst[str(dt).split(".")[-1]] = max(worst[str(dt).split(".")[-1]], err)
+                err = check(f"K1 {tag} {model} S {S} {dt} o", o, po, tol, rtol=rtol)
+                check(f"K1 {tag} {model} S {S} {dt} lse", lse, plse, tol)
+                key = str(dt).split(".")[-1]
+                worst[key] = max(worst[key], err)
                 n += 1
-    emit(phase="kernels_prefill", cases=n, lengths=PREFILL_FA_LENGTHS, heads=PREFILL_FA_HEADS,
-         tols={"f32": FA_F32_TOL, "bf16": BF16_TOL, "bf16_rtol": PREFILL_FA_BF16_RTOL},
-         max_abs_err=worst)
+    return dict(cases=n, lengths=lengths, heads=heads, max_abs_err=worst,
+                tols={"f32": FA_F32_TOL, "bf16": BF16_TOL, "bf16_rtol": PREFILL_FA_BF16_RTOL})
 
-    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
-    h = PREFILL_FA_HEADS["granite-8b"]
-    Kv, G, hd = h["Kv"], h["G"], h["hd"]
-    rows = []
-    for S in PREFILL_FA_TIMED:
-        q, k, v, _ = fa_flat(1, S, Kv, G, hd, bf, seed=S)
-        kw = dict(group=G, causal=True, window=0)
-        err = check(f"K1 prefill timed S {S}", fa.flash_attention_fwd_cuda(q, k, v, **kw)[0],
-                    far.flash_attention_fwd_plain(q, k, v, **kw)[0], BF16_TOL,
-                    rtol=PREFILL_FA_BF16_RTOL)
-        qd = q.view(1, Kv * G, S, hd)
-        kd, vd = (t.repeat_interleave(G, 0).view(1, Kv * G, S, hd) for t in (k, v))
-        nbytes, flops = fa_bounds(1, S, Kv, G, hd, 0, 2)["flash_attention_fwd"]
-        bms, by = bound(nbytes, flops, bf)
-        row = dict(model="granite-8b", kernel="flash_attention_fwd", S=S, max_abs_err=err,
-                   kernel_ms=time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw), flush),
-                   plain_ms=time_ms(lambda: far.flash_attention_fwd_plain(q, k, v, **kw), flush),
-                   library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                       qd, kd, vd, is_causal=True, scale=1.0), flush),
-                   bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
-        emit(phase="kernels_prefill_bf16", tol=BF16_TOL, rtol=PREFILL_FA_BF16_RTOL, **row)
-        rows.append(row)
-    return rows
+
+def k1_timed(model, S, Kv, G, hd, window, flush) -> dict:
+    """K1 in bf16 at one whole-prompt admission (B 1, causal; ``window`` 0 or
+    at least S) against its plain version (o and lse, atol BF16_TOL, rtol
+    PREFILL_FA_BF16_RTOL), timed beside it and SDPA's causal path (GQA
+    expanded), with its bound."""
+    from repro_torch.kernels.flash_attention import cuda as fa
+    from repro_torch.kernels.flash_attention import ref as far
+
+    bf = torch.bfloat16
+    if window and window < S:
+        raise ValueError(f"SDPA's causal path does not cover a window of {window} < S {S}")
+    q, k, v, _ = fa_flat(1, S, Kv, G, hd, bf, seed=S)
+    kw = dict(group=G, causal=True, window=window)
+    o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    po, plse = far.flash_attention_fwd_plain(q, k, v, **kw)
+    err = check(f"K1 {model} S {S} o", o, po, BF16_TOL, rtol=PREFILL_FA_BF16_RTOL)
+    check(f"K1 {model} S {S} lse", lse, plse, BF16_TOL)
+    qd = q.view(1, Kv * G, S, hd)
+    kd, vd = (t.repeat_interleave(G, 0).view(1, Kv * G, S, hd) for t in (k, v))
+    nbytes, flops = fa_bounds(1, S, Kv, G, hd, window, 2)["flash_attention_fwd"]
+    bms, by = bound(nbytes, flops, bf)
+    return dict(model=model, kernel="flash_attention_fwd", S=S, max_abs_err=err,
+                kernel_ms=time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw), flush),
+                plain_ms=time_ms(lambda: far.flash_attention_fwd_plain(q, k, v, **kw), flush),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    qd, kd, vd, is_causal=True, scale=1.0), flush),
+                bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
 
 
 def main_path_rows(results):
@@ -2463,7 +2509,8 @@ def phase_serve(kv_dtype: str = "bf16", params=None, whole: bool = False):
 # gemma3-1b's 700-token prompts run past its 512 window, not a multiple of it
 GENERATE_DENSE = [("granite-8b", torch.bfloat16, 4, 512, 32),
                   ("gemma3-1b", torch.float32, 2, 700, 16),
-                  ("falcon-mamba-7b", torch.float32, 4, 512, 32)]
+                  ("falcon-mamba-7b", torch.float32, 4, 512, 32),
+                  ("recurrentgemma-2b", torch.float32, 2, 2100, 16)]
 TIE_MARGIN = 1e-4                 # f32: tests/test_torch_serve_engine.py::MARGIN
 F32_LOGIT_REL = 1e-3              # f32, TF32 off: sums in another order (model-ssm's)
 # bf16: the dense decode and forward round activations to bf16 in different
@@ -3187,8 +3234,6 @@ def phase_kernels_vision() -> list:
     (B 4, page 16, VISION_DECODE_LENGTHS) against its plain version
     (BF16_TOL), timed beside it and SDPA over the gathered keys; each with
     its bound."""
-    from repro_torch.kernels.flash_attention import cuda as fa
-    from repro_torch.kernels.flash_attention import ref as far
     from repro_torch.kernels.paged_attention import cuda, ref
 
     bf = torch.bfloat16
@@ -3196,24 +3241,7 @@ def phase_kernels_vision() -> list:
     flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
     rows = []
     for S in VISION_FA_LENGTHS:
-        q, k, v, _ = fa_flat(1, S, Kv, G, hd, bf, seed=S)
-        kw = dict(group=G, causal=True, window=0)
-        o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
-        po, plse = far.flash_attention_fwd_plain(q, k, v, **kw)
-        err = check(f"K1 vision S {S} o", o, po, BF16_TOL, rtol=PREFILL_FA_BF16_RTOL)
-        check(f"K1 vision S {S} lse", lse, plse, BF16_TOL)
-        qd, kd, vd = (t.view(1, Kv, S, hd) for t in (q, k, v))
-        nbytes, flops = fa_bounds(1, S, Kv, G, hd, 0, 2)["flash_attention_fwd"]
-        bms, by = bound(nbytes, flops, bf)
-        rows.append(dict(model="phi-3-vision-4.2b", kernel="flash_attention_fwd", S=S,
-                         max_abs_err=err,
-                         kernel_ms=time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw),
-                                           flush),
-                         plain_ms=time_ms(lambda: far.flash_attention_fwd_plain(q, k, v, **kw),
-                                          flush),
-                         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                             qd, kd, vd, is_causal=True, scale=1.0), flush),
-                         bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops))
+        rows.append(k1_timed("phi-3-vision-4.2b", S, Kv, G, hd, 0, flush))
         emit(phase="kernels_vision", tol=BF16_TOL, rtol=PREFILL_FA_BF16_RTOL, **rows[-1])
     lengths = VISION_DECODE_LENGTHS
     P = -(-max(lengths) // page)
@@ -3233,6 +3261,28 @@ def phase_kernels_vision() -> list:
                          qd, kd, vd, attn_mask=mask, scale=1.0), flush),
                      bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops))
     emit(phase="kernels_vision", tol=BF16_TOL, **rows[-1])
+    return rows
+
+
+HYBRID_FA = {"recurrentgemma-2b": dict(Kv=1, G=10, hd=256, window=2048)}
+HYBRID_FA_LENGTHS = (1, 37, 128, 256, 384, 512, 2304)     # 2,304: past the window
+HYBRID_FA_TIMED = (128, 256, 384, 512)                    # serve-hybrid's prompt range
+
+
+def phase_kernels_hybrid() -> list:
+    """K1 at recurrentgemma-2b's local-attention prefill (B 1, 10 query
+    heads over 1 kv head of hd 256, causal, window 2,048): against its plain
+    version (``k1_cases``) at S 1, 37, 128, 256, 384, 512 and 2,304 (past
+    the window), then timed in bf16 at 128-512 (``k1_timed``: the window
+    covers every key, so SDPA's causal path computes the same)."""
+    emit(phase="kernels_hybrid", **k1_cases("hybrid", HYBRID_FA, HYBRID_FA_LENGTHS))
+    h = HYBRID_FA["recurrentgemma-2b"]
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    rows = []
+    for S in HYBRID_FA_TIMED:
+        rows.append(k1_timed("recurrentgemma-2b", S, h["Kv"], h["G"], h["hd"], h["window"],
+                             flush))
+        emit(phase="kernels_hybrid_bf16", tol=BF16_TOL, rtol=PREFILL_FA_BF16_RTOL, **rows[-1])
     return rows
 
 
@@ -3316,20 +3366,50 @@ SSM_TOL = 1e-3                    # f32 card vs CPU, TF32 off: sums in another o
 
 
 def phase_model_ssm() -> None:
-    """Reduced falcon-mamba-7b (2 layers, d 256, d_inner 512), f32, TF32 off:
-    the port on the card against the port on the CPU, atol/rtol SSM_TOL:
-    ``forward``'s logits over 2 x 40 tokens; ``prefill``'s logits and every
-    layer's collected ``conv`` / ``ssm`` state, then four dense
-    ``decode_step``s fed the CPU's tokens, their logits and states, over a
-    40-token prompt and a 2-token one (under K - 1: the conv state is
-    left-padded); and on the card one layer's ``mamba_apply`` by the chunked
-    scan (chunk 16) against the associative one at S 64."""
+    """Reduced falcon-mamba-7b (2 layers, d 256, d_inner 512) card vs CPU
+    (``recurrent_card_vs_cpu``), and on the card one layer's ``mamba_apply``
+    by the chunked scan (chunk 16) against the associative one at S 64."""
     from repro_torch.configs import get_reduced
-    from repro_torch.models import Runtime, decode_step, forward, init_params, prefill
     from repro_torch.models import ssm
 
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_reduced("falcon-mamba-7b")
+    params, close, worst = recurrent_card_vs_cpu("model-ssm", cfg)
+    with torch.no_grad():
+        mixer = params["cuda"].stack.layers[0].mixer
+        x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator().manual_seed(12))
+        x = x.to("cuda")
+        close("scan chunked-vs-assoc",
+              ssm.mamba_apply(mixer, x, scan_mode="chunked", chunk=16),
+              ssm.mamba_apply(mixer, x).cpu())
+    emit(phase="model-ssm", config=cfg.name, prompts=[40, 2], decode_steps=4,
+         max_rel_err=worst, tol=SSM_TOL)
+
+
+def phase_model_hybrid() -> None:
+    """Reduced recurrentgemma-2b at 8 layers (two units of rglru, rglru,
+    local and a tail of two rglru: both of JAX's parameter groups; d 256,
+    width 256, window 64) card vs CPU (``recurrent_card_vs_cpu``): the local
+    layers' rings and the RG-LRU layers' conv and h states."""
+    from repro_torch.configs import get_reduced
+
+    cfg = get_reduced("recurrentgemma-2b", n_layers=8)
+    _, _, worst = recurrent_card_vs_cpu("model-hybrid", cfg)
+    emit(phase="model-hybrid", config=cfg.name, layers=cfg.n_layers, prompts=[40, 2],
+         decode_steps=4, max_rel_err=worst, tol=SSM_TOL)
+
+
+def recurrent_card_vs_cpu(phase, cfg):
+    """A reduced recurrent config, f32, TF32 off: the port on the card
+    against the port on the CPU, atol/rtol SSM_TOL: ``forward``'s logits
+    over 2 x 40 tokens; ``prefill``'s logits and every layer's collected
+    state (a ring's k, v and positions; a recurrent layer's conv and ssm or
+    h), then four dense ``decode_step``s fed the CPU's tokens, their logits
+    and states, over a 40-token prompt and a 2-token one (under K - 1: the
+    conv state is left-padded). Returns (the weights by device, the
+    comparison, the worst relative error by what was compared)."""
+    from repro_torch.models import Runtime, decode_step, forward, init_params, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
     rt = Runtime(dtype=torch.float32)
     new, worst = 4, {}
     params = {dev: init_params(cfg, seed=5, device="cpu", dtype=torch.float32).to(dev)
@@ -3339,10 +3419,10 @@ def phase_model_ssm() -> None:
     def close(what, got, want):
         got = got.float().cpu()
         if not torch.isfinite(got).all():
-            raise AssertionError(f"model-ssm {what}: non-finite on the card")
+            raise AssertionError(f"{phase} {what}: non-finite on the card")
         torch.testing.assert_close(got, want.float(), atol=SSM_TOL, rtol=SSM_TOL, msg=what)
         worst[what.split()[0]] = max(worst.get(what.split()[0], 0.0), float(
-            (got - want).abs().max() / want.abs().max().clamp(min=1e-30)))
+            (got - want).abs().max() / want.float().abs().max().clamp(min=1e-30)))
 
     with torch.no_grad():
         ref = forward(cfg, params["cpu"], {"tokens": torch.from_numpy(tokens)}, rt)[0]
@@ -3354,12 +3434,16 @@ def phase_model_ssm() -> None:
             for dev in ("cpu", "cuda"):
                 lg, st = prefill(cfg, params[dev], {
                     "tokens": torch.from_numpy(tokens[:, :S]).to(dev)}, rt, max_len=S + new)
-                seq = [(lg.cpu(), [{k: v.cpu() for k, v in c.items()} for c in st["caches"]])]
+
+                def states():        # copies: the decode steps write the rings in place
+                    return [{k: v.to("cpu", copy=True) for k, v in c.items()}
+                            for c in st["caches"]]
+
+                seq = [(lg.cpu(), states())]
                 toks = fed or [lg.argmax(-1).int().cpu()]
                 for i in range(new):
                     lg = decode_step(cfg, params[dev], st, toks[i].to(dev), rt, S + new)
-                    seq.append((lg.cpu(), [{k: v.cpu() for k, v in c.items()}
-                                           for c in st["caches"]]))
+                    seq.append((lg.cpu(), states()))
                     if fed is None:
                         toks.append(lg.argmax(-1).int().cpu())
                 fed, runs[dev] = toks, seq
@@ -3367,16 +3451,11 @@ def phase_model_ssm() -> None:
                 what = "prefill" if i == 0 else "decode"
                 close(f"{what} S={S} step {i}", ga, wa)
                 for j, (g, w) in enumerate(zip(gs, ws)):
-                    for k in ("conv", "ssm"):
+                    if set(g) != set(w):
+                        raise AssertionError(f"{phase}: layer {j} state {set(g)} != {set(w)}")
+                    for k in sorted(g):
                         close(f"state S={S} step {i} layer {j} {k}", g[k], w[k])
-        mixer = params["cuda"].stack.layers[0].mixer
-        x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator().manual_seed(12))
-        x = x.to("cuda")
-        close("scan chunked-vs-assoc",
-              ssm.mamba_apply(mixer, x, scan_mode="chunked", chunk=16),
-              ssm.mamba_apply(mixer, x).cpu())
-    emit(phase="model-ssm", config=cfg.name, prompts=[40, 2], decode_steps=new,
-         max_rel_err=worst, tol=SSM_TOL)
+    return params, close, worst
 
 
 def isolated_dense_decode_ms(cfg, params, rt, B: int, length: int) -> float:
@@ -3402,22 +3481,44 @@ def isolated_dense_decode_ms(cfg, params, rt, B: int, length: int) -> float:
 
 def phase_serve_ssm(card: str):
     """launch/workload.py's falcon_mamba_serve_workload: falcon-mamba-7b at
-    full width and depth (64 layers, d 4096, d_inner 8192), bf16, 8 requests
-    through ServeEngine's dense fallback (paged=None), run twice in fresh
-    engines: the streams bitwise equal, every logit finite, exact launch
-    counts (K3 65 a pass, a pass being one prefill or one decode step; K1,
-    K5 and K6 none); each stream against the card's teacher-forced
-    ``forward`` under generate-dense's bf16 tie rule (``beyond_tie``).
-    Weight bytes, tokens/s, mean TTFT, the isolated decode step (B 1 after
-    500 tokens) and peak memory. The eight prompt lengths differ, so the
-    dense engine runs each request alone: batched against alone is
-    generate-dense's falcon-mamba-7b row (B 4 row 0 against B 1). Returns
-    (the weights, the launch row)."""
-    from repro_torch.kernels.flash_attention import cuda as fa
-    from repro_torch.kernels.paged_attention import cuda
+    full width and depth (64 layers, d 4096, d_inner 8192), bf16, through
+    ``serve_dense``: K3 65 a pass (a prefill or a decode step), K1, K5 and
+    K6 none. Returns (the weights, the launch row)."""
     from repro_torch.launch.workload import falcon_mamba_serve_workload
 
     wl = falcon_mamba_serve_workload()
+    return serve_dense("serve-ssm", wl, card, d_inner=wl.cfg.d_inner)
+
+
+def phase_serve_hybrid(card: str):
+    """launch/workload.py's recurrentgemma_serve_workload: recurrentgemma-2b
+    at full width and depth (26 layers: 18 RG-LRU and 8 local attention of
+    10 query heads over 1 kv head of hd 256, window 2,048; d 2560), bf16,
+    through ``serve_dense``: K1 8 a prefill (its local layers), K3 53 a pass
+    (two norms a layer and the final one), K5 and K6 none. Returns (the
+    weights, the launch row)."""
+    from repro_torch.launch.workload import recurrentgemma_serve_workload
+
+    wl = recurrentgemma_serve_workload()
+    return serve_dense("serve-hybrid", wl, card, rglru_width=wl.cfg.rglru_width,
+                       window=wl.cfg.sliding_window)
+
+
+def serve_dense(phase, wl, card: str, **shape):
+    """A dense-only family's workload: 8 requests through ServeEngine's
+    dense path (paged=None), run twice in fresh engines: the streams bitwise
+    equal, every logit finite, exact launch counts (K1 once an attention
+    layer a prefill, K3 once a norm a pass, a pass being one prefill or one
+    decode step; K5 and K6 none); each stream against the card's
+    teacher-forced ``forward`` under generate-dense's bf16 tie rule
+    (``beyond_tie``). Weight bytes, tokens/s, mean TTFT, the isolated
+    decode step (B 1 after 500 tokens) and peak memory. The eight prompt
+    lengths differ, so the dense engine runs each request alone: batched
+    against alone is the family's generate-dense row (B rows against row 0
+    at B 1). Returns (the weights, the launch row)."""
+    from repro_torch.kernels.flash_attention import cuda as fa
+    from repro_torch.kernels.paged_attention import cuda
+
     cfg, rt, prompts, new = wl.cfg, wl.rt, wl.prompts, wl.new_tokens
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3427,14 +3528,16 @@ def phase_serve_ssm(card: str):
     init_s = time.perf_counter() - t0
     param_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
     runs = serve_twice(wl, params)
-    check_streams_twice("serve-ssm", wl, runs)
+    check_streams_twice(phase, wl, runs)
+    L = cfg.n_layers
     passes = runs["admissions"] * new          # a prefill and new - 1 decode steps each
+    want_k3 = passes * ((1 if cfg.ffn_kind == "none" else 2) * L + 1)
+    want_k1 = runs["admissions"] * sum(k in ("attn", "local") for k in cfg.mixer_kinds())
     k3, k1 = runs["k3"], runs["k1"]
     paged = {k: v for k, v in runs["launches"].items() if v}
-    if (k3 != passes * (cfg.n_layers + 1) or k1 or paged
-            or runs["admissions"] != len(prompts)):
-        raise AssertionError(f"serve-ssm launches: K3 {k3} (want {passes * (cfg.n_layers + 1)}"
-                             f"), K1 {k1}, paged {paged}, admissions {runs['admissions']}")
+    if k3 != want_k3 or k1 != want_k1 or paged or runs["admissions"] != len(prompts):
+        raise AssertionError(f"{phase} launches: K3 {k3} (want {want_k3}), K1 {k1} (want "
+                             f"{want_k1}), paged {paged}, admissions {runs['admissions']}")
     s, out = runs["stats"], runs["streams"][0]
     peak = torch.cuda.max_memory_allocated()
     step_ms = isolated_dense_decode_ms(cfg, params, rt, 1, 500)
@@ -3443,11 +3546,11 @@ def phase_serve_ssm(card: str):
         p, o = (torch.from_numpy(np.asarray(t, np.int32)[None]).to("cuda") for t in (p, o))
         ref = teacher_forced(cfg, params, rt, p, o)
         if not torch.isfinite(ref).all():
-            raise AssertionError(f"serve-ssm: request {i}: non-finite forward logits")
+            raise AssertionError(f"{phase}: request {i}: non-finite forward logits")
         first += [dict(f, request=i) for f in first_differences(ref, o)]
     bad = beyond_tie(first, bf16=True)
-    emit(phase="serve-ssm", config=cfg.name, card=card, dtype="bf16", layers=cfg.n_layers,
-         d_model=cfg.d_model, d_inner=cfg.d_inner, params_bytes=param_bytes,
+    emit(phase=phase, config=cfg.name, card=card, dtype="bf16", layers=L,
+         d_model=cfg.d_model, **shape, params_bytes=param_bytes,
          params_init_s=init_s, mem_before_gb=before / 1e9, requests=len(prompts),
          new_tokens=new, tokens_per_s=s["tokens_per_s"], run_mean_ttft_s=s["run_mean_ttft_s"],
          wall_s=s["wall_s"], prefill_s=[s["prefill_s"][r] for r in runs["rids"]],
@@ -3459,8 +3562,7 @@ def phase_serve_ssm(card: str):
          streams_identical_to_forward=len(prompts) - len(first), first_differences=first,
          tie=f"margin_rel < {2 * BF16_LOGIT_REL}")
     if bad:
-        raise AssertionError(f"serve-ssm: streams differ from forward beyond a bf16 tie: "
-                             f"{bad}")
+        raise AssertionError(f"{phase}: streams differ from forward beyond a bf16 tie: {bad}")
     return params, {"config": cfg.name, "admissions": runs["admissions"], "passes": passes,
                     fa.FWD: k1, cuda.DECODE: runs["launches"][cuda.DECODE],
                     cuda.PREFILL: runs["launches"][cuda.PREFILL], "rmsnorm_fwd": k3}
@@ -3481,6 +3583,7 @@ def main() -> int:
     phase_kernels_long()
     phase_kernels_prefill()
     phase_kernels_vision()
+    phase_kernels_hybrid()
     kern.update(phase_train_kernels())
     kern.update(phase_quant_kernels())
     kern.update(phase_stash_kernels())
@@ -3525,6 +3628,11 @@ def main() -> int:
     del ssm_params
     torch.cuda.empty_cache()
     phase_generate_dense(("falcon-mamba-7b",), {})   # f32 weights of its own
+    phase_model_hybrid()
+    hybrid_params, hybrid = phase_serve_hybrid(card)
+    del hybrid_params
+    torch.cuda.empty_cache()
+    phase_generate_dense(("recurrentgemma-2b",), {})   # f32 weights of its own
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kern[name]
@@ -3536,6 +3644,7 @@ def main() -> int:
     print(json.dumps({"moe": moe}), flush=True)
     print(json.dumps({"vision": vision}), flush=True)
     print(json.dumps({"ssm": ssm}), flush=True)
+    print(json.dumps({"hybrid": hybrid}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

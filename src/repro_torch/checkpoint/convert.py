@@ -6,13 +6,20 @@ nested (``np.asarray`` over ``repro.models.init_params``) or as the flat
 ``"/"``-joined keys that ``repro.checkpoint.ckpt`` writes into its npz
 (``stack/g0/p0/mixer/wq``, ...). The stack's homogeneous storage keeps every
 leaf stacked ``(L, ...)`` under ``stack/g0/p0``; layer ``i`` takes index
-``i``. A MoE layer's ``ffn`` holds ``router`` (L, d, E), ``w_up`` /
-``w_gate`` (L, E, d, f) and ``w_down`` (L, E, f, d), beside it an optional
+``i``. A patterned stack (recurrentgemma's rglru, rglru, local unit) keeps
+JAX's ``param_groups``: ``stack/g{g}/p{j}`` holds unit position j of group
+g, stacked over the group's repeats, and layer ``off_g + r * u + j`` takes
+index r (``stack.param_layout``; the LM's ``Stack.layout`` carries it, so
+the keys are written back the same way). A MoE layer's ``ffn`` holds
+``router`` (L, d, E), ``w_up`` / ``w_gate`` (L, E, d, f) and ``w_down`` (L,
+E, f, d), beside it an optional
 ``extra_mlp`` (the shared or dense-residual MLP). A Mamba layer's
 ``mixer`` holds ``in_proj``, ``conv_w``, ``conv_b``, ``x_proj``,
 ``dt_proj``, ``dt_bias``, ``A_log``, ``D`` and ``out_proj``, and its block
-no ``norm2`` or ``ffn``. ``params_to_numpy`` is the inverse, back to the
-nested JAX layout.
+no ``norm2`` or ``ffn``. An RG-LRU layer's ``mixer`` holds ``w_in``,
+``w_gate``, ``conv_w``, ``conv_b``, ``gate_a``, ``bias_a``, ``gate_x``,
+``bias_x``, ``lam`` and ``w_out``, beside the block's ``norm2`` and dense
+``ffn``. ``params_to_numpy`` is the inverse, back to the nested JAX layout.
 
 The training state (``repro_torch.train.loop.make_state``) carries across
 whole with ``state_from_jax`` / ``state_to_numpy``: every optimizer entry
@@ -39,15 +46,20 @@ from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Embed, Head, Norm
 from repro_torch.models.lm import LM
 from repro_torch.models.moe import MoE
+from repro_torch.models.rglru import RGLRU
 from repro_torch.models.ssm import Mamba
-from repro_torch.models.stack import Block, Stack, check_served
+from repro_torch.models.stack import (Block, Slot, Stack, check_served, param_groups,
+                                      param_layout)
 
-# (flat key, tensor, layer index into the stacked (L, ...) leaf or None)
+# (flat key, tensor, index into the stacked leaf (its layer's repeat) or None)
 Leaf = Tuple[str, torch.Tensor, Optional[int]]
-# a Mamba mixer's leaves in ``Mamba``'s argument order; the f32 ones
+# a recurrent mixer's leaves in its module's argument order; the f32 ones
 MAMBA_KEYS = ("in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log",
               "D", "out_proj")
 MAMBA_F32 = ("conv_b", "dt_bias", "A_log", "D")
+RGLRU_KEYS = ("w_in", "w_gate", "conv_w", "conv_b", "gate_a", "bias_a", "gate_x", "bias_x",
+              "lam", "w_out")
+RGLRU_F32 = ("conv_b", "bias_a", "bias_x", "lam")
 
 
 def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
@@ -74,12 +86,16 @@ def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def jax_key(name: str) -> Tuple[str, Optional[int]]:
-    """A parameter name of :class:`LM` -> (its JAX tree key, layer index):
-    ``stack.layers.3.mixer.wq`` -> (``stack/g0/p0/mixer/wq``, 3)."""
+def jax_key(name: str, layout: Tuple[Slot, ...]) -> Tuple[str, Optional[int]]:
+    """A parameter name of :class:`LM` -> (its JAX tree key, index into the
+    stacked leaf), by the stack's ``layout``: ``stack.layers.3.mixer.wq`` ->
+    (``stack/g0/p0/mixer/wq``, 3) in a homogeneous stack, and in
+    recurrentgemma's patterned storage ``stack.layers.25.mixer.lam`` ->
+    (``stack/g1/p1/mixer/lam``, 0)."""
     parts = name.split(".")
     if parts[0] == "stack":
-        return "/".join(["stack", "g0", "p0", *parts[3:]]), int(parts[2])
+        slot = layout[int(parts[2])]
+        return "/".join(["stack", f"g{slot.group}", f"p{slot.pos}", *parts[3:]]), slot.repeat
     return "/".join(parts), None
 
 
@@ -89,7 +105,8 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def leaves_to_flat(leaves: List[Leaf]) -> Dict[str, np.ndarray]:
-    """Flat JAX-layout numpy arrays; per-layer leaves are stacked (L, ...)."""
+    """Flat JAX-layout numpy arrays; per-layer leaves are stacked over their
+    index ((L, ...), or a group's repeats)."""
     flat: Dict[str, np.ndarray] = {}
     stacked: Dict[str, Dict[int, np.ndarray]] = {}
     for key, t, i in leaves:
@@ -110,16 +127,18 @@ def param_leaves(params: LM, tensors=None, prefix: str = "") -> List[Leaf]:
     if len(tensors) != len(named):
         raise ValueError(f"{len(tensors)} tensors for {len(named)} parameters")
     out = []
+    layout = params.stack.layout
     for (name, _), t in zip(named, tensors):
-        key, i = jax_key(name)
+        key, i = jax_key(name, layout)
         out.append((f"{prefix}{key}", t, i))
     return out
 
 
 class JaxLeaf(NamedTuple):
     """One leaf of the JAX parameter tree: its key, the indices into
-    ``LM.parameters()`` of the tensors that form it (layer order), and its
-    shape — ``(L, ...)`` for a stacked per-layer leaf."""
+    ``LM.parameters()`` of the tensors that form it (in stacking order), and
+    its shape — ``(L, ...)`` (or ``(R, ...)``, a group's repeats) for a
+    stacked per-layer leaf."""
     key: str
     members: Tuple[int, ...]
     shape: Tuple[int, ...]
@@ -145,20 +164,20 @@ def leaf_groups(params: LM) -> List[JaxLeaf]:
 def params_from_jax(
     tree: Mapping[str, Any], cfg: ArchConfig, *, device, dtype=torch.float32
 ) -> LM:
-    """The port's parameters from a JAX tree of numpy arrays. Matmul weights
-    and Mamba's ``conv_w`` are stored once at ``dtype`` (JAX casts them at
-    every use); norm scales, the head, a tied embedding table and Mamba's
-    ``conv_b``, ``dt_bias``, ``A_log`` and ``D`` stay f32."""
+    """The port's parameters from a JAX tree of numpy arrays. Matmul weights,
+    and the recurrent mixers' ``conv_w`` and the RG-LRU's gate blocks, are
+    stored once at ``dtype`` (JAX casts them at every use); norm scales, the
+    head, a tied embedding table and the recurrent mixers' vectors stay
+    f32."""
     if any("/" in k for k in tree):
         tree = unflatten(tree)
     check_served(cfg)
     groups = tree["stack"]
-    if set(groups) != {"g0"} or set(groups["g0"]) != {"p0"}:
-        raise NotImplementedError(
-            f"{cfg.name}: patterned parameter storage {sorted(groups)} belongs "
-            "to ROADMAP queue 1, 'the other families'"
-        )
-    layers = groups["g0"]["p0"]
+    want = {f"g{gi}": sorted(f"p{j}" for j in range(len(pattern)))
+            for gi, (pattern, _) in enumerate(param_groups(cfg))}
+    got = {g: sorted(v) for g, v in groups.items()}
+    if got != want:
+        raise ValueError(f"{cfg.name}: stack groups {got} are not param_groups' {want}")
 
     def t(a, dt):
         return torch.tensor(np.asarray(a, np.float32), device=device).to(dt)
@@ -172,14 +191,22 @@ def params_from_jax(
         return MLP(t(f["w_up"][i], dtype), t(f["w_down"][i], dtype),
                    t(f["w_gate"][i], dtype) if "w_gate" in f else None)
 
+    def recurrent(cls, m, i, keys, f32):
+        return cls(*(t(m[k][i], torch.float32 if k in f32 else dtype) for k in keys))
+
+    layout = param_layout(cfg)
     blocks = []
-    for i in range(cfg.n_layers):
+    for slot in layout:
+        layers, i = groups[f"g{slot.group}"][f"p{slot.pos}"], slot.repeat
         m = layers["mixer"]
         if "in_proj" in m:                   # Mamba-1, mixer-only
-            blocks.append(Block(norm(layers["norm1"], i), Mamba(*(
-                t(m[k][i], torch.float32 if k in MAMBA_F32 else dtype)
-                for k in MAMBA_KEYS))))
+            blocks.append(Block(norm(layers["norm1"], i),
+                                recurrent(Mamba, m, i, MAMBA_KEYS, MAMBA_F32)))
             continue
+        if "lam" in m:
+            mixer = recurrent(RGLRU, m, i, RGLRU_KEYS, RGLRU_F32)
+        else:
+            mixer = Attention(*(t(m[k][i], dtype) for k in ("wq", "wk", "wv", "wo")))
         f = layers["ffn"]
         if "router" in f:
             ffn = MoE(t(f["router"][i], dtype), t(f["w_up"][i], dtype),
@@ -188,24 +215,22 @@ def params_from_jax(
         else:
             ffn = mlp(f, i)
         blocks.append(Block(
-            norm(layers["norm1"], i),
-            Attention(*(t(m[k][i], dtype) for k in ("wq", "wk", "wv", "wo"))),
-            norm(layers["norm2"], i),
-            ffn,
+            norm(layers["norm1"], i), mixer, norm(layers["norm2"], i), ffn,
             mlp(layers["extra_mlp"], i) if "extra_mlp" in layers else None,
         ))
     embed_dtype = torch.float32 if cfg.tie_embeddings else dtype
     head = None if cfg.tie_embeddings else Head(t(tree["head"]["w"], torch.float32))
     return LM(
         Embed(t(tree["embed"]["table"], embed_dtype)),
-        Stack(blocks),
+        Stack(blocks, layout),
         norm(tree["final_norm"]),
         head,
     )
 
 
 def params_to_numpy(params: LM) -> Dict[str, Any]:
-    """The nested JAX layout (stacked ``(L, ...)`` leaves) as f32 numpy."""
+    """The nested JAX layout (stacked leaves, patterned groups as the
+    stack's ``layout`` says) as f32 numpy."""
     return unflatten(leaves_to_flat(param_leaves(params)))
 
 

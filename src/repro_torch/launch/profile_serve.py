@@ -1,12 +1,13 @@
 """Where the serving time goes on the card: granite-8b, the chip smoke's
-serving workload, or qwen3-moe-30b-a3b's, phi-3-vision-4.2b's or
-falcon-mamba-7b's, under ``torch.profiler``.
+serving workload, or qwen3-moe-30b-a3b's, phi-3-vision-4.2b's,
+falcon-mamba-7b's or recurrentgemma-2b's, under ``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--out DIR] \
         [--kv-dtype bf16|int8|fp8] [--admission chunked|whole ...] [--spec K]
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload qwen3-moe
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload phi-3-vision
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload falcon-mamba
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload recurrentgemma
 
 Runs ``workload.granite_serve_workload(kv_dtype=...)`` (the workload of
 ``chip_smoke.py``'s serve phases; ``--admission whole`` its whole-prompt
@@ -45,6 +46,14 @@ layer's ``mamba_apply`` at S 512 (``ssm_coeffs_ms``: the discretised a and
 b; ``ssm_scan_ms``: the associative scan over them; ``ssm_layer_ms``: the
 whole block), from which ``ssm_scan_share_of_prefill`` = L x the scan over
 the prefill.
+
+``--workload recurrentgemma`` profiles
+``workload.recurrentgemma_serve_workload`` (the RG-LRU hybrid, dense) into
+``DIR/hybrid`` with the same isolated decode step and prefill, and the
+pieces of the first RG-LRU layer at S 512 (``rglru_gates_ms``: a and the
+gated input from the block-diagonal gates; ``rglru_scan_ms``: the
+associative scan; ``rglru_layer_ms``: the whole block), whose shares of the
+prefill count the 18 RG-LRU layers.
 """
 from __future__ import annotations
 
@@ -248,41 +257,56 @@ def _run_row(run: dict) -> dict:
             "families": run["families"]}
 
 
-def profile_ssm(wl, params, card: str, out: Path) -> dict:
-    """The SSM workload's profiled run (the dense fallback) and its isolated
-    times (see above)."""
+def profile_recurrent(wl, params, card: str, out: Path) -> dict:
+    """A recurrent workload's profiled run (the dense fallback) and its
+    isolated times (see above), its mixer's pieces under ``ssm_`` (Mamba)
+    or ``rglru_`` (RG-LRU) keys."""
     from repro_torch.models import decode_step, prefill
-    from repro_torch.models import ssm
+    from repro_torch.models import rglru, ssm
     from repro_torch.models.layers import norm_apply
 
     cfg, rt = wl.cfg, wl.rt
     run = profiled_run(wl, params, out)
-    S, L = 512, cfg.n_layers
+    S = 512
+    kind = "mamba" if "mamba" in cfg.pattern else "rglru"
+    L = sum(k == kind for k in cfg.mixer_kinds())
     prompt = {"tokens": torch.zeros((1, S), dtype=torch.int32, device="cuda")}
-    layer = params.stack.layers[0]
+    layer = params.stack.layers[cfg.mixer_kinds().index(kind)]
+    m = layer.mixer
     with torch.no_grad():
         _, state = prefill(cfg, params, {"tokens": prompt["tokens"][:, :500]}, rt)
         tok = torch.zeros(1, dtype=torch.int32, device="cuda")
         h = norm_apply(layer.norm1, torch.randn(1, S, cfg.d_model, device="cuda").to(rt.dtype),
                        cfg.norm)
-        x_in = (h @ layer.mixer.in_proj.to(rt.dtype))[..., :cfg.d_inner]
-        x_conv = ssm.silu(ssm._causal_conv(x_in, layer.mixer.conv_w.to(rt.dtype),
-                                           layer.mixer.conv_b))
-        a, b, _ = ssm._ssm_coeffs(layer.mixer, x_conv)
         fns = {
             "decode_step_ms": lambda: decode_step(cfg, params, state, tok, rt, S + 64),
             "whole_prefill_512_ms": lambda: prefill(cfg, params, prompt, rt),
-            "ssm_layer_ms": lambda: ssm.mamba_apply(layer.mixer, h),
-            "ssm_coeffs_ms": lambda: ssm._ssm_coeffs(layer.mixer, x_conv),
-            "ssm_scan_ms": lambda: ssm.assoc_scan(a, b, keep_a=False),
         }
+        if kind == "mamba":
+            x_in = (h @ m.in_proj.to(rt.dtype))[..., :cfg.d_inner]
+            x_conv = ssm.silu(ssm._causal_conv(x_in, m.conv_w.to(rt.dtype), m.conv_b))
+            a, b, _ = ssm._ssm_coeffs(m, x_conv)
+            fns.update({
+                "ssm_layer_ms": lambda: ssm.mamba_apply(m, h),
+                "ssm_coeffs_ms": lambda: ssm._ssm_coeffs(m, x_conv),
+                "ssm_scan_ms": lambda: ssm.assoc_scan(a, b, keep_a=False),
+            })
+        else:
+            u = ssm._causal_conv(h @ m.w_in.to(rt.dtype), m.conv_w.to(rt.dtype), m.conv_b)
+            a, b = rglru._gates(m, u)
+            fns.update({
+                "rglru_layer_ms": lambda: rglru.rglru_apply(m, h),
+                "rglru_gates_ms": lambda: rglru._gates(m, u),
+                "rglru_scan_ms": lambda: ssm.assoc_scan(a, b, keep_a=False),
+            })
         times = {}
         for name, fn in fns.items():
             fn()
             times[name] = _events_ms(fn)
     prefill_ms = times["whole_prefill_512_ms"]
-    times["ssm_scan_share_of_prefill"] = L * times["ssm_scan_ms"] / prefill_ms
-    times["ssm_layers_share_of_prefill"] = L * times["ssm_layer_ms"] / prefill_ms
+    pre = "ssm" if kind == "mamba" else "rglru"
+    times[f"{pre}_scan_share_of_prefill"] = L * times[f"{pre}_scan_ms"] / prefill_ms
+    times[f"{pre}_layers_share_of_prefill"] = L * times[f"{pre}_layer_ms"] / prefill_ms
     return {"card": card, "config": cfg.name, "admission": "dense",
             "requests": len(wl.prompts), **_run_row(run), **times}
 
@@ -329,10 +353,12 @@ def main(argv=None) -> None:
     ap.add_argument("--spec", type=int, default=0, metavar="K",
                     help="then the speculative workload: K drafts a slot a tick")
     ap.add_argument("--workload", default="granite",
-                    choices=("granite", "qwen3-moe", "phi-3-vision", "falcon-mamba"),
+                    choices=("granite", "qwen3-moe", "phi-3-vision", "falcon-mamba",
+                             "recurrentgemma"),
                     help="qwen3-moe: qwen3_moe_serve_workload; phi-3-vision: "
                          "phi3_vision_serve_workload (whole prompts); falcon-mamba: "
-                         "falcon_mamba_serve_workload (dense); --admission, "
+                         "falcon_mamba_serve_workload (dense); recurrentgemma: "
+                         "recurrentgemma_serve_workload (dense); --admission, "
                          "--kv-dtype and --spec do not apply to them")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -342,7 +368,8 @@ def main(argv=None) -> None:
                                              granite_serve_spec_workload,
                                              granite_serve_workload,
                                              phi3_vision_serve_workload,
-                                             qwen3_moe_serve_workload)
+                                             qwen3_moe_serve_workload,
+                                             recurrentgemma_serve_workload)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -361,10 +388,12 @@ def main(argv=None) -> None:
         runs = [("vision", phi3_vision_serve_workload())]
     if args.workload == "falcon-mamba":
         runs = [("ssm", falcon_mamba_serve_workload())]
+    if args.workload == "recurrentgemma":
+        runs = [("hybrid", recurrentgemma_serve_workload())]
     for name, wl in runs:
         if params is None:
             params = wl.params("cuda")
-        profile = profile_ssm if name == "ssm" else profile_one
+        profile = profile_recurrent if name in ("ssm", "hybrid") else profile_one
         row = profile(wl, params, card, Path(args.out) / name)
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()

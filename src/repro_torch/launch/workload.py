@@ -38,6 +38,12 @@ slots, on the engine's dense fallback (the SSM's decode state is no KV
 cache, so it has no pool to price: ``EngineConfig.capacity`` sizes the
 horizon without ``cfg=``). The dense engine batches requests of one prompt
 length, so each of the eight runs alone.
+``recurrentgemma_serve_workload`` is that workload's shape on
+recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU of width
+2,560 and 8 local attention of 10 query heads over 1 kv head of hd 256,
+window 2,048; d 2560, gated MLP of 7,680, untied vocabulary of 256,000) in
+bf16, random weights from seed 0, dense (the RG-LRU state is no KV cache):
+K1 runs once a local layer a prefill, K3 twice a layer and once more a pass.
 
 Training: gemma3-1b at full width and depth (26 layers, d 1152, 4 query
 heads over 1 kv head of hd 256, window 512 on 22 layers, tied vocabulary of
@@ -143,12 +149,20 @@ def phi3_vision_serve_workload(seed: int = 0) -> ServeWorkload:
     return _serve_workload("phi-3-vision-4.2b", seed, "bf16", 0, 128)
 
 
-def falcon_mamba_serve_workload(seed: int = 0) -> ServeWorkload:
-    cfg = get_config("falcon-mamba-7b")
+def _dense_workload(name: str, seed: int) -> ServeWorkload:
+    cfg = get_config(name)
     ecfg = EngineConfig.capacity(512, NEW_TOKENS, slots=SLOTS, page_size=PAGE).engine(
         inner_steps=8, temperature=0.0, seed=seed)
     return ServeWorkload(cfg, Runtime(dtype=torch.bfloat16), ecfg, _prompts(cfg, seed),
                          NEW_TOKENS, seed)
+
+
+def falcon_mamba_serve_workload(seed: int = 0) -> ServeWorkload:
+    return _dense_workload("falcon-mamba-7b", seed)
+
+
+def recurrentgemma_serve_workload(seed: int = 0) -> ServeWorkload:
+    return _dense_workload("recurrentgemma-2b", seed)
 
 
 @dataclass(frozen=True)

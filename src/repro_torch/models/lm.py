@@ -16,7 +16,8 @@ across, and :func:`init_params` draws a fresh one from a seeded
 ``torch.Generator`` on the target device.
 
 Decode states are updated in place: pool pages and dense rings by the
-attention writes, a Mamba layer's ``{"conv", "ssm"}`` state by its step,
+attention writes, a Mamba layer's ``{"conv", "ssm"}`` and an RG-LRU
+layer's ``{"conv", "h"}`` state by its step,
 ``lengths`` by :func:`decode_step_paged` (not by
 :func:`verify_step_paged`, whose caller commits) and ``t`` (a host int, the
 position the next token takes) by :func:`decode_step`.
@@ -31,6 +32,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.chunked_ce import chunked_ce
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import stack as stack_mod
 from repro_torch.models.layers import (
@@ -63,11 +65,13 @@ def init_params(
     """Random parameters on ``device`` from ``torch.Generator(seed)``: the
     same tree and the same distributions as ``repro.models.init_params``
     (truncated-normal fan-in matrices, MoE expert stacks among them,
-    0.02-normal embeddings, unit norm scales, Mamba's ``ssm.Mamba.init``),
-    not the same bits. Matmul weights (and Mamba's ``conv_w``) are stored at
-    ``dtype``; norm scales, the head, a tied embedding table and Mamba's
-    ``conv_b``, ``dt_bias``, ``A_log`` and ``D`` stay f32, as JAX reads
-    them in f32."""
+    0.02-normal embeddings, unit norm scales, ``ssm.Mamba.init``,
+    ``rglru.RGLRU.init``), not the same bits. Matmul weights (and the conv
+    and gate-block weights of Mamba and the RG-LRU) are stored at ``dtype``;
+    norm scales, the head, a tied embedding table and the recurrent
+    mixers' vectors (Mamba's ``conv_b``, ``dt_bias``, ``A_log``, ``D``; the
+    RG-LRU's ``conv_b``, ``bias_a``, ``bias_x``, ``lam``) stay f32, as JAX
+    reads them in f32."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     stack_mod.check_served(cfg)
@@ -235,7 +239,7 @@ def prefill(
     count the image's P positions ahead of the text.
 
     ``max_len`` sizes the rings for the decode horizon (default the prompt
-    length); a Mamba layer's state is O(1) whatever it is. ``gather_pos``
+    length); a Mamba or RG-LRU layer's state is O(1) whatever it is. ``gather_pos``
     picks the position whose logits are returned (default the last): a
     prompt right-padded to a bucket gathers its true last position.
     ``full_cache`` sizes every attention ring, sliding-window ones too, to
@@ -259,13 +263,14 @@ def prefill(
 def init_decode_state(
     cfg: ArchConfig, params: LM, B: int, seq_len: int, rt: Runtime
 ) -> Dict[str, Any]:
-    """Empty rings sized for a ``seq_len`` context (and zero Mamba states),
+    """Empty rings sized for a ``seq_len`` context (and zero Mamba and RG-LRU states),
     on the parameters' device, at position ``seq_len - 1`` (the dry-run /
     bench entry)."""
     dev = params.embed.table.device
     specs = layer_specs(cfg, seq_len=seq_len, long_variant=rt.long_variant)
     caches = [
         ssm_mod.init_mamba_state(bp.mixer, B, rt.dtype) if s.kind == "mamba" else
+        rglru_mod.init_rglru_state(bp.mixer, B, rt.dtype) if s.kind == "rglru" else
         attn_mod.init_kv_cache(B, s.cache_len, cfg.n_kv_heads, cfg.head_dim, rt.dtype, dev)
         for s, bp in zip(specs, params.stack.layers)
     ]
@@ -282,7 +287,7 @@ def decode_step(
 ) -> torch.Tensor:
     """One dense decode step at ``state["t"]`` for the whole batch. token:
     (B,) ids. Returns f32 logits (B, V); writes the rings, steps the Mamba
-    states and advances ``state["t"]`` in place."""
+    and RG-LRU states and advances ``state["t"]`` in place."""
     specs = layer_specs(cfg, seq_len=seq_len, long_variant=rt.long_variant)
     x = embed_apply(params.embed, token[:, None], rt.dtype)
     x = stack_mod.stack_decode(cfg, params.stack, x, state["caches"], state["t"], rt, specs)

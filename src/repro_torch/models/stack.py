@@ -1,17 +1,22 @@
 """Decoder stack: the full-sequence forward (training, and whole-prompt
 prefill with collected caches), the dense ring-cache decode and the paged
-serving steps, over per-layer blocks whose mixer is attention or a Mamba-1
-SSM (``models/ssm.py``) and whose FFN is a dense MLP, a MoE
-(``models/moe.py``, with an optional always-on ``extra_mlp``) or none (the
-SSM family's mixer-only blocks); the forward sums the MoE layers' router
-aux, the serving steps drop it, as JAX does.
+serving steps, over per-layer blocks whose mixer is attention, a Mamba-1
+SSM (``models/ssm.py``) or an RG-LRU (``models/rglru.py``) and whose FFN
+is a dense MLP, a MoE (``models/moe.py``, with an optional always-on
+``extra_mlp``) or none (the SSM family's mixer-only blocks); the forward
+sums the MoE layers' router aux, the serving steps drop it, as JAX does.
 
 Counterpart of ``stack_forward``, ``write_prefill_to_pool``,
 ``stack_decode`` (dense and paged), the paged prefill and the pipeline stage
 of ``repro.models.stack``. JAX scanned over stacked ``(L, ...)`` parameter
 segments; here an ``nn.ModuleList`` holds one block per layer and a Python
 loop walks it. ``layer_specs`` gives each layer its mixer kind and window,
-exactly as in the JAX package. Remat is ``torch.utils.checkpoint`` over
+exactly as in the JAX package. ``param_groups`` is JAX's parameter
+storage: one group of stacked ``(L, ...)`` leaves for a homogeneous stack,
+and for a patterned one (recurrentgemma's rglru, rglru, local unit) a group
+of ``R`` repeats of the unit and a group for the tail; ``Stack.layout``
+maps each layer to its (group, unit position, repeat), the index of its
+leaves in JAX's tree. Remat is ``torch.utils.checkpoint`` over
 groups of ``rt.remat_period`` layers: ``full`` saves only each group's
 input, ``dots`` also saves every matmul output (``aten.mm``), the
 counterpart of ``dots_with_no_batch_dims_saveable``.
@@ -24,8 +29,10 @@ pool[:, src]`` per tensor and layer ``i`` works on the contiguous views
 ``pool[i]``. Collected dense caches are a list with one ``{"k", "v",
 "pos"}`` ring per layer (``attention.init_kv_cache``), where JAX stacked
 them per segment; a Mamba layer's collected state is ``{"conv", "ssm"}``
-(``ssm.mamba_apply``), and the dense decode advances it. The paged pools
-hold attention layers only: a recurrent family is served dense, as in JAX.
+(``ssm.mamba_apply``), an RG-LRU layer's ``{"conv", "h"}``
+(``rglru.rglru_apply``), and the dense decode advances them. The paged
+pools hold attention layers only: a recurrent family is served dense, as in
+JAX.
 
 A pipeline stage is a slice of ``Stack.layers`` (the counterpart of
 ``stage_layer_params`` slicing the stacked leaves), applied by
@@ -44,6 +51,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.paged_attention import quant
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import MLP, Norm, mlp_apply, norm_apply
 from repro_torch.models.runtime import Runtime
@@ -80,12 +88,50 @@ def layer_specs(
     return tuple(out)
 
 
+def param_kind(kind: str) -> str:
+    return "attn" if kind == "local" else kind
+
+
+def param_groups(cfg: ArchConfig) -> List[Tuple[Tuple[str, ...], int]]:
+    """[(unit param-kind pattern, repeats)]: JAX's variant-independent
+    storage (``repro.models.stack.param_groups``)."""
+    kinds = tuple(param_kind(k) for k in cfg.pattern)
+    if len(set(kinds)) == 1:
+        return [((kinds[0],), cfg.n_layers)]
+    u = len(kinds)
+    n, rem = divmod(cfg.n_layers, u)
+    groups = [(kinds, n)]
+    if rem:
+        groups.append((kinds[:rem], 1))
+    return groups
+
+
+class Slot(NamedTuple):
+    """Where a layer's leaves sit in JAX's tree: ``stack/g{group}/p{pos}``,
+    index ``repeat`` of the stacked leaves."""
+    group: int
+    pos: int
+    repeat: int
+
+
+def param_layout(cfg: ArchConfig) -> Tuple[Slot, ...]:
+    """Each layer's :class:`Slot`: layer ``off_g + r * u + j`` of group g
+    (unit length u) is ``g{g}/p{j}`` index r; a homogeneous stack keeps
+    every layer in ``g0/p0``, layer i at index i."""
+    out: List[Slot] = []
+    for gi, (pattern, R) in enumerate(param_groups(cfg)):
+        out += [Slot(gi, j, r) for r in range(R) for j in range(len(pattern))]
+    return tuple(out)
+
+
 def check_served(cfg: ArchConfig) -> None:
-    """Raise for what the port does not run yet: RG-LRU mixers and mixed
-    patterns, encoder-decoder and audio-frontend configs. Attention stacks
-    (with the vision prefix) and pure Mamba stacks are served."""
+    """Raise for what the port does not run yet: encoder-decoder and
+    audio-frontend configs. Attention stacks (with the vision prefix), pure
+    Mamba stacks and the RG-LRU hybrid (rglru and local layers) are
+    served."""
     kinds = set(cfg.pattern)
-    if not ((kinds <= {"attn", "local"} and cfg.n_heads) or kinds == {"mamba"}):
+    attention = (kinds <= {"attn", "local"} or kinds <= {"rglru", "local"}) and cfg.n_heads
+    if not (attention or kinds == {"mamba"}):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.pattern} mixers are ROADMAP queue 1 item 4, "
             "'the other families'"
@@ -99,15 +145,16 @@ def check_served(cfg: ArchConfig) -> None:
 
 # -------------------------------------------------------------------- blocks
 class Block(nn.Module):
-    """One decoder layer: norm1 -> mixer (attention or Mamba) -> norm2 ->
-    FFN, the FFN a dense MLP or a MoE (``ffn_kind``); with ``ffn_kind`` "none"
-    (Mamba-1) the block is norm1 -> mixer alone, with no ``norm2``. A MoE
-    block may hold ``extra_mlp``, one always-on gated MLP whose output adds
-    to the routed one: the shared experts and Arctic's dense residual FFN,
-    their hidden units concatenated (exact for independent gated MLPs, as in
-    JAX)."""
+    """One decoder layer: norm1 -> mixer (attention, Mamba or RG-LRU) ->
+    norm2 -> FFN, the FFN a dense MLP or a MoE (``ffn_kind``); with
+    ``ffn_kind`` "none" (Mamba-1) the block is norm1 -> mixer alone, with no
+    ``norm2``. A MoE block may hold ``extra_mlp``, one always-on gated MLP
+    whose output adds to the routed one: the shared experts and Arctic's
+    dense residual FFN, their hidden units concatenated (exact for
+    independent gated MLPs, as in JAX)."""
 
-    def __init__(self, norm1: Norm, mixer: Union[attn_mod.Attention, ssm_mod.Mamba],
+    def __init__(self, norm1: Norm,
+                 mixer: Union[attn_mod.Attention, ssm_mod.Mamba, rglru_mod.RGLRU],
                  norm2: Optional[Norm] = None, ffn: Union[MLP, moe_mod.MoE, None] = None,
                  extra_mlp: Optional[MLP] = None):
         super().__init__()
@@ -121,6 +168,9 @@ class Block(nn.Module):
         if kind == "mamba":
             mixer = ssm_mod.Mamba.init(gen, cfg.d_model, cfg.d_inner, cfg.ssm_state,
                                        cfg.ssm_conv, dtype)
+        elif kind == "rglru":
+            mixer = rglru_mod.RGLRU.init(gen, cfg.d_model, cfg.rglru_width or cfg.d_model,
+                                         cfg.ssm_conv, dtype)
         else:
             mixer = attn_mod.Attention.init(
                 gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype
@@ -141,14 +191,21 @@ class Block(nn.Module):
 
 
 class Stack(nn.Module):
-    def __init__(self, layers: List[Block]):
+    """The layers in order, and ``layout``: each layer's :class:`Slot` in
+    JAX's parameter tree (``param_layout``)."""
+
+    def __init__(self, layers: List[Block], layout: Sequence[Slot]):
         super().__init__()
         self.layers = nn.ModuleList(layers)
+        self.layout = tuple(layout)
+        if len(self.layout) != len(layers):
+            raise ValueError(f"{len(self.layout)} slots for {len(layers)} layers")
 
     @classmethod
     def init(cls, cfg: ArchConfig, gen: torch.Generator, dtype) -> "Stack":
         check_served(cfg)
-        return cls([Block.init(cfg, gen, dtype, kind) for kind in cfg.mixer_kinds()])
+        return cls([Block.init(cfg, gen, dtype, kind) for kind in cfg.mixer_kinds()],
+                   param_layout(cfg))
 
 
 def _ffn_apply(
@@ -223,18 +280,23 @@ def _layer_scales(pools: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Ten
 
 
 # --------------------------------------------------------------------- apply
+# a recurrent mixer kind's (full-sequence apply, one-token decode)
+RECURRENT = {"mamba": (ssm_mod.mamba_apply, ssm_mod.mamba_decode),
+             "rglru": (rglru_mod.rglru_apply, rglru_mod.rglru_decode)}
+
+
 def _layer_apply(
     cfg: ArchConfig, bp: Block, x: torch.Tensor, spec: LayerSpec, rt: Runtime,
     positions: torch.Tensor, causal: bool, collect: bool = False, cache_len: int = 0,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
     """One layer: (x, aux, cache). With ``collect`` the cache is an
     attention layer's ring of ``cache_len`` rows, filled from the k/v that
-    attention consumed, or a Mamba layer's ``{"conv", "ssm"}`` state after
-    the last position."""
+    attention consumed, a Mamba layer's ``{"conv", "ssm"}`` state or an
+    RG-LRU layer's ``{"conv", "h"}`` after the last position."""
     h = norm_apply(bp.norm1, x, cfg.norm)
     cache = None
-    if spec.kind == "mamba":
-        res = ssm_mod.mamba_apply(bp.mixer, h, collect_state=collect)
+    if spec.kind in RECURRENT:
+        res = RECURRENT[spec.kind][0](bp.mixer, h, collect_state=collect)
         out, cache = res if collect else (res, None)
     else:
         out, kv = attn_mod.attention_apply(
@@ -391,15 +453,15 @@ def stack_decode(
     """One-token decode. x: (B, 1, d). Caches are written in place.
 
     Dense (``tables`` None): ``caches`` are the per-layer caches of
-    ``stack_forward(collect_cache=True)`` (rings, and Mamba states, whose
-    dicts take the next state) and ``t`` the int position shared by the
-    batch. Paged: ``caches`` are the page pools, ``t`` the (B,) per-slot
+    ``stack_forward(collect_cache=True)`` (rings, and Mamba and RG-LRU
+    states, whose dicts take the next state) and ``t`` the int position
+    shared by the batch. Paged: ``caches`` are the page pools, ``t`` the (B,) per-slot
     lengths, and each slot decodes at its own depth."""
     if tables is None:
         for bp, spec, cache in zip(stack.layers, specs, caches):
             hn = norm_apply(bp.norm1, x, cfg.norm)
-            if spec.kind == "mamba":
-                out, nxt = ssm_mod.mamba_decode(bp.mixer, hn, cache)
+            if spec.kind in RECURRENT:
+                out, nxt = RECURRENT[spec.kind][1](bp.mixer, hn, cache)
                 cache.update(nxt)
             else:
                 out = attn_mod.attention_decode(

@@ -5,9 +5,12 @@ Counterpart of ``repro.serve.dense``. JAX compiled the prefill and one
 PyTorch, so there is no compile cache and no shape key to port. The prefill
 runs K1 over the whole prompt on every attention layer (and K3 on every
 norm) on a CUDA tensor; the one-token decode over the rings is plain
-PyTorch, as the JAX decode is plain jnp. A Mamba stack (the SSM family,
-which JAX serves only here) prefills by the selective scan and decodes by
-the recurrent step, both plain PyTorch as in JAX, with K3 on every norm.
+PyTorch, as the JAX decode is plain jnp. The recurrent families, which JAX
+serves only here, prefill by their scans and decode by their recurrent
+steps, both plain PyTorch as in JAX, with K3 on every norm: a Mamba stack
+(the SSM family), and the RG-LRU hybrid, whose local-attention layers
+prefill through K1 and decode over window-sized rings like any attention
+layer.
 
 Sampling is the serve engine's ``SamplingPolicy``: greedy, or row b's token
 i drawn from the stream ``(seed, stream_ids[b], i)``. The engine passes its
@@ -40,8 +43,9 @@ def generate_dense(
 ) -> Tuple[torch.Tensor, Dict[str, Any], float]:
     """Batched dense generation over equal-length prompts ``batch["tokens"]``
     (B, S) on the parameters' device, behind a vision config's image prefix
-    ``batch["frontend_embeds"]`` (B, P, d), which the rings hold too; an
-    SSM config carries its O(1) recurrent state instead of rings.
+    ``batch["frontend_embeds"]`` (B, P, d), which the rings hold too; a
+    recurrent layer (Mamba, RG-LRU) carries its O(1) state instead of a
+    ring.
     Returns (tokens (B, max_new) int32, the final decode state, ttft_s):
     ttft_s is the wall time of the prefill and the first sample, ending in a
     sync of the card."""

@@ -18,11 +18,12 @@ between ticks to retire finished requests and admit new ones.
 ``paged=False`` is the dense fallback: a tick pops the head request and the
 queued ones of its (prompt length, max_new) shape, up to ``max_slots``, and
 runs them as one ``serve.dense.generate_dense`` batch over ring caches (and
-Mamba states). ``paged=None`` picks the paged engine where every mixer keeps
-a KV cache (``paged_supported``) and the dense fallback otherwise: the SSM
-family, whose decode state is not a KV cache, is served dense, and
-``paged=True`` on it raises ``ValueError``, as in JAX. A ``kv_dtype``
-changes nothing on the dense path.
+Mamba or RG-LRU states). ``paged=None`` picks the paged engine where every
+mixer keeps a KV cache (``paged_supported``) and the dense fallback
+otherwise: the SSM family and the RG-LRU hybrid, whose decode state is not
+(all) a KV cache, are served dense, and ``paged=True`` on them raises
+``ValueError``, as in JAX. A ``kv_dtype`` changes nothing on the dense
+path.
 
 Where JAX ran one jitted program with a ``lax.scan`` over the decode steps
 and donated the pool buffers, this engine runs a Python loop and writes the
@@ -1042,8 +1043,8 @@ class ServeEngine:
     def _step_dense(self) -> Dict[str, Any]:
         """One dense-fallback tick: the head request and every queued request
         of its (prompt_len, max_new) shape, up to ``max_slots``, generate as
-        one batch over ring caches; each row samples its own request's
-        stream. Whole outputs are delivered at the end."""
+        one batch over ring caches (and recurrent states); each row samples
+        its own request's stream. Whole outputs are delivered at the end."""
         part = self.scheduler.pop_batch(self.ecfg.max_slots)
         max_new = part[0].max_new
         batch = {"tokens": torch.from_numpy(np.stack([r.tokens for r in part])).to(self.device)}

@@ -4,11 +4,11 @@ Counterpart of ``repro.train.serve.generate``, a thin wrapper over the
 serving package:
 
 * dense (the default): ``serve.dense.generate_dense``, one batch over ring
-  caches (an SSM config's recurrent states);
+  caches (and the recurrent states of Mamba and RG-LRU layers);
 * ``paged=True``: the continuous-batching engine, one request per batch row,
   over a pool sized by ``EngineConfig.capacity`` for the batch, admitted by
-  whole-prompt prefill. A family with non-KV decode state (the SSM) has no
-  pool and raises ``ValueError``, as the engine does.
+  whole-prompt prefill. A family with non-KV decode state (the SSM, the
+  RG-LRU hybrid) has no pool and raises ``ValueError``, as the engine does.
 
 Both run on the parameters' device, a vision config's batch with its image
 prefixes. Greedy outputs are the same on both paths.

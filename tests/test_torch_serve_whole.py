@@ -360,16 +360,21 @@ def test_dense_engine_batches_same_shape_requests(models):
                 np.testing.assert_array_equal(out[rid], want[0].numpy())
 
 
-@pytest.mark.parametrize("name", ["recurrentgemma-2b", "seamless-m4t-medium"])
+UNPORTED = {"audio-frontend": dict(enc_layers=0),      # seamless's decoder alone
+            "seamless-m4t-medium": {}}
+
+
+@pytest.mark.parametrize("name", sorted(UNPORTED))
 def test_unported_families_still_raise(models, name):
-    """The dense fallback serves the attention and SSM families only: an
-    RG-LRU or encoder-decoder config raises at construction, naming ROADMAP
-    item 4."""
+    """The dense fallback serves the attention, SSM and RG-LRU families
+    only: seamless-m4t-medium's encoder-decoder, and its audio frontend
+    ahead of the decoder alone, raise at construction, naming ROADMAP item
+    4."""
     _, _, _, tparams = models("granite-8b")
+    cfg = t_get_reduced("seamless-m4t-medium", **UNPORTED[name])
     for paged in (None, False):
         with pytest.raises(NotImplementedError, match="item 4"):
-            ServeEngine(t_get_reduced(name), tparams, TRT, EngineConfig(), paged=paged,
-                        device="cpu")
+            ServeEngine(cfg, tparams, TRT, EngineConfig(), paged=paged, device="cpu")
 
 
 # ---------------------------------------------------------------- launcher

@@ -61,6 +61,15 @@ Phases, in order (any failure exits nonzero and prints no result line):
                bf16 at kernels-prefill's tolerances, then timed in bf16 at
                128-512 beside the plain version and SDPA's causal path, with
                its bound;
+  3d. kernels encdec — K1 at seamless-m4t-medium's calls (16 heads of hd
+               64, G 1), f32 and bf16 at kernels-prefill's tolerances: the
+               encoder (S = Sk = 1,024, not causal), the cross-attention
+               (Sq 128, 256, 384, 512, 131 and 509 against 1,024 keys, not
+               causal; Sq 131 and 512 against 1,000 keys and 1,000 against
+               1,000, off the 64-key tile) and the decoder's causal prefill
+               (S 128-512, 131, 509); in bf16 the encoder, the
+               cross-attention and the prefill at 128-512 timed beside the
+               plain version and SDPA (unmasked, or causal), with bounds;
   4. train kernels — K1 (flash forward), K2 (its delta, dq and dk/dv
                launches), K3 and K4 (RMSNorm forward, backward) against their
                plain versions: f32 on the JAX suites' shapes and hd 96
@@ -257,10 +266,35 @@ Phases, in order (any failure exits nonzero and prints no result line):
                width and depth in f32, TF32 off (its own weights, after
                serve-hybrid's are freed): 2 prompts of 2,100 tokens (past
                the 2,048 window, not a multiple of it), 16 new tokens, K1 8,
-               K3 848 (53 a pass), K5, K6 none; row 0 alone against batched.
+               K3 848 (53 a pass), K5, K6 none; row 0 alone against batched;
+ 30. model-encdec — reduced seamless-m4t-medium (2 + 2 layers, d 256, 16
+               frames), f32, TF32 off, card (K1) vs CPU (plain) within 1e-5
+               of max|ref|: encode's memory, forward's logits, prefill's
+               logits, memory, rings and cross caches, then four decode
+               steps, over a 40-token prompt and a 2-token one;
+ 31. serve-encdec — launch/workload.py's seamless_serve_workload:
+               seamless-m4t-medium at full width and depth (12 encoder and
+               12 decoder layers, d 1024, 16 heads of hd 64, LayerNorm),
+               bf16, each request behind its own (1,024, 1,024) frames,
+               serve-ssm's checks through the dense path: exact launch
+               counts (K1 36 an admission: the encoder, the causal
+               self-attention and the cross-attention; K3, K5, K6 none),
+               streams bitwise equal across two runs and against the
+               teacher-forced forward under the bf16 tie rule; weight
+               bytes, tokens/s, TTFT, the isolated decode step, peak memory
+               and the device's idle share over one request's first 16
+               tokens (torch.profiler);
+               run after recurrentgemma-2b's weights are freed;
+ 32. generate-dense on seamless-m4t-medium — generate-dense's checks at
+               full width and depth in f32, TF32 off (its own weights, after
+               serve-encdec's are freed): 4 prompts of 512 behind their own
+               frames, 32 new tokens, K1 36, K3, K5, K6 none; row 0 alone
+               against batched.
 Before the last two lines, JSON lines {"moe": ...}, {"vision": ...},
-{"ssm": ...} and {"hybrid": ...} give serve-moe's, serve-vision's,
-serve-ssm's and serve-hybrid's launches.
+{"ssm": ...}, {"hybrid": ...} and {"encdec": ...} give serve-moe's,
+serve-vision's, serve-ssm's, serve-hybrid's and serve-encdec's launches
+(serve-encdec's with its weight and peak GB, tokens/s, TTFT,
+decode_step_ms and idle share).
 Every phase's line carries t_s, the seconds since the script started. The
 line before last lists every kernel as JSON; the last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
@@ -1135,30 +1169,35 @@ RN_CASES = [(7, 100), (33, 1000), (5, 1001), (3, 7), (1, 1152), (601, 64),
 RN_OFFSET_CASES = [(64, 1152, 1, 0), (4, 4096, 1, 0), (64, 1152, 0, 1)]
 
 
-def fa_flat(B, S, Kv, G, hd, dtype, seed, dev="cuda"):
-    """q, k, v, dO in the kernels' flat layout, from numpy."""
+def fa_flat(B, S, Kv, G, hd, dtype, seed, dev="cuda", Sk=None):
+    """q, k, v, dO in the kernels' flat layout, from numpy; k and v of
+    ``Sk`` rows (default S)."""
     rng = np.random.RandomState(seed)
+    Sk = S if Sk is None else Sk
 
     def t(*shape, scale=1.0):
         return torch.tensor(rng.randn(*shape) * scale, dtype=torch.float32).to(dev, dtype)
 
-    return (t(B * Kv * G, S, hd, scale=hd ** -0.5), t(B * Kv, S, hd), t(B * Kv, S, hd),
+    return (t(B * Kv * G, S, hd, scale=hd ** -0.5), t(B * Kv, Sk, hd), t(B * Kv, Sk, hd),
             t(B * Kv * G, S, hd))
 
 
-def visible_pairs(S: int, causal: bool, window: int) -> int:
+def visible_pairs(S: int, causal: bool, window: int, Sk=None) -> int:
     """(query, key) pairs a head attends to: the unmasked work."""
     from repro_torch.kernels.flash_attention.ref import visible_mask
 
-    return int(visible_mask(S, S, causal=causal, window=window, device="cpu").sum())
+    Sk = S if Sk is None else Sk
+    return int(visible_mask(S, Sk, causal=causal, window=window, device="cpu").sum())
 
 
-def fa_bounds(B, S, Kv, G, hd, window, isz, causal=True):
+def fa_bounds(B, S, Kv, G, hd, window, isz, causal=True, Sk=None):
     """(bytes, flops) each K1/K2 launch must move and do: every input read
-    once, every output written once; the products of the unmasked pairs."""
+    once, every output written once; the products of the unmasked pairs.
+    k and v have ``Sk`` rows (default S)."""
     BH = B * Kv * G
-    q, kv, row = BH * S * hd * isz, B * Kv * S * hd * isz, BH * S * 4
-    pairs = BH * visible_pairs(S, causal, window)
+    Sk = S if Sk is None else Sk
+    q, kv, row = BH * S * hd * isz, B * Kv * Sk * hd * isz, BH * S * 4
+    pairs = BH * visible_pairs(S, causal, window, Sk)
     return {
         "flash_attention_fwd": (2 * q + 2 * kv + row, 4 * hd * pairs),
         "flash_attention_bwd_delta": (2 * q + row, 2 * hd * BH * S),
@@ -1421,32 +1460,35 @@ def k1_cases(tag, heads: dict, lengths) -> dict:
                 tols={"f32": FA_F32_TOL, "bf16": BF16_TOL, "bf16_rtol": PREFILL_FA_BF16_RTOL})
 
 
-def k1_timed(model, S, Kv, G, hd, window, flush) -> dict:
+def k1_timed(model, S, Kv, G, hd, window, flush, Sk=None, causal=True) -> dict:
     """K1 in bf16 at one whole-prompt admission (B 1, causal; ``window`` 0 or
-    at least S) against its plain version (o and lse, atol BF16_TOL, rtol
-    PREFILL_FA_BF16_RTOL), timed beside it and SDPA's causal path (GQA
-    expanded), with its bound."""
+    at least S), or at ``Sk`` keys and ``causal`` False (an encoder's or a
+    cross-attention's call), against its plain version (o and lse, atol
+    BF16_TOL, rtol PREFILL_FA_BF16_RTOL), timed beside it and SDPA's causal
+    or unmasked path (GQA expanded), with its bound."""
     from repro_torch.kernels.flash_attention import cuda as fa
     from repro_torch.kernels.flash_attention import ref as far
 
     bf = torch.bfloat16
+    Sk = S if Sk is None else Sk
     if window and window < S:
         raise ValueError(f"SDPA's causal path does not cover a window of {window} < S {S}")
-    q, k, v, _ = fa_flat(1, S, Kv, G, hd, bf, seed=S)
-    kw = dict(group=G, causal=True, window=window)
+    q, k, v, _ = fa_flat(1, S, Kv, G, hd, bf, seed=S if Sk == S else 10_007 * S + Sk, Sk=Sk)
+    kw = dict(group=G, causal=causal, window=window)
     o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
     po, plse = far.flash_attention_fwd_plain(q, k, v, **kw)
-    err = check(f"K1 {model} S {S} o", o, po, BF16_TOL, rtol=PREFILL_FA_BF16_RTOL)
-    check(f"K1 {model} S {S} lse", lse, plse, BF16_TOL)
+    err = check(f"K1 {model} S {S} Sk {Sk} o", o, po, BF16_TOL, rtol=PREFILL_FA_BF16_RTOL)
+    check(f"K1 {model} S {S} Sk {Sk} lse", lse, plse, BF16_TOL)
     qd = q.view(1, Kv * G, S, hd)
-    kd, vd = (t.repeat_interleave(G, 0).view(1, Kv * G, S, hd) for t in (k, v))
-    nbytes, flops = fa_bounds(1, S, Kv, G, hd, window, 2)["flash_attention_fwd"]
+    kd, vd = (t.repeat_interleave(G, 0).view(1, Kv * G, Sk, hd) for t in (k, v))
+    nbytes, flops = fa_bounds(1, S, Kv, G, hd, window, 2, causal, Sk)["flash_attention_fwd"]
     bms, by = bound(nbytes, flops, bf)
-    return dict(model=model, kernel="flash_attention_fwd", S=S, max_abs_err=err,
+    return dict(model=model, kernel="flash_attention_fwd", S=S, Sk=Sk, causal=causal,
+                max_abs_err=err,
                 kernel_ms=time_ms(lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw), flush),
                 plain_ms=time_ms(lambda: far.flash_attention_fwd_plain(q, k, v, **kw), flush),
                 library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    qd, kd, vd, is_causal=True, scale=1.0), flush),
+                    qd, kd, vd, is_causal=causal, scale=1.0), flush),
                 bound_ms=bms, bound_by=by, bytes=nbytes, flops=flops)
 
 
@@ -2510,7 +2552,8 @@ def phase_serve(kv_dtype: str = "bf16", params=None, whole: bool = False):
 GENERATE_DENSE = [("granite-8b", torch.bfloat16, 4, 512, 32),
                   ("gemma3-1b", torch.float32, 2, 700, 16),
                   ("falcon-mamba-7b", torch.float32, 4, 512, 32),
-                  ("recurrentgemma-2b", torch.float32, 2, 2100, 16)]
+                  ("recurrentgemma-2b", torch.float32, 2, 2100, 16),
+                  ("seamless-m4t-medium", torch.float32, 4, 512, 32)]
 TIE_MARGIN = 1e-4                 # f32: tests/test_torch_serve_engine.py::MARGIN
 F32_LOGIT_REL = 1e-3              # f32, TF32 off: sums in another order (model-ssm's)
 # bf16: the dense decode and forward round activations to bf16 in different
@@ -2535,16 +2578,36 @@ def top2_margin(row: torch.Tensor) -> float:
     return float(top[0] - top[1])
 
 
-def teacher_forced(cfg, params, rt, prompt: torch.Tensor, tokens: torch.Tensor):
+def teacher_forced(cfg, params, rt, prompt: torch.Tensor, tokens: torch.Tensor,
+                   frames=None):
     """The card's ``lm.forward`` logits (B, new, V) at the positions that
     chose ``tokens`` (B, new), over ``prompt`` (B, S) and the tokens before
-    each."""
+    each (an encoder-decoder's decoder over its ``frames`` (B, T, d))."""
     from repro_torch.models import forward
 
     S = prompt.shape[1]
+    batch = {"tokens": torch.cat([prompt, tokens[:, :-1]], 1)}
+    if frames is not None:
+        batch["frontend_embeds"] = frames
     with torch.no_grad():
-        ref, _ = forward(cfg, params, {"tokens": torch.cat([prompt, tokens[:, :-1]], 1)}, rt)
+        ref, _ = forward(cfg, params, batch, rt)
     return ref[:, S - 1:, :cfg.vocab_size].float()
+
+
+def k1_per_prefill(cfg) -> int:
+    """K1 launches of one prefill: one a decoder attention layer, and for an
+    encoder-decoder one an encoder layer and one a cross-attention."""
+    attn = sum(k in ("attn", "local") for k in cfg.mixer_kinds())
+    return attn + (cfg.enc_layers + cfg.n_layers if cfg.is_encdec else 0)
+
+
+def k3_per_pass(cfg) -> int:
+    """K3 launches of one decoder pass (a prefill or a decode step): two
+    norms a layer (one without an FFN) and the final one; none for a
+    LayerNorm config, whose norms are plain."""
+    if cfg.norm != "rmsnorm":
+        return 0
+    return (1 if cfg.ffn_kind == "none" else 2) * cfg.n_layers + 1
 
 
 def first_differences(ref, tokens, want=None) -> list:
@@ -2574,9 +2637,9 @@ def beyond_tie(first: list, bf16: bool) -> list:
 def phase_generate_dense(names, weights: dict) -> None:
     """``train.serve.generate`` (dense rings, or the SSM's recurrent state)
     at full width, for the GENERATE_DENSE rows in ``names`` (weights on the
-    card from ``weights`` by name, else made from seed 0): exact launch
-    counts (K1 once an attention layer, K3 once a norm, a layer having two,
-    or one when it has no FFN, and once more a pass, K5 and K6 never), the
+    card from ``weights`` by name, else made from seed 0; an
+    encoder-decoder's rows each behind their own frames): exact launch
+    counts (``k1_per_prefill``, ``k3_per_pass`` a pass, K5 and K6 never), the
     greedy tokens against the card's own ``lm.forward`` argmax over the
     teacher-forced sequence, and the dense path's logits (prefill, then
     decode steps fed the same tokens) against forward's; then row 0 alone
@@ -2601,17 +2664,21 @@ def phase_generate_dense(names, weights: dict) -> None:
         params = weights[name] if name in weights else init_params(
             cfg, seed=0, device="cuda", dtype=dtype)
         rt = Runtime(dtype=dtype)
-        L, V = cfg.n_layers, cfg.vocab_size
-        attn = sum(k in ("attn", "local") for k in cfg.mixer_kinds())
-        want_k3 = new * ((1 if cfg.ffn_kind == "none" else 2) * L + 1)
+        V = cfg.vocab_size
+        attn, want_k3 = k1_per_prefill(cfg), new * k3_per_pass(cfg)
         prompt = np.random.RandomState(7).randint(0, V, (B, S)).astype(np.int32)
-        generate(cfg, params, {"tokens": prompt[:, :16]}, rt, 2)     # warm-up
+        fr, fe = None, {}
+        if cfg.is_encdec:
+            fr = torch.from_numpy(np.random.RandomState(8).randn(
+                B, cfg.frontend_tokens, cfg.d_model).astype(np.float32)).to("cuda")
+            fe = {"frontend_embeds": fr}
+        generate(cfg, params, {"tokens": prompt[:, :16], **fe}, rt, 2)     # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for m in (cuda, fa, rn):
             m.reset_launches()
         t0 = time.perf_counter()
-        out, state = generate(cfg, params, {"tokens": prompt}, rt, new)
+        out, state = generate(cfg, params, {"tokens": prompt, **fe}, rt, new)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         k1, k3 = fa.LAUNCHES[fa.FWD], rn.LAUNCHES["rmsnorm_fwd"]
@@ -2621,9 +2688,9 @@ def phase_generate_dense(names, weights: dict) -> None:
                                  f"(want {want_k3}), t {state['t']}")
         peak = torch.cuda.max_memory_allocated() / 1e9
         toks = torch.from_numpy(prompt).to("cuda")
-        ref = teacher_forced(cfg, params, rt, toks, out)              # (B, new, V)
+        ref = teacher_forced(cfg, params, rt, toks, out, fr)          # (B, new, V)
         with torch.no_grad():
-            lg, st = prefill(cfg, params, {"tokens": toks}, rt, max_len=S + new)
+            lg, st = prefill(cfg, params, {"tokens": toks, **fe}, rt, max_len=S + new)
             dense = [lg[:, :V]]
             for i in range(1, new):
                 dense.append(decode_step(cfg, params, st, out[:, i - 1], rt, S + new)[:, :V])
@@ -2632,13 +2699,15 @@ def phase_generate_dense(names, weights: dict) -> None:
             raise AssertionError(f"{name} dense: non-finite logits")
         if not torch.equal(dense.argmax(-1).int(), out):
             raise AssertionError(f"{name} dense: generate's tokens are not its logits' argmax")
-        alone, _ = generate(cfg, params, {"tokens": prompt[:1]}, rt, new)
+        alone, _ = generate(cfg, params, {"tokens": prompt[:1],
+                                          **{k: v[:1] for k, v in fe.items()}}, rt, new)
         bf16 = dtype == torch.bfloat16
         first = first_differences(ref, out)
         alone_first = first_differences(ref[:1], alone, want=out[:1])
         rel = float(((dense - ref).abs().amax(-1) / ref.abs().amax(-1)).max())
         emit(phase="generate-dense", config=cfg.name, dtype=str(dtype).split(".")[-1],
-             batch=B, prompt=S, new_tokens=new, window=cfg.sliding_window, wall_s=wall,
+             batch=B, prompt=S, frames=cfg.frontend_tokens if fr is not None else 0,
+             new_tokens=new, window=cfg.sliding_window, wall_s=wall,
              tokens_per_s=B * new / wall, peak_mem_gb=peak, flash_attention_fwd_launches=k1,
              rmsnorm_fwd_launches=k3, first_differences=first,
              tie=(f"margin_rel < {2 * BF16_LOGIT_REL}" if bf16 else f"margin < {TIE_MARGIN}"),
@@ -2654,7 +2723,7 @@ def phase_generate_dense(names, weights: dict) -> None:
         if beyond_tie(alone_first, bf16):
             failures.append(f"{name}: row 0 alone differs from batched beyond a tie: "
                             f"{alone_first}")
-        del ref, dense, out, state, st, alone
+        del ref, dense, out, state, st, alone, fr, fe
         if name not in weights:
             del params
         torch.cuda.empty_cache()
@@ -3286,6 +3355,153 @@ def phase_kernels_hybrid() -> list:
     return rows
 
 
+# seamless-m4t-medium's K1 calls: 16 heads of hd 64 over as many kv heads;
+# the encoder over its 1,024 frames, the cross-attention from a prompt of the
+# serve workload's range (and ragged ones) to the frames, and from two
+# prompts to 1,000 keys (off the 64-key tile); the decoder's causal prefill
+ENCDEC_HEADS = dict(Kv=16, G=1, hd=64)
+ENCDEC_FRAMES = 1024
+ENCDEC_CROSS = (128, 256, 384, 512, 131, 509)
+ENCDEC_OFF_TILE = ((131, 1000), (512, 1000), (1000, 1000))
+ENCDEC_PREFILL = (128, 256, 384, 512, 131, 509)
+ENCDEC_TIMED = (128, 256, 384, 512)
+
+
+def phase_kernels_encdec() -> list:
+    """K1 against its plain version (o and lse; f32 at FA_F32_TOL, bf16 at
+    atol BF16_TOL and rtol PREFILL_FA_BF16_RTOL) at seamless-m4t-medium's
+    calls (B 1, 16 heads of hd 64, G 1): the encoder (S = Sk = 1,024, not
+    causal), the cross-attention (Sq ENCDEC_CROSS against Sk 1,024, not
+    causal; ENCDEC_OFF_TILE's Sk 1,000, off the 64-key tile) and the
+    decoder's causal prefill (ENCDEC_PREFILL); then in bf16 the encoder, the
+    cross-attention and the prefill at ENCDEC_TIMED timed (``k1_timed``)
+    beside the plain version and SDPA (unmasked, or causal for the prefill),
+    with their bounds."""
+    from repro_torch.kernels.flash_attention import cuda as fa
+    from repro_torch.kernels.flash_attention import ref as far
+
+    h = ENCDEC_HEADS
+    cases = ([(ENCDEC_FRAMES, ENCDEC_FRAMES, False)]
+             + [(S, ENCDEC_FRAMES, False) for S in ENCDEC_CROSS]
+             + [(S, Sk, False) for S, Sk in ENCDEC_OFF_TILE]
+             + [(S, S, True) for S in ENCDEC_PREFILL])
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for S, Sk, causal in cases:
+        for dt, tol, rtol in ((torch.float32, FA_F32_TOL, FA_F32_TOL),
+                              (torch.bfloat16, BF16_TOL, PREFILL_FA_BF16_RTOL)):
+            q, k, v, _ = fa_flat(1, S, h["Kv"], h["G"], h["hd"], dt, seed=S + 3 * Sk, Sk=Sk)
+            kw = dict(group=h["G"], causal=causal, window=0)
+            o, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+            po, plse = far.flash_attention_fwd_plain(q, k, v, **kw)
+            what = f"K1 encdec S {S} Sk {Sk} causal {causal} {dt}"
+            err = check(f"{what} o", o, po, tol, rtol=rtol)
+            check(f"{what} lse", lse, plse, tol)
+            key = str(dt).split(".")[-1]
+            worst[key] = max(worst[key], err)
+    emit(phase="kernels_encdec", cases=2 * len(cases), shapes=cases, heads=h,
+         max_abs_err=worst,
+         tols={"f32": FA_F32_TOL, "bf16": BF16_TOL, "bf16_rtol": PREFILL_FA_BF16_RTOL})
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    timed = ([("encoder", ENCDEC_FRAMES, ENCDEC_FRAMES, False)]
+             + [("cross", S, ENCDEC_FRAMES, False) for S in ENCDEC_TIMED]
+             + [("prefill", S, S, True) for S in ENCDEC_TIMED])
+    rows = []
+    for role, S, Sk, causal in timed:
+        rows.append(dict(k1_timed("seamless-m4t-medium", S, h["Kv"], h["G"], h["hd"], 0,
+                                  flush, Sk=Sk, causal=causal), role=role))
+        emit(phase="kernels_encdec_bf16", tol=BF16_TOL, rtol=PREFILL_FA_BF16_RTOL, **rows[-1])
+    return rows
+
+
+ENCDEC_TOL = 1e-5                 # of max|ref|: f32 card vs CPU, TF32 off
+
+
+def phase_model_encdec() -> None:
+    """Reduced seamless-m4t-medium (2 + 2 layers, d 256, 4 heads of hd 64,
+    16 frames), f32, TF32 off: the port on the card (K1) against the port on
+    the CPU (plain), each within ENCDEC_TOL of max|ref|: ``encode``'s memory
+    over 2 x 16 frames; ``forward``'s logits over 2 x 40 tokens; ``prefill``'s
+    logits, memory, and every layer's ring (k, v, positions) and cross caches
+    (ck, cv), then four ``decode_step``s fed the CPU's tokens, their logits
+    and rings, over a 40-token prompt and a 2-token one."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import Runtime, decode_step, encode, forward, init_params, prefill
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_reduced("seamless-m4t-medium")
+    rt = Runtime(dtype=torch.float32)
+    new, worst = 4, {}
+    params = {dev: init_params(cfg, seed=5, device="cpu", dtype=torch.float32).to(dev)
+              for dev in ("cpu", "cuda")}
+    rng = np.random.RandomState(11)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size, (2, 40)).astype(np.int32))
+    frames = torch.from_numpy(rng.randn(2, cfg.frontend_tokens, cfg.d_model).astype(np.float32))
+
+    def close(what, got, want):
+        got, want = got.float().cpu(), want.float()
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"model-encdec {what}: non-finite on the card")
+        err = float((got - want).abs().max() / want.abs().max().clamp(min=1e-30))
+        key = what.split()[0]
+        worst[key] = max(worst.get(key, 0.0), err)
+        if err > ENCDEC_TOL:
+            raise AssertionError(f"model-encdec {what}: {err} of max|ref| > {ENCDEC_TOL}")
+
+    def snap(st):            # copies: the decode steps write the rings in place
+        return [{"ck": c["ck"].to("cpu", copy=True), "cv": c["cv"].to("cpu", copy=True),
+                 **{k: v.to("cpu", copy=True) for k, v in c["self"].items()}}
+                for c in st["caches"]]
+
+    with torch.no_grad():
+        close("encode", encode(cfg, params["cuda"], frames.to("cuda"), rt),
+              encode(cfg, params["cpu"], frames, rt))
+        batch = {"tokens": tokens, "frontend_embeds": frames}
+        close("forward", forward(cfg, params["cuda"], {k: v.to("cuda") for k, v in
+                                                       batch.items()}, rt)[0],
+              forward(cfg, params["cpu"], batch, rt)[0])
+        for S in (40, 2):
+            fed, runs = None, {}
+            for dev in ("cpu", "cuda"):
+                lg, st = prefill(cfg, params[dev], {"tokens": tokens[:, :S].to(dev),
+                                                    "frontend_embeds": frames.to(dev)},
+                                 rt, max_len=S + new)
+                seq = [(lg.cpu(), snap(st), st["memory"].to("cpu", copy=True))]
+                toks = fed or [lg.argmax(-1).int().cpu()]
+                for i in range(new):
+                    lg = decode_step(cfg, params[dev], st, toks[i].to(dev), rt, S + new)
+                    seq.append((lg.cpu(), snap(st), st["memory"].to("cpu", copy=True)))
+                    if fed is None:
+                        toks.append(lg.argmax(-1).int().cpu())
+                fed, runs[dev] = toks, seq
+            for i, ((ga, gs, gm), (wa, ws, wm)) in enumerate(zip(runs["cuda"], runs["cpu"])):
+                what = "prefill" if i == 0 else "decode"
+                close(f"{what} S={S} step {i}", ga, wa)
+                close(f"memory S={S} step {i}", gm, wm)
+                for j, (g, w) in enumerate(zip(gs, ws)):
+                    if not torch.equal(g["pos"], w["pos"]):
+                        raise AssertionError(f"model-encdec: layer {j} positions differ")
+                    for k in ("k", "v", "ck", "cv"):
+                        close(f"cache S={S} step {i} layer {j} {k}", g[k], w[k])
+    emit(phase="model-encdec", config=cfg.name, layers=[cfg.enc_layers, cfg.n_layers],
+         frames=cfg.frontend_tokens, prompts=[40, 2], decode_steps=new, max_rel_err=worst,
+         tol=ENCDEC_TOL)
+
+
+def phase_serve_encdec(card: str):
+    """launch/workload.py's seamless_serve_workload: seamless-m4t-medium at
+    full width and depth (12 encoder and 12 decoder layers, d 1024, 16 heads
+    of hd 64, d_ff 4,096, LayerNorm, 256,256 vocabulary rows), bf16, each
+    request behind its own (1,024, 1,024) frames, through ``serve_dense``: K1
+    36 a prefill (12 encoder layers, 12 causal self-attentions, 12
+    cross-attentions), K3, K5 and K6 none; and the device's idle share.
+    Returns (the weights, the row of the {"encdec": ...} line)."""
+    from repro_torch.launch.workload import seamless_serve_workload
+
+    wl = seamless_serve_workload()
+    return serve_dense("serve-encdec", wl, card, idle=True, enc_layers=wl.cfg.enc_layers,
+                       frames=wl.cfg.frontend_tokens)
+
+
 def phase_serve_vision(card: str) -> dict:
     """launch/workload.py's phi3_vision_serve_workload: phi-3-vision-4.2b at
     full width and depth, bf16, 8 requests each behind its own (576, 3072)
@@ -3458,17 +3674,19 @@ def recurrent_card_vs_cpu(phase, cfg):
     return params, close, worst
 
 
-def isolated_dense_decode_ms(cfg, params, rt, B: int, length: int) -> float:
+def isolated_dense_decode_ms(cfg, params, rt, B: int, length: int, frames=None) -> float:
     """One dense ``decode_step`` of B rows after a ``length``-token
-    prefill, host launches included (CUDA events, median of 10 after 2
-    warm-ups)."""
+    prefill (behind an encoder-decoder's ``frames`` (T, d), each row's),
+    host launches included (CUDA events, median of 10 after 2 warm-ups)."""
     from repro_torch.models import decode_step, prefill
 
     tok = torch.zeros(B, dtype=torch.int32, device="cuda")
+    batch = {"tokens": torch.zeros((B, length), dtype=torch.int32, device="cuda")}
+    if frames is not None:
+        batch["frontend_embeds"] = torch.from_numpy(frames).to("cuda")[None].expand(B, -1, -1)
     times = []
     with torch.no_grad():
-        _, state = prefill(cfg, params, {"tokens": torch.zeros(
-            (B, length), dtype=torch.int32, device="cuda")}, rt, max_len=length + 16)
+        _, state = prefill(cfg, params, batch, rt, max_len=length + 16)
         for _ in range(12):
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             a.record()
@@ -3504,18 +3722,20 @@ def phase_serve_hybrid(card: str):
                        window=wl.cfg.sliding_window)
 
 
-def serve_dense(phase, wl, card: str, **shape):
-    """A dense-only family's workload: 8 requests through ServeEngine's
-    dense path (paged=None), run twice in fresh engines: the streams bitwise
-    equal, every logit finite, exact launch counts (K1 once an attention
-    layer a prefill, K3 once a norm a pass, a pass being one prefill or one
-    decode step; K5 and K6 none); each stream against the card's
-    teacher-forced ``forward`` under generate-dense's bf16 tie rule
-    (``beyond_tie``). Weight bytes, tokens/s, mean TTFT, the isolated
-    decode step (B 1 after 500 tokens) and peak memory. The eight prompt
-    lengths differ, so the dense engine runs each request alone: batched
-    against alone is the family's generate-dense row (B rows against row 0
-    at B 1). Returns (the weights, the launch row)."""
+def serve_dense(phase, wl, card: str, idle: bool = False, **shape):
+    """A dense-only family's workload: 8 requests (an encoder-decoder's each
+    behind its frames) through ServeEngine's dense path (paged=None), run
+    twice in fresh engines: the streams bitwise equal, every logit finite,
+    exact launch counts (``k1_per_prefill`` a prefill, ``k3_per_pass`` a
+    pass, a pass being one prefill or one decode step; K5 and K6 none); each
+    stream against the card's teacher-forced ``forward`` under
+    generate-dense's bf16 tie rule (``beyond_tie``). Weight bytes, tokens/s,
+    mean TTFT, the isolated decode step (B 1 after 500 tokens) and peak
+    memory; with ``idle``, the device's idle share of one request served
+    alone (``idle_share``). The eight prompt lengths differ, so the dense
+    engine runs each request alone: batched against alone is the family's
+    generate-dense row (B rows against row 0 at B 1). Returns (the weights,
+    the launch row)."""
     from repro_torch.kernels.flash_attention import cuda as fa
     from repro_torch.kernels.paged_attention import cuda
 
@@ -3531,8 +3751,8 @@ def serve_dense(phase, wl, card: str, **shape):
     check_streams_twice(phase, wl, runs)
     L = cfg.n_layers
     passes = runs["admissions"] * new          # a prefill and new - 1 decode steps each
-    want_k3 = passes * ((1 if cfg.ffn_kind == "none" else 2) * L + 1)
-    want_k1 = runs["admissions"] * sum(k in ("attn", "local") for k in cfg.mixer_kinds())
+    want_k3 = passes * k3_per_pass(cfg)
+    want_k1 = runs["admissions"] * k1_per_prefill(cfg)
     k3, k1 = runs["k3"], runs["k1"]
     paged = {k: v for k, v in runs["launches"].items() if v}
     if k3 != want_k3 or k1 != want_k1 or paged or runs["admissions"] != len(prompts):
@@ -3540,11 +3760,13 @@ def serve_dense(phase, wl, card: str, **shape):
                              f"{want_k1}), paged {paged}, admissions {runs['admissions']}")
     s, out = runs["stats"], runs["streams"][0]
     peak = torch.cuda.max_memory_allocated()
-    step_ms = isolated_dense_decode_ms(cfg, params, rt, 1, 500)
+    step_ms = isolated_dense_decode_ms(cfg, params, rt, 1, 500, wl.image(0))
+    busy = idle_share(wl, params) if idle else {}
     first = []
     for i, (p, o) in enumerate(zip(prompts, out)):
         p, o = (torch.from_numpy(np.asarray(t, np.int32)[None]).to("cuda") for t in (p, o))
-        ref = teacher_forced(cfg, params, rt, p, o)
+        fr = None if wl.image(i) is None else torch.from_numpy(wl.image(i)[None]).to("cuda")
+        ref = teacher_forced(cfg, params, rt, p, o, fr)
         if not torch.isfinite(ref).all():
             raise AssertionError(f"{phase}: request {i}: non-finite forward logits")
         first += [dict(f, request=i) for f in first_differences(ref, o)]
@@ -3560,12 +3782,52 @@ def serve_dense(phase, wl, card: str, **shape):
          kv_bytes_per_request=[s["kv_bytes"][r] for r in runs["rids"]],
          peak_mem_gb=peak / 1e9, runs_identical=True, logits_finite=True,
          streams_identical_to_forward=len(prompts) - len(first), first_differences=first,
-         tie=f"margin_rel < {2 * BF16_LOGIT_REL}")
+         tie=f"margin_rel < {2 * BF16_LOGIT_REL}", **busy)
     if bad:
         raise AssertionError(f"{phase}: streams differ from forward beyond a bf16 tie: {bad}")
-    return params, {"config": cfg.name, "admissions": runs["admissions"], "passes": passes,
-                    fa.FWD: k1, cuda.DECODE: runs["launches"][cuda.DECODE],
-                    cuda.PREFILL: runs["launches"][cuda.PREFILL], "rmsnorm_fwd": k3}
+    row = {"config": cfg.name, "admissions": runs["admissions"], "passes": passes,
+           fa.FWD: k1, cuda.DECODE: runs["launches"][cuda.DECODE],
+           cuda.PREFILL: runs["launches"][cuda.PREFILL], "rmsnorm_fwd": k3}
+    if idle:
+        row.update(params_gb=param_bytes / 1e9, peak_mem_gb=peak / 1e9,
+                   tokens_per_s=s["tokens_per_s"], run_mean_ttft_s=s["run_mean_ttft_s"],
+                   decode_step_ms=step_ms, **busy)
+    return params, row
+
+
+IDLE_NEW_TOKENS = 16              # the profiled window: a prefill and 15 decode steps
+
+
+def idle_share(wl, params) -> dict:
+    """The device's idle share while a fresh engine serves request 0 alone
+    (behind its frames) for IDLE_NEW_TOKENS tokens (the profiler's parse of
+    a whole request's ~90k kernels takes about a minute): its wall time
+    unprofiled, then the CUDA kernels' summed self device time under
+    torch.profiler over the same run, and the wall time there (the
+    profiler's host overhead lengthens it, so ``idle_share_profiled``
+    overstates the idle share; ``idle_share`` divides by the unprofiled
+    wall)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profile_serve import _self_device_us
+    from repro_torch.serve import ServeEngine
+
+    def serve():
+        eng = ServeEngine(wl.cfg, params, wl.rt, wl.ecfg, device="cuda")
+        eng.submit(wl.prompts[0], IDLE_NEW_TOKENS, frontend_embeds=wl.image(0))
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall = serve()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        profiled = serve()
+    busy = sum(_self_device_us(e) for e in prof.key_averages()
+               if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA) / 1e6
+    return dict(idle_new_tokens=IDLE_NEW_TOKENS, idle_request_wall_s=wall,
+                idle_request_profiled_wall_s=profiled, device_busy_s=busy,
+                idle_share=1 - busy / wall, idle_share_profiled=1 - busy / profiled)
 
 
 def main() -> int:
@@ -3584,6 +3846,7 @@ def main() -> int:
     phase_kernels_prefill()
     phase_kernels_vision()
     phase_kernels_hybrid()
+    phase_kernels_encdec()
     kern.update(phase_train_kernels())
     kern.update(phase_quant_kernels())
     kern.update(phase_stash_kernels())
@@ -3633,6 +3896,11 @@ def main() -> int:
     del hybrid_params
     torch.cuda.empty_cache()
     phase_generate_dense(("recurrentgemma-2b",), {})   # f32 weights of its own
+    phase_model_encdec()
+    encdec_params, encdec = phase_serve_encdec(card)
+    del encdec_params
+    torch.cuda.empty_cache()
+    phase_generate_dense(("seamless-m4t-medium",), {})   # f32 weights of its own
     rows = []
     for name, (source, replaces) in KERNELS.items():
         r = kern[name]
@@ -3645,6 +3913,7 @@ def main() -> int:
     print(json.dumps({"vision": vision}), flush=True)
     print(json.dumps({"ssm": ssm}), flush=True)
     print(json.dumps({"hybrid": hybrid}), flush=True)
+    print(json.dumps({"encdec": encdec}), flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,7 +19,11 @@ E, f, d), beside it an optional
 no ``norm2`` or ``ffn``. An RG-LRU layer's ``mixer`` holds ``w_in``,
 ``w_gate``, ``conv_w``, ``conv_b``, ``gate_a``, ``bias_a``, ``gate_x``,
 ``bias_x``, ``lam`` and ``w_out``, beside the block's ``norm2`` and dense
-``ffn``. ``params_to_numpy`` is the inverse, back to the nested JAX layout.
+``ffn``. An encoder-decoder's tree adds ``enc_stack`` (the encoder's
+homogeneous storage, ``enc_stack/g0/p0/...``, layer i at index i) and
+``enc_norm``, and each decoder block's ``norm_x`` and ``cross/{wq, wk,
+wv, wo}``; a LayerNorm config's norms carry ``bias`` beside ``scale``.
+``params_to_numpy`` is the inverse, back to the nested JAX layout.
 
 The training state (``repro_torch.train.loop.make_state``) carries across
 whole with ``state_from_jax`` / ``state_to_numpy``: every optimizer entry
@@ -44,7 +48,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.attention import Attention
 from repro_torch.models.layers import MLP, Embed, Head, Norm
-from repro_torch.models.lm import LM
+from repro_torch.models.lm import LM, _encoder_cfg
 from repro_torch.models.moe import MoE
 from repro_torch.models.rglru import RGLRU
 from repro_torch.models.ssm import Mamba
@@ -86,17 +90,26 @@ def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def jax_key(name: str, layout: Tuple[Slot, ...]) -> Tuple[str, Optional[int]]:
+def jax_key(name: str, layouts: Mapping[str, Tuple[Slot, ...]]) -> Tuple[str, Optional[int]]:
     """A parameter name of :class:`LM` -> (its JAX tree key, index into the
-    stacked leaf), by the stack's ``layout``: ``stack.layers.3.mixer.wq`` ->
-    (``stack/g0/p0/mixer/wq``, 3) in a homogeneous stack, and in
+    stacked leaf), by each stack's ``layout`` (``layouts["stack"]``, and an
+    encoder-decoder's ``layouts["enc_stack"]``): ``stack.layers.3.mixer.wq``
+    -> (``stack/g0/p0/mixer/wq``, 3) in a homogeneous stack, and in
     recurrentgemma's patterned storage ``stack.layers.25.mixer.lam`` ->
     (``stack/g1/p1/mixer/lam``, 0)."""
     parts = name.split(".")
-    if parts[0] == "stack":
-        slot = layout[int(parts[2])]
-        return "/".join(["stack", f"g{slot.group}", f"p{slot.pos}", *parts[3:]]), slot.repeat
+    if parts[0] in layouts:
+        slot = layouts[parts[0]][int(parts[2])]
+        return "/".join([parts[0], f"g{slot.group}", f"p{slot.pos}", *parts[3:]]), slot.repeat
     return "/".join(parts), None
+
+
+def layouts_of(params: LM) -> Dict[str, Tuple[Slot, ...]]:
+    """Each stack's ``layout`` by its attribute name, for :func:`jax_key`."""
+    out = {"stack": params.stack.layout}
+    if params.enc_stack is not None:
+        out["enc_stack"] = params.enc_stack.layout
+    return out
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
@@ -127,9 +140,9 @@ def param_leaves(params: LM, tensors=None, prefix: str = "") -> List[Leaf]:
     if len(tensors) != len(named):
         raise ValueError(f"{len(tensors)} tensors for {len(named)} parameters")
     out = []
-    layout = params.stack.layout
+    layouts = layouts_of(params)
     for (name, _), t in zip(named, tensors):
-        key, i = jax_key(name, layout)
+        key, i = jax_key(name, layouts)
         out.append((f"{prefix}{key}", t, i))
     return out
 
@@ -166,18 +179,12 @@ def params_from_jax(
 ) -> LM:
     """The port's parameters from a JAX tree of numpy arrays. Matmul weights,
     and the recurrent mixers' ``conv_w`` and the RG-LRU's gate blocks, are
-    stored once at ``dtype`` (JAX casts them at every use); norm scales, the
-    head, a tied embedding table and the recurrent mixers' vectors stay
-    f32."""
+    stored once at ``dtype`` (JAX casts them at every use); norm scales and
+    biases, the head, a tied embedding table and the recurrent mixers'
+    vectors stay f32."""
     if any("/" in k for k in tree):
         tree = unflatten(tree)
     check_served(cfg)
-    groups = tree["stack"]
-    want = {f"g{gi}": sorted(f"p{j}" for j in range(len(pattern)))
-            for gi, (pattern, _) in enumerate(param_groups(cfg))}
-    got = {g: sorted(v) for g, v in groups.items()}
-    if got != want:
-        raise ValueError(f"{cfg.name}: stack groups {got} are not param_groups' {want}")
 
     def t(a, dt):
         return torch.tensor(np.asarray(a, np.float32), device=device).to(dt)
@@ -194,37 +201,55 @@ def params_from_jax(
     def recurrent(cls, m, i, keys, f32):
         return cls(*(t(m[k][i], torch.float32 if k in f32 else dtype) for k in keys))
 
-    layout = param_layout(cfg)
-    blocks = []
-    for slot in layout:
-        layers, i = groups[f"g{slot.group}"][f"p{slot.pos}"], slot.repeat
-        m = layers["mixer"]
-        if "in_proj" in m:                   # Mamba-1, mixer-only
-            blocks.append(Block(norm(layers["norm1"], i),
-                                recurrent(Mamba, m, i, MAMBA_KEYS, MAMBA_F32)))
-            continue
-        if "lam" in m:
-            mixer = recurrent(RGLRU, m, i, RGLRU_KEYS, RGLRU_F32)
-        else:
-            mixer = Attention(*(t(m[k][i], dtype) for k in ("wq", "wk", "wv", "wo")))
-        f = layers["ffn"]
-        if "router" in f:
-            ffn = MoE(t(f["router"][i], dtype), t(f["w_up"][i], dtype),
-                      t(f["w_down"][i], dtype),
-                      t(f["w_gate"][i], dtype) if "w_gate" in f else None)
-        else:
-            ffn = mlp(f, i)
-        blocks.append(Block(
-            norm(layers["norm1"], i), mixer, norm(layers["norm2"], i), ffn,
-            mlp(layers["extra_mlp"], i) if "extra_mlp" in layers else None,
-        ))
+    def attention(m, i):
+        return Attention(*(t(m[k][i], dtype) for k in ("wq", "wk", "wv", "wo")))
+
+    def stack(groups, scfg):
+        want = {f"g{gi}": sorted(f"p{j}" for j in range(len(pattern)))
+                for gi, (pattern, _) in enumerate(param_groups(scfg))}
+        got = {g: sorted(v) for g, v in groups.items()}
+        if got != want:
+            raise ValueError(f"{scfg.name}: stack groups {got} are not param_groups' {want}")
+        layout = param_layout(scfg)
+        blocks = []
+        for slot in layout:
+            layers, i = groups[f"g{slot.group}"][f"p{slot.pos}"], slot.repeat
+            m = layers["mixer"]
+            xattn = {}
+            if "cross" in layers:            # an encoder-decoder's decoder block
+                xattn = dict(norm_x=norm(layers["norm_x"], i),
+                             cross=attention(layers["cross"], i))
+            if "in_proj" in m:               # Mamba-1, mixer-only
+                blocks.append(Block(norm(layers["norm1"], i),
+                                    recurrent(Mamba, m, i, MAMBA_KEYS, MAMBA_F32), **xattn))
+                continue
+            mixer = recurrent(RGLRU, m, i, RGLRU_KEYS, RGLRU_F32) if "lam" in m else (
+                attention(m, i))
+            f = layers["ffn"]
+            if "router" in f:
+                ffn = MoE(t(f["router"][i], dtype), t(f["w_up"][i], dtype),
+                          t(f["w_down"][i], dtype),
+                          t(f["w_gate"][i], dtype) if "w_gate" in f else None)
+            else:
+                ffn = mlp(f, i)
+            blocks.append(Block(
+                norm(layers["norm1"], i), mixer, norm(layers["norm2"], i), ffn,
+                mlp(layers["extra_mlp"], i) if "extra_mlp" in layers else None, **xattn,
+            ))
+        return Stack(blocks, layout)
+
+    enc = {}
+    if cfg.is_encdec:
+        enc = dict(enc_stack=stack(tree["enc_stack"], _encoder_cfg(cfg)),
+                   enc_norm=norm(tree["enc_norm"]))
     embed_dtype = torch.float32 if cfg.tie_embeddings else dtype
     head = None if cfg.tie_embeddings else Head(t(tree["head"]["w"], torch.float32))
     return LM(
         Embed(t(tree["embed"]["table"], embed_dtype)),
-        Stack(blocks, layout),
+        stack(tree["stack"], cfg),
         norm(tree["final_norm"]),
         head,
+        **enc,
     )
 
 

@@ -1,6 +1,7 @@
 """Where the serving time goes on the card: granite-8b, the chip smoke's
 serving workload, or qwen3-moe-30b-a3b's, phi-3-vision-4.2b's,
-falcon-mamba-7b's or recurrentgemma-2b's, under ``torch.profiler``.
+falcon-mamba-7b's, recurrentgemma-2b's or seamless-m4t-medium's, under
+``torch.profiler``.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--out DIR] \
         [--kv-dtype bf16|int8|fp8] [--admission chunked|whole ...] [--spec K]
@@ -8,6 +9,7 @@ falcon-mamba-7b's or recurrentgemma-2b's, under ``torch.profiler``.
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload phi-3-vision
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload falcon-mamba
     PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload recurrentgemma
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve --workload seamless
 
 Runs ``workload.granite_serve_workload(kv_dtype=...)`` (the workload of
 ``chip_smoke.py``'s serve phases; ``--admission whole`` its whole-prompt
@@ -54,6 +56,12 @@ pieces of the first RG-LRU layer at S 512 (``rglru_gates_ms``: a and the
 gated input from the block-diagonal gates; ``rglru_scan_ms``: the
 associative scan; ``rglru_layer_ms``: the whole block), whose shares of the
 prefill count the 18 RG-LRU layers.
+
+``--workload seamless`` profiles ``workload.seamless_serve_workload`` (the
+encoder-decoder, dense, each request behind its 1,024 audio frames) into
+``DIR/encdec``: one dense ``decode_step`` at B 1 after a 500-token prefill,
+one whole-prompt prefill of 512 tokens behind its frames, and the encoder
+alone over the frames (``encode_ms``, and ``encode_share_of_prefill``).
 """
 from __future__ import annotations
 
@@ -311,6 +319,33 @@ def profile_recurrent(wl, params, card: str, out: Path) -> dict:
             "requests": len(wl.prompts), **_run_row(run), **times}
 
 
+def profile_encdec(wl, params, card: str, out: Path) -> dict:
+    """The encoder-decoder workload's profiled run (the dense path) and its
+    isolated times (see above)."""
+    from repro_torch.models import decode_step, encode, prefill
+
+    cfg, rt = wl.cfg, wl.rt
+    run = profiled_run(wl, params, out)
+    frames = torch.from_numpy(wl.image(0)[None]).to("cuda")
+    prompt = {"tokens": torch.zeros((1, 512), dtype=torch.int32, device="cuda"),
+              "frontend_embeds": frames}
+    with torch.no_grad():
+        _, state = prefill(cfg, params, {"tokens": prompt["tokens"][:, :500],
+                                         "frontend_embeds": frames}, rt, max_len=564)
+        tok = torch.zeros(1, dtype=torch.int32, device="cuda")
+        fns = {"decode_step_ms": lambda: decode_step(cfg, params, state, tok, rt, 564),
+               "whole_prefill_512_ms": lambda: prefill(cfg, params, prompt, rt),
+               "encode_ms": lambda: encode(cfg, params, frames, rt)}
+        times = {}
+        for name, fn in fns.items():
+            fn()
+            times[name] = _events_ms(fn)
+    times["encode_share_of_prefill"] = times["encode_ms"] / times["whole_prefill_512_ms"]
+    return {"card": card, "config": cfg.name, "admission": "dense",
+            "requests": len(wl.prompts), "frames": cfg.frontend_tokens, **_run_row(run),
+            **times}
+
+
 def _moe_times(cfg, params) -> dict:
     """Layer 0's moe_apply at the decode step's 4 rows, its three expert
     products alone (at the capacity of 4 rows), and the byte floor of a
@@ -354,11 +389,12 @@ def main(argv=None) -> None:
                     help="then the speculative workload: K drafts a slot a tick")
     ap.add_argument("--workload", default="granite",
                     choices=("granite", "qwen3-moe", "phi-3-vision", "falcon-mamba",
-                             "recurrentgemma"),
+                             "recurrentgemma", "seamless"),
                     help="qwen3-moe: qwen3_moe_serve_workload; phi-3-vision: "
                          "phi3_vision_serve_workload (whole prompts); falcon-mamba: "
                          "falcon_mamba_serve_workload (dense); recurrentgemma: "
-                         "recurrentgemma_serve_workload (dense); --admission, "
+                         "recurrentgemma_serve_workload (dense); seamless: "
+                         "seamless_serve_workload (dense); --admission, "
                          "--kv-dtype and --spec do not apply to them")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -369,7 +405,8 @@ def main(argv=None) -> None:
                                              granite_serve_workload,
                                              phi3_vision_serve_workload,
                                              qwen3_moe_serve_workload,
-                                             recurrentgemma_serve_workload)
+                                             recurrentgemma_serve_workload,
+                                             seamless_serve_workload)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -390,10 +427,13 @@ def main(argv=None) -> None:
         runs = [("ssm", falcon_mamba_serve_workload())]
     if args.workload == "recurrentgemma":
         runs = [("hybrid", recurrentgemma_serve_workload())]
+    if args.workload == "seamless":
+        runs = [("encdec", seamless_serve_workload())]
     for name, wl in runs:
         if params is None:
             params = wl.params("cuda")
-        profile = profile_recurrent if name in ("ssm", "hybrid") else profile_one
+        profile = (profile_recurrent if name in ("ssm", "hybrid") else
+                   profile_encdec if name == "encdec" else profile_one)
         row = profile(wl, params, card, Path(args.out) / name)
         print(json.dumps(row), flush=True)
         torch.cuda.empty_cache()

@@ -39,6 +39,12 @@ engine, or batched dense generation.
     PYTHONPATH=src python -m repro_torch.launch.serve --full \
         --arch recurrentgemma-2b --prompt-len 512 --new-tokens 64
 
+    # full seamless-m4t-medium on the card (the encoder-decoder, served
+    # dense: each request behind random (1024, 1024) audio frames; K1 in the
+    # encoder, the decoder's prefill and the cross-attention)
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \
+        --arch seamless-m4t-medium --prompt-len 512 --new-tokens 64
+
 Counterpart of ``repro.launch.serve``. With ``--paged``, requests of random
 length (uniform in ``[prompt_len // 2, prompt_len]``, after an optional
 shared system prompt) are admitted into ``--slots`` decode slots over the
@@ -49,7 +55,8 @@ requests each carry a random (frontend_tokens, d_model) f32 image prefix,
 the pool is sized for it, and they are always admitted whole; for a MoE
 config the engine warns that expert capacity counts the pad rows, as JAX's
 launcher leaves it; a family with non-KV decode state (the SSM, the RG-LRU
-hybrid) goes through the engine's dense fallback, as in JAX. Without it, ``--batch`` random
+hybrid) and the encoder-decoder (each request with random frames of that
+shape) go through the engine's dense fallback, as in JAX. Without it, ``--batch`` random
 prompts of ``--prompt-len`` tokens (and images) generate together through
 ``train.serve.generate``. It runs on CUDA unless ``--device cpu`` is given,
 and in bf16 at full size (``--full``), f32 when reduced. ``--kv-dtype

@@ -44,6 +44,17 @@ recurrentgemma-2b at full width and depth (26 layers: 18 RG-LRU of width
 window 2,048; d 2560, gated MLP of 7,680, untied vocabulary of 256,000) in
 bf16, random weights from seed 0, dense (the RG-LRU state is no KV cache):
 K1 runs once a local layer a prefill, K3 twice a layer and once more a pass.
+``seamless_serve_workload`` is that workload's shape on seamless-m4t-medium
+at full width and depth (12 encoder and 12 decoder layers, d 1024, 16
+heads of hd 64 over as many kv heads, plain MLP of 4,096, LayerNorm,
+untied vocabulary of 256,256 padded rows) in bf16, random weights from seed
+0, dense (JAX serves an encoder-decoder dense only), each request behind its
+own audio frames: a (1024, 1024) f32 ``randn`` from ``RandomState(seed +
+1)`` standing for the frame embeddings, drawn as the vision workload's
+images are. An admission runs K1 36 times (12 bidirectional encoder
+layers over the 1,024 frames, 12 causal decoder self-attentions over the
+prompt, 12 cross-attentions from the prompt to the frames) and no K3
+(LayerNorm is plain).
 
 Training: gemma3-1b at full width and depth (26 layers, d 1152, 4 query
 heads over 1 kv head of hd 256, window 512 on 22 layers, tied vocabulary of
@@ -86,10 +97,11 @@ class ServeWorkload:
     prompts: List[np.ndarray]
     new_tokens: int
     seed: int
-    frontend_embeds: Optional[List[np.ndarray]] = None   # one image a prompt
+    frontend_embeds: Optional[List[np.ndarray]] = None   # one image or frames a prompt
 
     def image(self, i: int) -> Optional[np.ndarray]:
-        """Prompt ``i``'s image prefix (None for a text-only workload)."""
+        """Prompt ``i``'s image prefix or audio frames (None for a text-only
+        workload)."""
         return None if self.frontend_embeds is None else self.frontend_embeds[i]
 
     def params(self, device: str = "cuda"):
@@ -116,13 +128,20 @@ def _serve_workload(name: str, seed: int, kv_dtype: str, prefill_chunk: int,
     ).engine(prefill_chunk=prefill_chunk, prefill_bucket=prefill_bucket,
              inner_steps=8, temperature=0.0, seed=seed)
     prompts = _prompts(cfg, seed)
-    images = None
-    if cfg.frontend == "vision":
-        irng = np.random.RandomState(seed + 1)
-        images = [irng.randn(cfg.frontend_tokens, cfg.d_model).astype(np.float32)
-                  for _ in prompts]
     rt = Runtime(dtype=torch.bfloat16, kv_dtype=normalize_kv_dtype(kv_dtype))
-    return ServeWorkload(cfg, rt, ecfg, prompts, NEW_TOKENS, seed, images)
+    return ServeWorkload(cfg, rt, ecfg, prompts, NEW_TOKENS, seed,
+                         _frontend_embeds(cfg, seed, len(prompts)))
+
+
+def _frontend_embeds(cfg: ArchConfig, seed: int, n: int) -> Optional[List[np.ndarray]]:
+    """One (frontend_tokens, d_model) f32 ``randn`` a request from
+    ``RandomState(seed + 1)``: a vision config's image prefixes or an
+    encoder-decoder's audio frames; None for a text config."""
+    if cfg.frontend is None:
+        return None
+    rng = np.random.RandomState(seed + 1)
+    return [rng.randn(cfg.frontend_tokens, cfg.d_model).astype(np.float32)
+            for _ in range(n)]
 
 
 def granite_serve_workload(seed: int = 0, kv_dtype: str = "bf16",
@@ -153,8 +172,9 @@ def _dense_workload(name: str, seed: int) -> ServeWorkload:
     cfg = get_config(name)
     ecfg = EngineConfig.capacity(512, NEW_TOKENS, slots=SLOTS, page_size=PAGE).engine(
         inner_steps=8, temperature=0.0, seed=seed)
-    return ServeWorkload(cfg, Runtime(dtype=torch.bfloat16), ecfg, _prompts(cfg, seed),
-                         NEW_TOKENS, seed)
+    prompts = _prompts(cfg, seed)
+    return ServeWorkload(cfg, Runtime(dtype=torch.bfloat16), ecfg, prompts, NEW_TOKENS,
+                         seed, _frontend_embeds(cfg, seed, len(prompts)))
 
 
 def falcon_mamba_serve_workload(seed: int = 0) -> ServeWorkload:
@@ -163,6 +183,10 @@ def falcon_mamba_serve_workload(seed: int = 0) -> ServeWorkload:
 
 def recurrentgemma_serve_workload(seed: int = 0) -> ServeWorkload:
     return _dense_workload("recurrentgemma-2b", seed)
+
+
+def seamless_serve_workload(seed: int = 0) -> ServeWorkload:
+    return _dense_workload("seamless-m4t-medium", seed)
 
 
 @dataclass(frozen=True)

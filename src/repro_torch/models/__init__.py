@@ -2,6 +2,7 @@ from repro_torch.models.lm import (  # noqa: F401
     LM,
     decode_step,
     decode_step_paged,
+    encode,
     forward,
     forward_hidden,
     init_decode_state,

@@ -2,12 +2,19 @@
 prefill), the dense ring cache and the paged serving halves of
 ``repro.models.attention``.
 
-``attention_apply`` is the self-attention half of the JAX function: q, k and
-v projections, RoPE, q pre-scaled by ``hd**-0.5``, then ``flash_attention``
-over the (B, S, Kv, G, hd) layout (K1/K2 on a CUDA tensor, the plain version
-on a CPU tensor). It computes the same function as the JAX banded
-query-chunk scan without copying it. With ``collect_kv`` it also returns the
-roped k and the v that K1 consumed, for a prefill's cache.
+``attention_apply`` is the JAX function: q, k and v projections, RoPE, q
+pre-scaled by ``hd**-0.5``, then ``flash_attention`` over the (B, S, Kv, G,
+hd) layout (K1/K2 on a CUDA tensor, the plain version on a CPU tensor). It
+computes the same function as the JAX banded query-chunk scan without
+copying it. With ``collect_kv`` it also returns the roped k and the v that
+K1 consumed, for a prefill's cache. Given ``memory`` (an encoder's output)
+it is cross-attention: q from x, k and v from memory, no RoPE on either,
+never causal and no window, so K1 runs at Sq != Sk. JAX's cross path is
+plain jnp (its Pallas kernel only takes self-attention); K1 computes the
+same function, with p kept in f32 where JAX casts the softmax to the
+compute dtype before the combine (a bf16 rounding difference).
+``cross_decode`` is JAX's one-token cross-attention over the cached
+encoder k/v (``stack._cross_decode``), plain PyTorch as in JAX.
 
 The dense ring cache (``init_kv_cache``, ``fill_kv_cache``,
 ``attention_decode``) holds ``cache_len`` rows with an explicit position
@@ -86,28 +93,48 @@ def attention_apply(
     memory: Optional[torch.Tensor] = None,
     collect_kv: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """Full-sequence self-attention (training, prefill). x: (B, S, d);
-    positions (B, S), default 0..S-1. Returns (out (B, S, d), kv): kv is
-    ``{"k", "v"}`` (B, S, Kv, hd), k roped, when ``collect_kv``, else None."""
-    if memory is not None:
-        raise NotImplementedError(
-            "cross-attention (encoder-decoder) is ROADMAP queue 1 item 4, "
-            "'the other families'"
-        )
+    """Full-sequence attention (training, prefill). x: (B, S, d); positions
+    (B, S), default 0..S-1. Self-attention, or with ``memory`` (B, T, d)
+    cross-attention over it (no RoPE, not causal, no window: ``causal``,
+    ``window`` and ``positions`` do not apply). Returns (out (B, S, d), kv):
+    kv is ``{"k", "v"}`` when ``collect_kv``, else None: (B, S, Kv, hd), k
+    roped, or for cross-attention memory's (B, T, Kv, hd)."""
     B, S, _ = x.shape
     dtype = x.dtype
     G = n_heads // n_kv
+    src = x if memory is None else memory
     q = _split_heads(x @ p.wq.to(dtype), n_heads, head_dim)
-    k = _split_heads(x @ p.wk.to(dtype), n_kv, head_dim)
-    v = _split_heads(x @ p.wv.to(dtype), n_kv, head_dim)
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
-    q = rope_apply(q, positions, theta)
-    k = rope_apply(k, positions, theta)
+    k = _split_heads(src @ p.wk.to(dtype), n_kv, head_dim)
+    v = _split_heads(src @ p.wv.to(dtype), n_kv, head_dim)
+    if memory is None:
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
+        q = rope_apply(q, positions, theta)
+        k = rope_apply(k, positions, theta)
+    else:
+        causal, window = False, 0
     q = q.reshape(B, S, n_kv, G, head_dim) * (head_dim ** -0.5)
     out = flash_attention(q, k, v, causal, window)
     kv = {"k": k, "v": v} if collect_kv else None
     return out.reshape(B, S, n_heads * head_dim) @ p.wo.to(dtype), kv
+
+
+def cross_decode(
+    p: Attention, x: torch.Tensor, ck: torch.Tensor, cv: torch.Tensor, *,
+    n_heads: int, n_kv: int, head_dim: int,
+) -> torch.Tensor:
+    """One decode token's cross-attention over the cached encoder k/v, as
+    JAX's ``_cross_decode``: f32 scores, the softmax cast to the compute
+    dtype, then the combine. x: (B, 1, d); ck/cv: (B, T, Kv, hd). Returns
+    (B, 1, d)."""
+    B = x.shape[0]
+    dtype = x.dtype
+    G = n_heads // n_kv
+    q = (x @ p.wq.to(dtype)).reshape(B, n_kv, G, head_dim) * (head_dim ** -0.5)
+    scores = torch.einsum("bkgh,bskh->bkgs", q.float(), ck.float())
+    w = torch.softmax(scores, dim=-1).to(dtype)
+    out = torch.einsum("bkgs,bskh->bkgh", w, cv).reshape(B, 1, n_heads * head_dim)
+    return out @ p.wo.to(dtype)
 
 
 # ------------------------------------------------------------- dense caching

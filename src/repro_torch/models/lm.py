@@ -1,4 +1,4 @@
-"""Top-level model: embeddings -> decoder stack -> logits.
+"""Top-level model: embeddings -> (encoder) -> decoder stack -> logits.
 
 Counterpart of the training forward and loss (``forward_hidden``,
 ``forward``, ``masked_token_ce``, ``loss_fn``), the pipeline's stage
@@ -8,12 +8,19 @@ entry points of ``repro.models.lm``. A vision config's image prefix
 (precomputed patch embeddings, ``batch["frontend_embeds"]``) goes ahead of
 the text in the training forward, the loss (which drops its rows) and the
 prefill (``_decoder_input``); the paged chunk, decode and verify steps see
-text only, at positions past the image.
+text only, at positions past the image. An encoder-decoder's frames
+(``batch["frontend_embeds"]``, (B, T, d) precomputed audio frame
+embeddings) go through the bidirectional encoder (:func:`encode`), whose
+output is the memory every decoder block's cross-attention reads; the
+prefill keeps it in the state (``state["memory"]``) beside each layer's
+cross caches. An audio config without an encoder drops the frames, as JAX
+does.
 Parameters are an :class:`LM` module holding the same tree as the JAX
 package (``embed/table``, the per-layer blocks, ``final_norm/scale``,
-``head/w``); ``checkpoint.convert.params_from_jax`` carries a JAX tree
-across, and :func:`init_params` draws a fresh one from a seeded
-``torch.Generator`` on the target device.
+``head/w``, and an encoder-decoder's ``enc_stack`` and ``enc_norm``);
+``checkpoint.convert.params_from_jax`` carries a JAX tree across, and
+:func:`init_params` draws a fresh one from a seeded ``torch.Generator`` on
+the target device.
 
 Decode states are updated in place: pool pages and dense rings by the
 attention writes, a Mamba layer's ``{"conv", "ssm"}`` and an RG-LRU
@@ -24,6 +31,7 @@ position the next token takes) by :func:`decode_step`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -51,12 +59,14 @@ from repro_torch.models.stack import LayerSpec, layer_specs
 class LM(nn.Module):
     def __init__(
         self, embed: Embed, stack: stack_mod.Stack, final_norm: Norm,
-        head: Optional[Head],
+        head: Optional[Head], enc_stack: Optional[stack_mod.Stack] = None,
+        enc_norm: Optional[Norm] = None,
     ):
         super().__init__()
         self.embed, self.stack, self.final_norm, self.head = (
             embed, stack, final_norm, head
         )
+        self.enc_stack, self.enc_norm = enc_stack, enc_norm
 
 
 def init_params(
@@ -71,7 +81,9 @@ def init_params(
     norm scales, the head, a tied embedding table and the recurrent
     mixers' vectors (Mamba's ``conv_b``, ``dt_bias``, ``A_log``, ``D``; the
     RG-LRU's ``conv_b``, ``bias_a``, ``bias_x``, ``lam``) stay f32, as JAX
-    reads them in f32."""
+    reads them in f32. An encoder-decoder's decoder blocks hold the cross
+    attention, and its encoder (``enc_stack``, ``enc_norm``) is drawn
+    last, as JAX builds it from ``_encoder_cfg``."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     stack_mod.check_served(cfg)
@@ -79,12 +91,36 @@ def init_params(
         gen, cfg.vocab_padded, cfg.d_model,
         torch.float32 if cfg.tie_embeddings else dtype,
     )
-    stack = stack_mod.Stack.init(cfg, gen, dtype)
+    stack = stack_mod.Stack.init(cfg, gen, dtype, cross=cfg.is_encdec)
     final_norm = Norm.init(cfg.norm, cfg.d_model, gen.device)
     head = None
     if not cfg.tie_embeddings:
         head = Head(dense_init(gen, cfg.d_model, cfg.vocab_padded))
-    return LM(embed, stack, final_norm, head)
+    enc = {}
+    if cfg.is_encdec:
+        enc = dict(enc_stack=stack_mod.Stack.init(_encoder_cfg(cfg), gen, dtype),
+                   enc_norm=Norm.init(cfg.norm, cfg.d_model, gen.device))
+    return LM(embed, stack, final_norm, head, **enc)
+
+
+def _encoder_cfg(cfg: ArchConfig) -> ArchConfig:
+    """The encoder's config: ``enc_layers`` attention layers with a dense
+    FFN and no frontend (JAX's ``_encoder_cfg``)."""
+    return dataclasses.replace(
+        cfg, name=cfg.name + "-enc", n_layers=cfg.enc_layers, enc_layers=0,
+        pattern=("attn",), ffn_kind="dense", frontend=None,
+    )
+
+
+def encode(cfg: ArchConfig, params: LM, embeds: torch.Tensor, rt: Runtime) -> torch.Tensor:
+    """The bidirectional encoder over precomputed frame embeddings (B, T, d),
+    cast to the compute dtype, then ``enc_norm``: the memory (B, T, d). Its
+    attention is K1 on a CUDA tensor, not causal."""
+    enc_cfg = _encoder_cfg(cfg)
+    specs = layer_specs(enc_cfg, seq_len=embeds.shape[1])
+    x, _, _ = stack_mod.stack_forward(enc_cfg, params.enc_stack, embeds.to(rt.dtype), rt,
+                                      specs, causal=False)
+    return norm_apply(params.enc_norm, x, cfg.norm)
 
 
 def _logits(cfg: ArchConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
@@ -95,19 +131,21 @@ def _logits(cfg: ArchConfig, params: LM, x: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------------------ training
 def _decoder_input(
     cfg: ArchConfig, params: LM, batch: Dict[str, torch.Tensor], rt: Runtime
-) -> Tuple[torch.Tensor, int]:
-    """(x (B, P + S, d), n_prefix): the embedded tokens, behind a vision
-    config's image prefix ``batch["frontend_embeds"]`` (B, P, d), cast to
-    the compute dtype before the concatenation as in JAX; n_prefix = P, the
-    positions that are not text (0 without a frontend)."""
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], int]:
+    """(x (B, P + S, d), memory, n_prefix): the embedded tokens, behind a
+    vision config's image prefix ``batch["frontend_embeds"]`` (B, P, d),
+    cast to the compute dtype before the concatenation as in JAX; n_prefix
+    = P, the positions that are not text (0 without a frontend). memory is
+    an encoder-decoder's encoded frames (:func:`encode`), else None; an
+    audio config without an encoder drops its frames."""
     tok = embed_apply(params.embed, batch["tokens"], rt.dtype)
+    if cfg.frontend == "vision":
+        img = torch.as_tensor(batch["frontend_embeds"]).to(tok.device, rt.dtype)
+        return torch.cat([img, tok], dim=1), None, img.shape[1]
     if cfg.is_encdec:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder is ROADMAP queue 1 item 4d")
-    if cfg.frontend != "vision":
-        return tok, 0
-    img = torch.as_tensor(batch["frontend_embeds"]).to(tok.device, rt.dtype)
-    return torch.cat([img, tok], dim=1), img.shape[1]
+        frames = torch.as_tensor(batch["frontend_embeds"]).to(tok.device)
+        return tok, encode(cfg, params, frames, rt), 0
+    return tok, None, 0
 
 
 def forward_hidden(
@@ -115,10 +153,11 @@ def forward_hidden(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Training forward up to (not including) the vocab projection.
     Returns (hidden (B, P + S, d) after the final norm, aux); P is a vision
-    config's image prefix (0 otherwise)."""
-    x, _ = _decoder_input(cfg, params, batch, rt)
+    config's image prefix (0 otherwise); an encoder-decoder's decoder
+    attends its encoded frames."""
+    x, memory, _ = _decoder_input(cfg, params, batch, rt)
     specs = layer_specs(cfg, seq_len=x.shape[1], long_variant=rt.long_variant)
-    x, aux, _ = stack_mod.stack_forward(cfg, params.stack, x, rt, specs)
+    x, aux, _ = stack_mod.stack_forward(cfg, params.stack, x, rt, specs, memory=memory)
     return norm_apply(params.final_norm, x, cfg.norm), aux
 
 
@@ -236,7 +275,10 @@ def prefill(
     """Forward over the prompt (behind a vision config's image prefix);
     returns the f32 logits (B, V) of one position and the dense decode state
     ``{"caches", "t"}``. Positions, ``gather_pos``, the caches and ``t``
-    count the image's P positions ahead of the text.
+    count the image's P positions ahead of the text. An encoder-decoder's
+    state also holds ``memory``, the encoded frames, and each layer's cache
+    is ``{"self", "ck", "cv"}`` (the cross caches hold memory's k and v);
+    the frames are no decoder positions.
 
     ``max_len`` sizes the rings for the decode horizon (default the prompt
     length); a Mamba or RG-LRU layer's state is O(1) whatever it is. ``gather_pos``
@@ -245,7 +287,7 @@ def prefill(
     ``full_cache`` sizes every attention ring, sliding-window ones too, to
     the horizon, as the page pool keeps every position. The final norm and
     the head run on that one row."""
-    x, _ = _decoder_input(cfg, params, batch, rt)
+    x, memory, _ = _decoder_input(cfg, params, batch, rt)
     S = x.shape[1]
     specs = layer_specs(cfg, seq_len=S, long_variant=rt.long_variant)
     cache_specs = layer_specs(cfg, seq_len=max_len or S, long_variant=rt.long_variant)
@@ -253,11 +295,15 @@ def prefill(
         cache_specs = tuple(s._replace(cache_len=max_len or S)
                             if s.kind in ("attn", "local") else s for s in cache_specs)
     x, _, caches = stack_mod.stack_forward(
-        cfg, params.stack, x, rt, specs, collect_cache=True, cache_specs=cache_specs,
+        cfg, params.stack, x, rt, specs, memory=memory, collect_cache=True,
+        cache_specs=cache_specs,
     )
     i = S - 1 if gather_pos is None else gather_pos
     logits = _logits(cfg, params, x[:, i: i + 1].contiguous())
-    return logits[:, 0], {"caches": caches, "t": S}
+    state = {"caches": caches, "t": S}
+    if memory is not None:
+        state["memory"] = memory
+    return logits[:, 0], state
 
 
 def init_decode_state(
@@ -265,7 +311,8 @@ def init_decode_state(
 ) -> Dict[str, Any]:
     """Empty rings sized for a ``seq_len`` context (and zero Mamba and RG-LRU states),
     on the parameters' device, at position ``seq_len - 1`` (the dry-run /
-    bench entry)."""
+    bench entry). An encoder-decoder's caches add zero cross caches and its
+    state a zero memory, ``frontend_tokens`` rows each."""
     dev = params.embed.table.device
     specs = layer_specs(cfg, seq_len=seq_len, long_variant=rt.long_variant)
     caches = [
@@ -274,7 +321,15 @@ def init_decode_state(
         attn_mod.init_kv_cache(B, s.cache_len, cfg.n_kv_heads, cfg.head_dim, rt.dtype, dev)
         for s, bp in zip(specs, params.stack.layers)
     ]
-    return {"caches": caches, "t": seq_len - 1}
+    state: Dict[str, Any] = {"caches": caches, "t": seq_len - 1}
+    if cfg.is_encdec:
+        T = cfg.frontend_tokens
+        cross = (B, T, cfg.n_kv_heads, cfg.head_dim)
+        state["caches"] = [
+            {"self": c, "ck": torch.zeros(cross, dtype=rt.dtype, device=dev),
+             "cv": torch.zeros(cross, dtype=rt.dtype, device=dev)} for c in caches]
+        state["memory"] = torch.zeros((B, T, cfg.d_model), dtype=rt.dtype, device=dev)
+    return state
 
 
 def decode_step(
@@ -287,7 +342,8 @@ def decode_step(
 ) -> torch.Tensor:
     """One dense decode step at ``state["t"]`` for the whole batch. token:
     (B,) ids. Returns f32 logits (B, V); writes the rings, steps the Mamba
-    and RG-LRU states and advances ``state["t"]`` in place."""
+    and RG-LRU states and advances ``state["t"]`` in place. An
+    encoder-decoder's token also attends each layer's cross caches."""
     specs = layer_specs(cfg, seq_len=seq_len, long_variant=rt.long_variant)
     x = embed_apply(params.embed, token[:, None], rt.dtype)
     x = stack_mod.stack_decode(cfg, params.stack, x, state["caches"], state["t"], rt, specs)

@@ -5,6 +5,9 @@ SSM (``models/ssm.py``) or an RG-LRU (``models/rglru.py``) and whose FFN
 is a dense MLP, a MoE (``models/moe.py``, with an optional always-on
 ``extra_mlp``) or none (the SSM family's mixer-only blocks); the forward
 sums the MoE layers' router aux, the serving steps drop it, as JAX does.
+An encoder-decoder's decoder blocks also hold a cross-attention over the
+encoder's output (``memory``), after the mixer (JAX's ``_cross_apply``);
+its encoder is a stack of its own (``lm.encode``).
 
 Counterpart of ``stack_forward``, ``write_prefill_to_pool``,
 ``stack_decode`` (dense and paged), the paged prefill and the pipeline stage
@@ -30,9 +33,10 @@ pool[:, src]`` per tensor and layer ``i`` works on the contiguous views
 "pos"}`` ring per layer (``attention.init_kv_cache``), where JAX stacked
 them per segment; a Mamba layer's collected state is ``{"conv", "ssm"}``
 (``ssm.mamba_apply``), an RG-LRU layer's ``{"conv", "h"}``
-(``rglru.rglru_apply``), and the dense decode advances them. The paged
-pools hold attention layers only: a recurrent family is served dense, as in
-JAX.
+(``rglru.rglru_apply``), and the dense decode advances them; a cross
+block's is ``{"self": its ring, "ck", "cv"}``, memory's k and v, which the
+decode reads. The paged pools hold attention layers only: a recurrent
+family and the encoder-decoder are served dense, as in JAX.
 
 A pipeline stage is a slice of ``Stack.layers`` (the counterpart of
 ``stage_layer_params`` slicing the stacked leaves), applied by
@@ -125,21 +129,16 @@ def param_layout(cfg: ArchConfig) -> Tuple[Slot, ...]:
 
 
 def check_served(cfg: ArchConfig) -> None:
-    """Raise for what the port does not run yet: encoder-decoder and
-    audio-frontend configs. Attention stacks (with the vision prefix), pure
-    Mamba stacks and the RG-LRU hybrid (rglru and local layers) are
-    served."""
+    """Raise for a mixer pattern the port does not run. Attention stacks
+    (with the vision prefix, or as the decoder of an encoder-decoder behind
+    the audio frames), pure Mamba stacks and the RG-LRU hybrid (rglru and
+    local layers) are served."""
     kinds = set(cfg.pattern)
     attention = (kinds <= {"attn", "local"} or kinds <= {"rglru", "local"}) and cfg.n_heads
     if not (attention or kinds == {"mamba"}):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.pattern} mixers are ROADMAP queue 1 item 4, "
             "'the other families'"
-        )
-    if cfg.is_encdec or cfg.frontend not in (None, "vision"):
-        raise NotImplementedError(
-            f"{cfg.name}: enc-dec or frontend {cfg.frontend!r} is ROADMAP queue 1 "
-            "item 4, 'the other families'"
         )
 
 
@@ -151,18 +150,23 @@ class Block(nn.Module):
     ``norm2``. A MoE block may hold ``extra_mlp``, one always-on gated MLP
     whose output adds to the routed one: the shared experts and Arctic's
     dense residual FFN, their hidden units concatenated (exact for
-    independent gated MLPs, as in JAX)."""
+    independent gated MLPs, as in JAX). An encoder-decoder's decoder block
+    also holds ``norm_x`` -> ``cross``, the cross-attention over the encoder
+    output, between the mixer and the FFN."""
 
     def __init__(self, norm1: Norm,
                  mixer: Union[attn_mod.Attention, ssm_mod.Mamba, rglru_mod.RGLRU],
                  norm2: Optional[Norm] = None, ffn: Union[MLP, moe_mod.MoE, None] = None,
-                 extra_mlp: Optional[MLP] = None):
+                 extra_mlp: Optional[MLP] = None, norm_x: Optional[Norm] = None,
+                 cross: Optional[attn_mod.Attention] = None):
         super().__init__()
         self.norm1, self.mixer, self.norm2, self.ffn = norm1, mixer, norm2, ffn
         self.extra_mlp = extra_mlp
+        self.norm_x, self.cross = norm_x, cross
 
     @classmethod
-    def init(cls, cfg: ArchConfig, gen: torch.Generator, dtype, kind: str) -> "Block":
+    def init(cls, cfg: ArchConfig, gen: torch.Generator, dtype, kind: str,
+             cross: bool = False) -> "Block":
         dev = gen.device
         norm1 = Norm.init(cfg.norm, cfg.d_model, dev)
         if kind == "mamba":
@@ -175,19 +179,25 @@ class Block(nn.Module):
             mixer = attn_mod.Attention.init(
                 gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, dtype
             )
+        xattn = {}
+        if cross:
+            xattn = dict(norm_x=Norm.init(cfg.norm, cfg.d_model, dev),
+                         cross=attn_mod.Attention.init(gen, cfg.d_model, cfg.n_heads,
+                                                       cfg.n_kv_heads, cfg.head_dim, dtype))
         if cfg.ffn_kind == "none":
-            return cls(norm1, mixer)
+            return cls(norm1, mixer, **xattn)
         norm2 = Norm.init(cfg.norm, cfg.d_model, dev)
         if cfg.ffn_kind == "dense":
             return cls(norm1, mixer, norm2,
-                       MLP.init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype))
+                       MLP.init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_gated, dtype), **xattn)
         ffn = moe_mod.init_moe(gen, cfg.d_model, cfg.d_ff, cfg.n_experts, cfg.mlp_gated,
                                dtype)
         extra = cfg.n_shared_experts * cfg.d_ff + (
             cfg.residual_d_ff if cfg.dense_residual else 0
         )
         return cls(norm1, mixer, norm2, ffn,
-                   MLP.init(gen, cfg.d_model, extra, cfg.mlp_gated, dtype) if extra else None)
+                   MLP.init(gen, cfg.d_model, extra, cfg.mlp_gated, dtype) if extra else None,
+                   **xattn)
 
 
 class Stack(nn.Module):
@@ -202,9 +212,12 @@ class Stack(nn.Module):
             raise ValueError(f"{len(self.layout)} slots for {len(layers)} layers")
 
     @classmethod
-    def init(cls, cfg: ArchConfig, gen: torch.Generator, dtype) -> "Stack":
+    def init(cls, cfg: ArchConfig, gen: torch.Generator, dtype,
+             cross: bool = False) -> "Stack":
+        """``cross``: decoder blocks of an encoder-decoder (``Block.norm_x``,
+        ``Block.cross``)."""
         check_served(cfg)
-        return cls([Block.init(cfg, gen, dtype, kind) for kind in cfg.mixer_kinds()],
+        return cls([Block.init(cfg, gen, dtype, kind, cross) for kind in cfg.mixer_kinds()],
                    param_layout(cfg))
 
 
@@ -288,11 +301,15 @@ RECURRENT = {"mamba": (ssm_mod.mamba_apply, ssm_mod.mamba_decode),
 def _layer_apply(
     cfg: ArchConfig, bp: Block, x: torch.Tensor, spec: LayerSpec, rt: Runtime,
     positions: torch.Tensor, causal: bool, collect: bool = False, cache_len: int = 0,
+    memory: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[Dict[str, torch.Tensor]]]:
     """One layer: (x, aux, cache). With ``collect`` the cache is an
     attention layer's ring of ``cache_len`` rows, filled from the k/v that
     attention consumed, a Mamba layer's ``{"conv", "ssm"}`` state or an
-    RG-LRU layer's ``{"conv", "h"}`` after the last position."""
+    RG-LRU layer's ``{"conv", "h"}`` after the last position. A cross
+    block given the encoder ``memory`` attends it after the mixer, and
+    collects ``{"self": that cache, "ck", "cv"}``: memory's k and v (B, T,
+    Kv, hd), as K1 consumed them (JAX's ``memory @ wk``, ``memory @ wv``)."""
     h = norm_apply(bp.norm1, x, cfg.norm)
     cache = None
     if spec.kind in RECURRENT:
@@ -311,14 +328,24 @@ def _layer_apply(
                                        cfg.head_dim, k.dtype, k.device),
                 k, kv["v"], positions,
             )
-    x, aux = _ffn_apply(cfg, bp, x + out)
+    x = x + out
+    if memory is not None and bp.cross is not None:
+        out, ckv = attn_mod.attention_apply(
+            bp.cross, norm_apply(bp.norm_x, x, cfg.norm), n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim, theta=cfg.rope_theta,
+            memory=memory, collect_kv=collect,
+        )
+        x = x + out
+        if collect:
+            cache = {"self": cache, "ck": ckv["k"], "cv": ckv["v"]}
+    x, aux = _ffn_apply(cfg, bp, x)
     return x, aux, cache
 
 
-def _group_apply(cfg, rt, blocks, specs, positions, causal, x):
+def _group_apply(cfg, rt, blocks, specs, positions, causal, memory, x):
     total = None
     for bp, spec in zip(blocks, specs):
-        x, aux, _ = _layer_apply(cfg, bp, x, spec, rt, positions, causal)
+        x, aux, _ = _layer_apply(cfg, bp, x, spec, rt, positions, causal, memory=memory)
         total = _add_aux(total, aux)
     return x, total
 
@@ -346,13 +373,10 @@ def stack_forward(
     cache per layer: an attention layer's ring of
     ``cache_specs[i].cache_len`` rows (default ``specs``), so a prefill can
     size its caches for a longer decode horizon, or a Mamba layer's decode
-    state. Collection is for serving: it runs the layers without remat."""
+    state. ``memory`` (B, T, d), an encoder's output, feeds every cross
+    block, whose cache is ``{"self", "ck", "cv"}`` (``_layer_apply``).
+    Collection is for serving: it runs the layers without remat."""
     check_served(cfg)
-    if memory is not None:
-        raise NotImplementedError(
-            "encoder memory (cross-attention) is ROADMAP queue 1 item 4, "
-            "'the other families'"
-        )
     B, S = x.shape[0], x.shape[1]
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
@@ -364,14 +388,15 @@ def stack_forward(
         caches = []
         for bp, spec, cspec in zip(layers, specs, cache_specs):
             x, aux, cache = _layer_apply(cfg, bp, x, spec, rt, positions, causal,
-                                         collect=True, cache_len=cspec.cache_len)
+                                         collect=True, cache_len=cspec.cache_len,
+                                         memory=memory)
             total = _add_aux(total, aux)
             caches.append(cache)
     else:
         k = rt.remat_period
         for i in range(0, len(layers), k):
             fn = functools.partial(_group_apply, cfg, rt, layers[i:i + k], specs[i:i + k],
-                                   positions, causal)
+                                   positions, causal, memory)
             x, aux = _remat(rt, fn, x)
             total = _add_aux(total, aux)
     if total is None:
@@ -454,21 +479,30 @@ def stack_decode(
 
     Dense (``tables`` None): ``caches`` are the per-layer caches of
     ``stack_forward(collect_cache=True)`` (rings, and Mamba and RG-LRU
-    states, whose dicts take the next state) and ``t`` the int position
-    shared by the batch. Paged: ``caches`` are the page pools, ``t`` the (B,) per-slot
-    lengths, and each slot decodes at its own depth."""
+    states, whose dicts take the next state; a cross block's ``{"self",
+    "ck", "cv"}``, whose token also attends the cached encoder k/v) and
+    ``t`` the int position shared by the batch. Paged: ``caches`` are the
+    page pools, ``t`` the (B,) per-slot lengths, and each slot decodes at
+    its own depth."""
     if tables is None:
         for bp, spec, cache in zip(stack.layers, specs, caches):
+            self_c = cache if bp.cross is None else cache["self"]
             hn = norm_apply(bp.norm1, x, cfg.norm)
             if spec.kind in RECURRENT:
-                out, nxt = RECURRENT[spec.kind][1](bp.mixer, hn, cache)
-                cache.update(nxt)
+                out, nxt = RECURRENT[spec.kind][1](bp.mixer, hn, self_c)
+                self_c.update(nxt)
             else:
                 out = attn_mod.attention_decode(
-                    bp.mixer, hn, cache, t, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
+                    bp.mixer, hn, self_c, t, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
                     head_dim=cfg.head_dim, theta=cfg.rope_theta, window=spec.window,
                 )
-            x, _ = _ffn_apply(cfg, bp, x + out)
+            x = x + out
+            if bp.cross is not None:
+                x = x + attn_mod.cross_decode(
+                    bp.cross, norm_apply(bp.norm_x, x, cfg.norm), cache["ck"], cache["cv"],
+                    n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                )
+            x, _ = _ffn_apply(cfg, bp, x)
         return x
     pools, lengths = caches, t
     if active is None:
@@ -532,6 +566,6 @@ def stack_stage_apply(
     B, S = x.shape[0], x.shape[1]
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None].expand(B, S)
     for bp in layers:
-        fn = functools.partial(_group_apply, cfg, rt, [bp], [spec], positions, True)
+        fn = functools.partial(_group_apply, cfg, rt, [bp], [spec], positions, True, None)
         x, _ = _remat(rt, fn, x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)

@@ -10,7 +10,10 @@ serves only here, prefill by their scans and decode by their recurrent
 steps, both plain PyTorch as in JAX, with K3 on every norm: a Mamba stack
 (the SSM family), and the RG-LRU hybrid, whose local-attention layers
 prefill through K1 and decode over window-sized rings like any attention
-layer.
+layer. An encoder-decoder, which JAX also serves only here, encodes each
+row's frames in the prefill (K1 over the frames, not causal) and runs its
+cross-attention there through K1 too; its decode attends the cross caches
+in plain PyTorch, as JAX's ``_cross_decode``.
 
 Sampling is the serve engine's ``SamplingPolicy``: greedy, or row b's token
 i drawn from the stream ``(seed, stream_ids[b], i)``. The engine passes its
@@ -43,9 +46,10 @@ def generate_dense(
 ) -> Tuple[torch.Tensor, Dict[str, Any], float]:
     """Batched dense generation over equal-length prompts ``batch["tokens"]``
     (B, S) on the parameters' device, behind a vision config's image prefix
-    ``batch["frontend_embeds"]`` (B, P, d), which the rings hold too; a
-    recurrent layer (Mamba, RG-LRU) carries its O(1) state instead of a
-    ring.
+    ``batch["frontend_embeds"]`` (B, P, d), which the rings hold too, or
+    with an encoder-decoder's frames there (B, T, d), which the horizon
+    does not count; a recurrent layer (Mamba, RG-LRU) carries its O(1)
+    state instead of a ring.
     Returns (tokens (B, max_new) int32, the final decode state, ttft_s):
     ttft_s is the wall time of the prefill and the first sample, ending in a
     sync of the card."""

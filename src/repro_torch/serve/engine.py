@@ -21,9 +21,9 @@ runs them as one ``serve.dense.generate_dense`` batch over ring caches (and
 Mamba or RG-LRU states). ``paged=None`` picks the paged engine where every
 mixer keeps a KV cache (``paged_supported``) and the dense fallback
 otherwise: the SSM family and the RG-LRU hybrid, whose decode state is not
-(all) a KV cache, are served dense, and ``paged=True`` on them raises
-``ValueError``, as in JAX. A ``kv_dtype`` changes nothing on the dense
-path.
+(all) a KV cache, and the encoder-decoder, whose cross caches have no pool,
+are served dense, and ``paged=True`` on them raises ``ValueError``, as in
+JAX. A ``kv_dtype`` changes nothing on the dense path.
 
 Where JAX ran one jitted program with a ``lax.scan`` over the decode steps
 and donated the pool buffers, this engine runs a Python loop and writes the
@@ -75,9 +75,17 @@ admitted whole, under the prefix cache or chunked prefill too: the radix
 key is token ids, which cannot see the image, and the chunk step embeds
 text only (``_use_chunked``). Its pages never enter the prefix cache.
 
+An encoder-decoder's request carries its audio frames (``submit``'s
+``frontend_embeds``, (frontend_tokens, d) precomputed frame embeddings),
+which the encoder reads; they are no decoder positions, so
+``_prompt_total`` and the dense KV price leave them out, and the price has
+no share for the cross caches, as JAX's ``dense_kv_bytes`` has none. The
+dense tick stacks the requests' frames. An audio config without an encoder
+(seamless's decoder alone) is served like a text config, paged by default
+and admitted whole; frames given to it are dropped, as in JAX.
+
 Not ported yet (each raises ``NotImplementedError`` at construction,
-naming its ROADMAP item): the families whose mixers are not ported (RG-LRU,
-encoder-decoder), and meshes and replicated engines.
+naming its ROADMAP item): meshes and replicated engines.
 """
 from __future__ import annotations
 
@@ -404,23 +412,27 @@ class ServeEngine:
         on_token=None,
     ) -> int:
         """Enqueue a request; returns its rid. ``frontend_embeds``: a vision
-        config's image prefix, (frontend_tokens, d_model), required there and
-        refused elsewhere. ``on_token(rid, tokens, done)`` gets each newly
+        config's image prefix or an encoder-decoder's audio frames,
+        (frontend_tokens, d_model), required there, ignored by an audio
+        config without an encoder, and refused by a config without a
+        frontend. ``on_token(rid, tokens, done)`` gets each newly
         delivered token batch (``done`` None while streaming, then
         ``"complete"`` / ``"cancelled"`` once). Raises before any engine
         state changes (shape or capacity ValueError, scheduler.QueueFull)."""
         if max_new < 1:
             raise ValueError("max_new must be >= 1")
         cfg = self.cfg
-        if cfg.frontend == "vision":
+        if cfg.frontend == "vision" or cfg.is_encdec:
             want = (cfg.frontend_tokens, cfg.d_model)
             if frontend_embeds is None or tuple(frontend_embeds.shape) != want:
                 raise ValueError(
                     f"{cfg.name} needs frontend_embeds of shape {want}, got "
                     f"{None if frontend_embeds is None else tuple(frontend_embeds.shape)}")
             frontend_embeds = torch.as_tensor(frontend_embeds).float().cpu().numpy()
-        elif frontend_embeds is not None:
+        elif frontend_embeds is not None and cfg.frontend is None:
             raise ValueError(f"{cfg.name} has no modality frontend: no frontend_embeds")
+        else:                    # an audio decoder without an encoder drops its frames
+            frontend_embeds = None
         req = Request(
             rid=self._next_rid,
             tokens=np.asarray(tokens, np.int32).reshape(-1),

@@ -11,7 +11,9 @@ serving package:
   RG-LRU hybrid) has no pool and raises ``ValueError``, as the engine does.
 
 Both run on the parameters' device, a vision config's batch with its image
-prefixes. Greedy outputs are the same on both paths.
+prefixes. Greedy outputs are the same on both paths. An encoder-decoder's
+batch carries its frames and is served dense only (``paged=True`` raises,
+as in JAX).
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ def generate(
     """Returns (tokens (B, max_new_tokens) int32 on the parameters' device,
     the final dense decode state, or with ``paged=True`` the engine's stats).
     ``batch["tokens"]``: (B, S) ids, a tensor or an array; a vision config's
-    ``batch["frontend_embeds"]``: (B, P, d) image prefixes."""
+    ``batch["frontend_embeds"]``: (B, P, d) image prefixes (an
+    encoder-decoder's: (B, T, d) frames)."""
     device = params.embed.table.device
     tokens = torch.as_tensor(batch["tokens"]).to(device=device, dtype=torch.int32)
     fe = batch.get("frontend_embeds")

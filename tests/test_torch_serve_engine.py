@@ -458,14 +458,6 @@ def test_radix_split_and_lru_eviction_of_idle_leaves():
 
 # ---------------------------------------------------------------- rejections
 REJECT = {
-    # seamless-m4t-medium's decoder alone (no encoder): JAX serves it dense
-    # only, and its audio frontend is still to port
-    "dense family": lambda m: ServeEngine(
-        t_get_reduced("seamless-m4t-medium", enc_layers=0), m("granite-8b")[3], TRT,
-        EngineConfig(**BASE), device="cpu"),
-    "encoder-decoder": lambda m: ServeEngine(
-        t_get_reduced("seamless-m4t-medium"), m("granite-8b")[3], TRT,
-        EngineConfig(**BASE), device="cpu"),
     "replicated": lambda m: ReplicatedServeEngine(*m("granite-8b")[2:], TRT),
 }
 

@@ -16,9 +16,8 @@ package, on the CPU in f32 (plain attention), at reduced sizes.
   a length that is not a multiple of it, where the JAX ring cache is wrong:
   ROADMAP queue 3), JAX's ``generate`` where its ring is exact, and the port's
   paged ``generate``.
-* ``ServeEngine(paged=False)`` batches same-shape requests; families whose
-  mixers are not ported still raise; the launcher serves whole-prompt and
-  dense on the CPU.
+* ``ServeEngine(paged=False)`` batches same-shape requests; the launcher
+  serves whole-prompt and dense on the CPU.
 
 The JAX engines and prefills compile once per config and shape (module
 fixtures and JAX's own caches); prompts keep to a few lengths.
@@ -358,23 +357,6 @@ def test_dense_engine_batches_same_shape_requests(models):
             if temperature == 0.0:
                 want, _ = generate(tcfg, tparams, {"tokens": p[None]}, TRT, 5)
                 np.testing.assert_array_equal(out[rid], want[0].numpy())
-
-
-UNPORTED = {"audio-frontend": dict(enc_layers=0),      # seamless's decoder alone
-            "seamless-m4t-medium": {}}
-
-
-@pytest.mark.parametrize("name", sorted(UNPORTED))
-def test_unported_families_still_raise(models, name):
-    """The dense fallback serves the attention, SSM and RG-LRU families
-    only: seamless-m4t-medium's encoder-decoder, and its audio frontend
-    ahead of the decoder alone, raise at construction, naming ROADMAP item
-    4."""
-    _, _, _, tparams = models("granite-8b")
-    cfg = t_get_reduced("seamless-m4t-medium", **UNPORTED[name])
-    for paged in (None, False):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            ServeEngine(cfg, tparams, TRT, EngineConfig(), paged=paged, device="cpu")
 
 
 # ---------------------------------------------------------------- launcher

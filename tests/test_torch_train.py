@@ -51,7 +51,6 @@ from repro_torch.kernels.chunked_ce import chunked_ce, chunked_ce_plain
 from repro_torch.launch import train as launch_train
 from repro_torch.models import Runtime as TRuntime
 from repro_torch.models import init_paged_state, loss_fn, masked_token_ce
-from repro_torch.models.attention import Attention, attention_apply
 from repro_torch.models.stack import init_stack_pool, layer_specs
 from repro_torch.optim import Schedule, get
 from repro_torch.train import TrainConfig, fit, make_train_step
@@ -183,13 +182,6 @@ def test_loss_fn_and_grads_match_jax(name, B, S, fused):
         scale = max(float(np.abs(want[k]).max()), 1e-6)
         np.testing.assert_allclose(got[k], want[k], atol=2e-5 * scale, rtol=1e-3,
                                    err_msg=k)
-
-
-def test_attention_rejects_cross_attention():
-    p = Attention(*(torch.zeros(8, 8) for _ in range(4)))
-    with pytest.raises(NotImplementedError, match="other families"):
-        attention_apply(p, torch.zeros(1, 4, 8), n_heads=2, n_kv=1, head_dim=4,
-                        theta=1e4, memory=torch.zeros(1, 3, 8))
 
 
 # ----------------------------------------------------------------- training
